@@ -12,11 +12,19 @@
 //   weights; inclusive prefix sum of the sorted weights; each output g-bin
 //   j gets the overlap-weighted mean of the keys over [edge_j, edge_j+1).
 //
-// What bounds it on the card: operations, not bytes. One row reads 2*NG
-// and writes NG values (240 B in float32 at NG=20) but does 79,860
-// operations at NG=20 (45 bitonic stages x 256 compare-exchanges at E=512,
-// a min and a max each, plus 7 per (element, bin) pair of the 400 x 20
-// interval-overlap rebin; counted by chip_smoke.py:combine_ops_per_row).
+// What bounds it on the card: operations, by a little. One row reads 2*NG
+// and writes NG values (240 B in float32 at NG=20); the function needs
+// 5,753 operations per row at NG=20 with inputs sorted along g (400 pair
+// sums, 2,000 comparisons to merge the 20 sorted runs of 20 keys, 400
+// prefix-sum adds, 7 for each of the at most 419 (element, bin) overlaps
+// of the rebin, 20 divisions; chip_smoke.py:combine_ops_per_row). At
+// 581,632 rows that is 0.050 ms at the float32 peak against 0.042 ms for
+// the bytes at the HBM rate. This kernel does far more than that: 79,860
+// operations per row (the full bitonic network on 512 padded keys, 45
+// stages x 256 compare-exchanges of a min and a max, and every element
+// against every bin in the rebin), plus the warp shuffles, so it runs
+// well above the bound; a faster design merges the presorted runs and
+// rebins only the bins an element straddles.
 // The design keeps every intermediate in registers and never touches
 // shared or device memory between load and store:
 //   - one warp per row; lane l holds elements l*K .. l*K+K-1, K = E/32;

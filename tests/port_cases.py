@@ -126,6 +126,22 @@ def jax_headline_deck(nwave):
     return atm, laycfg, ktab, None, None, surf, cfg
 
 
+def gauss_del_g(ng: int) -> np.ndarray:
+    """Gauss-Legendre g-bin widths on [0, 1]."""
+    return 0.5 * np.polynomial.legendre.leggauss(ng)[1]
+
+
+def overlap_inputs(rows: int, ng: int, seed: int) -> tuple:
+    """Two (rows, NG) float64 arrays of sorted k-distributions with tied
+    and all-zero rows (as the JAX package's Pallas tests make them)."""
+    rng = np.random.default_rng(seed)
+    ta = np.sort(rng.uniform(0, 4, (rows, ng)), axis=1)
+    tb = np.sort(rng.uniform(0, 2, (rows, ng)), axis=1)
+    ta[:10] = 0.0
+    tb[5:15] = 0.0
+    return ta, tb
+
+
 def np64(x):
     """numpy float64 copy of a tensor or array."""
     if isinstance(x, torch.Tensor):

@@ -13,13 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from archnemesis_tpu_torch import convert, synthetic
 from archnemesis_tpu_torch.core.spectra import KTables
 from archnemesis_tpu_torch.forward import forward_nadir
 from archnemesis_tpu_torch.io.cia import read_cia_tab
 from archnemesis_tpu_torch.io.ktables import read_kls
 from archnemesis_tpu_torch.utils.device import resolve_device
+from port_cases import CIA_TAB
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "archnemesis_tpu_torch"
@@ -87,14 +87,14 @@ def test_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError):
         KTables.from_tables(tables)
     with pytest.raises(RuntimeError):
-        read_cia_tab(chip_smoke.CIA_TAB, dnu=1.0, npara=0)
+        read_cia_tab(CIA_TAB, dnu=1.0, npara=0)
     with pytest.raises(RuntimeError):
         convert.atmosphere(dict(h=np.zeros(3)))
     with pytest.raises(RuntimeError):
         synthetic.headline_deck(8)
     # asked for the CPU, each of them builds on the CPU
     assert KTables.from_tables(tables, device="cpu").k.device.type == "cpu"
-    assert read_cia_tab(chip_smoke.CIA_TAB, dnu=1.0, npara=0,
+    assert read_cia_tab(CIA_TAB, dnu=1.0, npara=0,
                         device="cpu").k_cia.device.type == "cpu"
 
 
