@@ -166,6 +166,20 @@ class SurfaceSpec:
     gasgiant: bool = static_field(default=True)
 
 
+@tensor_dataclass
+class StellarSpec:
+    """Stellar spectrum (reference ``Stellar_0``): luminosity spectral
+    density on a wave grid plus the planet's distance."""
+
+    wave: Any  # (NSOL,)
+    solspec: Any  # (NSOL,) luminosity spectral density (W (cm-1)-1 or W um-1)
+    dist: Any  # scalar [AU]
+    radius: Any  # scalar stellar radius [km]
+
+    solexist: bool = static_field(default=False)
+    ispace: int = static_field(default=0)
+
+
 def cast_deck(obj, dtype=torch.float32):
     """Cast every floating tensor of one structure to ``dtype``.
 

@@ -13,6 +13,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from archnemesis_tpu_torch.utils.path_redirect import resolve_path
+
 K_PACK_FACTOR = 1.0e20  # reference database/filetypes/lbltable.py:28
 
 
@@ -34,16 +36,15 @@ class KTableData:
 
 def _resolve_path(path: str, base: str, redirects=()) -> str:
     """Rewrite + resolve a table location: apply the first matching
-    (prefix, replacement) of ``redirects``, longest prefix first, then
-    anchor a relative path at ``base`` (the deck directory). The JAX
-    package's ``utils/path_redirect.py:resolve_path``, with the redirects
-    passed in rather than installed process-wide."""
+    (prefix, replacement) of ``redirects``, longest prefix first, then the
+    process-wide rewrites of ``utils.path_redirect``, and anchor a relative
+    path at ``base`` (the deck directory)."""
     for prefix, repl in sorted(redirects, key=lambda kv: len(kv[0]),
                                reverse=True):
         if path.startswith(prefix):
             path = repl + path[len(prefix):]
             break
-    return path if os.path.isabs(path) else os.path.join(base, path)
+    return resolve_path(path, base)
 
 
 def _read_kta_header(f):

@@ -46,7 +46,7 @@ def pair_weights(del_g: np.ndarray) -> np.ndarray:
     return (del_g[:, None] * del_g[None, :]).reshape(-1)
 
 
-def _combine_rows(w2, lo_e, hi_e, tau_a, tau_b):
+def _combine_rows(w2, lo_e, hi_e, tau_a, tau_b, dta=None, dtb=None):
     ng = tau_a.shape[-1]
     tau = (tau_a[:, :, None] + tau_b[:, None, :]).reshape(-1, ng * ng)
     tau_s, order = torch.sort(tau, dim=-1)
@@ -60,8 +60,16 @@ def _combine_rows(w2, lo_e, hi_e, tau_a, tau_b):
         - torch.maximum(glo[..., None], lo_e)
     ).clamp_min_(0.0)
     num = torch.einsum("rn,rnj->rj", tau_s, inter)
-    den = inter.sum(dim=-2)
-    return num / den.clamp_min(torch.finfo(tau.dtype).tiny)
+    den = inter.sum(dim=-2).clamp_min(torch.finfo(tau.dtype).tiny)
+    if dta is None:
+        return num / den
+    # tangents of the pair sums, carried through the primal's permutation
+    # and rebinned with its overlaps and denominators
+    dtau = (dta[:, :, :, None] + dtb[:, :, None, :]).reshape(
+        dta.shape[0], -1, ng * ng)
+    dtau_s = torch.gather(dtau, -1, order.expand(dtau.shape))
+    dnum = torch.einsum("trn,rnj->trj", dtau_s, inter)
+    return num / den, dnum / den
 
 
 def _combine_pair(w2, g_edges, tau_a, tau_b):
@@ -84,6 +92,27 @@ def _combine_pair(w2, g_edges, tau_a, tau_b):
         for r in range(0, a.shape[0], chunk)
     ]) if a.shape[0] else a.clone()
     return out.reshape(*batch, ng)
+
+
+def _combine_pair_with_tangents(w2, g_edges, tau_a, tau_b, dta, dtb):
+    """Fused primal + tangent combine (plain version): (R, NG) x2 and
+    (T, R, NG) x2 -> (out (R, NG), dout (T, R, NG)), chunked over rows."""
+    rows, ng = tau_a.shape
+    n_tan = dta.shape[0]
+    w2 = torch.as_tensor(w2, dtype=tau_a.dtype, device=tau_a.device)
+    g_edges = torch.as_tensor(g_edges, dtype=tau_a.dtype, device=tau_a.device)
+    lo_e, hi_e = g_edges[:-1], g_edges[1:]
+    chunk = max(1, _PLAIN_CHUNK_ELEMS // (ng**2 * max(ng, n_tan)))
+    outs, douts = [], []
+    for r in range(0, rows, chunk):
+        o, d = _combine_rows(w2, lo_e, hi_e, tau_a[r:r + chunk],
+                             tau_b[r:r + chunk], dta[:, r:r + chunk],
+                             dtb[:, r:r + chunk])
+        outs.append(o)
+        douts.append(d)
+    if not outs:
+        return tau_a.clone(), dta.clone()
+    return torch.cat(outs), torch.cat(douts, dim=1)
 
 
 def mix_gas_k(del_g, k_gas, amounts):
@@ -117,8 +146,8 @@ def mix_gas_k(del_g, k_gas, amounts):
     for i in range(1, ngas):
         tau_b = (k_wlg[..., i] * amounts[i][None, :, None]).contiguous()
         mixed = combine_pair(
-            tau.view(-1, ng), tau_b.view(-1, ng), del_g
-        ).view(nwave, nlay, ng)
+            tau.reshape(-1, ng), tau_b.reshape(-1, ng), del_g
+        ).reshape(nwave, nlay, ng)
         skip_b = (tau_b[..., -1] <= 0.0)[..., None]
         skip_a = (tau[..., -1] <= 0.0)[..., None]
         tau = torch.where(skip_b, tau, torch.where(skip_a, tau_b, mixed))

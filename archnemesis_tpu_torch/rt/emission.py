@@ -42,12 +42,18 @@ def thermal_emission_spectrum(
     -------
     spec : (NWAVE, NG, NPATH)
     """
-    taud = torch.cumsum(tau_path * mask[None, None, :, :], dim=2)
+    tau_l = tau_path * mask[None, None, :, :]
+    taud = torch.cumsum(tau_l, dim=2)
     tr = torch.exp(-taud)
     trold = torch.cat([torch.ones_like(tr[:, :, :1, :]), tr[:, :, :-1, :]],
                       dim=2)
     bb = planck(wave[:, None, None], emtemp[None, :, :], ispace)
-    spec = torch.einsum("wgjp,wjp->wgp", trold - tr, bb * mask[None, :, :])
+    # T_{j-1} - T_j = T_{j-1} (1 - exp(-tau_j)), with expm1: the plain
+    # difference of two transmissions near 1 loses every layer with
+    # tau < 6e-8 in float32, and with it the whole temperature Jacobian of
+    # the levels above the weighting functions
+    dtr = trold * (-torch.expm1(-tau_l))
+    spec = torch.einsum("wgjp,wjp->wgp", dtr, bb * mask[None, :, :])
 
     if surface_visible:
         tr_tot = tr[:, :, -1, :]  # transmission after full path

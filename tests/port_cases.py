@@ -11,6 +11,9 @@ import dataclasses
 import numpy as np
 import torch
 
+import chip_smoke
+from chip_smoke import tiefree_overlap_inputs  # noqa: F401
+
 from archnemesis_tpu.core.spectra import (
     AerosolOptics,
     KTables,
@@ -147,3 +150,34 @@ def np64(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().double().numpy()
     return np.asarray(x, dtype=np.float64)
+
+
+FDRET = "tests/fixtures/jupiter_fdret"
+
+
+def flat_deck(deck) -> dict:
+    """A JAX ``Deck``'s fields for ``convert.deck``: the component
+    structures and the host dataclasses flattened, the rest as they are."""
+    out = {}
+    for f in dataclasses.fields(deck):
+        v = getattr(deck, f.name)
+        out[f.name] = flat(v) if dataclasses.is_dataclass(v) else v
+    return out
+
+
+def flat_state_vector(sv) -> dict:
+    """A JAX ``StateVector``'s fields for ``convert.state_vector``."""
+    out = {f.name: getattr(sv, f.name) for f in dataclasses.fields(sv)}
+    out["entries"] = [
+        {**{f.name: getattr(e, f.name) for f in dataclasses.fields(e)},
+         "target": e.target.value}
+        for e in sv.entries
+    ]
+    return out
+
+
+def copy_deck(tmp_path_factory, name, deck=FDRET):
+    """A temporary copy of a deck with the shared k-tables linked beside it
+    (the deck's .kls names them by relative path); returns the deck
+    directory."""
+    return chip_smoke.copy_deck(deck, str(tmp_path_factory.mktemp(name)))
