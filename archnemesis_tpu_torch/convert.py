@@ -4,7 +4,9 @@ Each function takes one structure of the JAX package given as a dict of its
 fields (arrays as numpy, static fields as they are, e.g. built with
 ``{f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}``) and
 builds the port's counterpart, with its arrays as tensors on ``device``
-(None = CUDA). Both packages then compute on the same numbers.
+(None = CUDA); the line-data structures (``LineList``, ``RuntimeLBL``,
+``PseudoContinuum``) stay host numpy, as in the JAX package. Both packages
+then compute on the same numbers.
 
 A field the port's structure lacks is accepted only when it is ``None``:
 a set field that belongs to a later slice (e.g. the Hapke surface block)
@@ -30,7 +32,10 @@ from archnemesis_tpu_torch.core.types import Atmosphere, LayerConfig
 from archnemesis_tpu_torch.enums import RayleighScatteringMode, WaveUnit
 from archnemesis_tpu_torch.forward import ForwardConfig
 from archnemesis_tpu_torch.io.legacy import Deck, Geometry, RunSettings
+from archnemesis_tpu_torch.io.linedata import LineList, RuntimeLBL
 from archnemesis_tpu_torch.models.base import ModelEntry, ProfileTarget
+from archnemesis_tpu_torch.ops.lbl import LblBlocks
+from archnemesis_tpu_torch.ops.pseudo_continuum import PseudoContinuum
 from archnemesis_tpu_torch.retrieval.statevector import StateVector
 from archnemesis_tpu_torch.utils.device import resolve_device
 from archnemesis_tpu_torch.utils.pytree import tensor_fields
@@ -86,9 +91,9 @@ def surface_spec(fields: dict, device=None) -> SurfaceSpec:
 
 def forward_config(fields: dict) -> ForwardConfig:
     """ForwardConfig of the port from the JAX one's fields; fields that only
-    other slices read (runtime-LBL self-broadening columns, the scattering
-    wave tile) and the XLA combine's straddle count, which the port's
-    combines do not need, are not carried."""
+    other slices read (the scattering wave tile) and the XLA combine's
+    straddle count, which the port's combines do not need, are not
+    carried."""
     names = [f.name for f in dataclasses.fields(ForwardConfig)]
     kw = {n: fields[n] for n in names if n in fields}
     kw["ispace"] = WaveUnit(int(kw["ispace"]))
@@ -135,6 +140,54 @@ def run_settings(fields: dict) -> RunSettings:
         lowbc=LowerBoundaryCondition(st.lowbc))
 
 
+def _fields_of(obj) -> dict:
+    """A dataclass instance's fields as a dict; a dict as it is."""
+    if dataclasses.is_dataclass(obj):
+        return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+    return dict(obj)
+
+
+def line_list(fields) -> LineList:
+    """LineList of the port (host numpy, as in the JAX package) from the
+    fields of the JAX one (a dict or the instance itself)."""
+    return _host_dataclass(LineList, _fields_of(fields))
+
+
+def pseudo_continuum(fields) -> PseudoContinuum:
+    """PseudoContinuum of the port from the fields of the JAX one."""
+    return _host_dataclass(PseudoContinuum, _fields_of(fields))
+
+
+def lbl_blocks(fields) -> LblBlocks:
+    """LblBlocks of the port from the JAX one's fields, with each block's
+    line range (start, count) read off its gather indices and mask."""
+    f = _fields_of(fields)
+    counts = np.asarray(f["line_mask"]).sum(axis=1).astype(np.int64)
+    starts = np.where(counts > 0, np.asarray(f["line_idx"])[:, 0], 0)
+    kw = {k: f[k] for k in ("block_width", "n_blocks", "max_lines_per_block",
+                            "line_idx", "line_mask", "wn_pad", "n_wave")}
+    return LblBlocks(starts=starts.astype(np.int64), counts=counts, **kw)
+
+
+def runtime_lbl(fields) -> RuntimeLBL:
+    """RuntimeLBL of the port (a host structure: no device) from the JAX
+    one's fields; its line lists, blocks and pseudo-continua are carried
+    across as above. A wave-sharded one (``shard_data``/``mesh`` set)
+    raises: sharding is ROADMAP Queue 1 item 14."""
+    f = _fields_of(fields)
+    if f.get("shard_data") or f.get("mesh") is not None:
+        raise ValueError("a wave-sharded RuntimeLBL has no port yet "
+                         "(ROADMAP Queue 1 item 14)")
+    kw = {k: v for k, v in f.items() if k != "mesh"}
+    kw["line_lists"] = tuple(line_list(x) for x in f["line_lists"])
+    kw["blocks"] = tuple(lbl_blocks(x) for x in f.get("blocks", ()))
+    kw["pseudo_continuum"] = tuple(
+        None if x is None else pseudo_continuum(x)
+        for x in f.get("pseudo_continuum", ()))
+    kw["ilbl"] = int(kw.get("ilbl", 1))
+    return _host_dataclass(RuntimeLBL, kw)
+
+
 def deck(fields: dict, device=None) -> Deck:
     """A loaded deck carried across: ``fields`` maps each field of the JAX
     ``Deck`` to the flattened structure (a dict as the functions above take
@@ -147,6 +200,8 @@ def deck(fields: dict, device=None) -> Deck:
     for name, v in fields.items():
         if v is None:
             kw[name] = None
+        elif name == "ktables" and "line_lists" in v:
+            kw[name] = runtime_lbl(v)
         elif name in makers:
             kw[name] = makers[name](v, device=device)
         elif name == "layer_config":

@@ -1,6 +1,7 @@
 """Forward model: components -> synthetic nadir spectrum.
 
-Port of the correlated-k nadir path of the JAX package's ``forward.py``
+Port of the nadir path of the JAX package's ``forward.py``, with
+correlated-k, line-by-line table and runtime line-by-line gas opacity
 (reference ``ForwardModel_0`` nemesisfm :437 + CIRSrad :4376): a static
 ``ForwardConfig`` is built once on the host (gas index mappings, enums,
 quadrature constants), and ``forward_nadir`` is a plain function of the
@@ -28,10 +29,13 @@ from archnemesis_tpu_torch.enums import (
     SpectralCalculationMode,
     WaveUnit,
 )
+from archnemesis_tpu_torch.io.linedata import RuntimeLBL
 from archnemesis_tpu_torch.ops.cia import cia_tau
 from archnemesis_tpu_torch.ops.dust import dust_tau
 from archnemesis_tpu_torch.ops.ktab import interp_ktables
+from archnemesis_tpu_torch.ops.lbl import lbl_cross_section
 from archnemesis_tpu_torch.ops.overlap import mix_gas_k
+from archnemesis_tpu_torch.ops.pseudo_continuum import pseudo_continuum_k
 from archnemesis_tpu_torch.ops.rayleigh import rayleigh_tau
 from archnemesis_tpu_torch.rt.emission import (
     absorption_spectrum,
@@ -61,6 +65,9 @@ class ForwardConfig:
     ray_gas_idx: Tuple[Tuple[str, int], ...]  # for IRAY=4 (h2/he/ch4/nh3)
     del_g: Tuple[float, ...]  # host copy of the g-bin widths
     gasgiant: bool = True
+    # per spectroscopy gas: atmosphere columns sharing its gas id (self-
+    # broadening fraction for runtime LBL, ForwardModel_0.py:3822-3828)
+    amb_self_cols: Tuple[Tuple[int, ...], ...] = ()
     # atmosphere columns of CO2/N2/H2 for the analytic NIR CIA bands
     # (reference species scan, ForwardModel_0.py:4560-4584); -1 = absent
     ico2: int = -1
@@ -144,6 +151,11 @@ def make_forward_config(
             pair_q2.append(i2 if i2 is not None else 0)
             pair_active.append(1 if active else 0)
 
+    amb_self_cols = tuple(
+        tuple(i for i, ag in enumerate(atm.gas_id) if ag == g)
+        for g in ktab.gas_id
+    )
+
     ray_idx = []
     names = {39: "h2", 40: "he", 6: "ch4", 11: "nh3"}
     for i, (g, s) in enumerate(zip(atm.gas_id, atm.iso_id)):
@@ -172,6 +184,7 @@ def make_forward_config(
         ray_gas_idx=tuple(ray_idx),
         del_g=tuple(float(x) for x in del_g),
         gasgiant=gasgiant,
+        amb_self_cols=amb_self_cols,
         ico2=ico2,
         in2=in2,
         ih2=ih2,
@@ -192,6 +205,52 @@ def apply_dust_renorm(layers, atm: Atmosphere):
     return layers.replace(cont=new)
 
 
+def runtime_ambient_fraction(cfg: ForwardConfig, layers, gas: int):
+    """(NLAY,) ambient-gas fraction of one runtime-LBL gas: one minus its
+    self fraction, the summed layer-mean VMRs of the atmosphere columns of
+    its gas id (reference ForwardModel_0.py:3819-3848)."""
+    ave_vmr = torch.mean(layers.pp / layers.press[:, None], dim=0)
+    self_frac = torch.sum(ave_vmr[list(cfg.amb_self_cols[gas])])
+    return (1.0 - self_frac).expand(layers.nlay)
+
+
+def runtime_lbl_tau(cfg: ForwardConfig, layers, rt: RuntimeLBL, press_atm,
+                    amounts):
+    """Gas optical depths (NWAVE, 1, NLAY) of a runtime line-by-line deck:
+    per gas the on-the-fly line synthesis (reference calc_klbl_online
+    Spectroscopy_0.py:2046) plus its weak-line pseudo-continuum, times the
+    gas's layer amounts; NG = 1."""
+    if not isinstance(rt, RuntimeLBL):
+        raise TypeError(f"ILBL=1 (runtime line-by-line) needs a RuntimeLBL, "
+                        f"got {type(rt).__name__}")
+    dev = layers.temp.device
+    taugas = layers.temp.new_zeros((rt.wave.shape[0], layers.nlay))
+    for i in range(rt.ngas):
+        amb = runtime_ambient_fraction(cfg, layers, i)
+        if rt.include_lines[i] and rt.shard_data:
+            raise NotImplementedError(
+                "wave-sharded line synthesis: not ported yet (ROADMAP "
+                "Queue 1 item 14)")
+        k_i = 0.0
+        if rt.include_lines[i]:
+            k_i = lbl_cross_section(
+                rt.line_lists[i], rt.blocks[i], layers.temp, press_atm, amb,
+                lineshape=rt.lineshape[i], s_floor=rt.s_floor[i],
+                wn_calc_window=rt.wn_calc_window[i],
+                wn_approx_window=rt.wn_approx_window[i],
+                include_pressure_shift=rt.include_pressure_shift[i],
+                device=dev,
+            )  # (NWAVE, NLAY)
+        if rt.include_continuum[i] and rt.pseudo_continuum[i] is not None:
+            # weak-line pseudo-continuum (reference
+            # add_monochromatic_absorption LineData_0.py:2436-2460)
+            k_i = k_i + pseudo_continuum_k(
+                rt.pseudo_continuum[i], rt.wave, layers.temp, press_atm, amb,
+                lineshape=rt.lineshape[i])
+        taugas = taugas + k_i * amounts[i][None, :]
+    return taugas[:, None, :]
+
+
 def layer_optical_depths(
     cfg: ForwardConfig,
     layers,
@@ -201,7 +260,8 @@ def layer_optical_depths(
     aero: Optional[AerosolOptics],
 ):
     """Per-layer vertical optical depths (reference calculate_layer_opacity
-    ForwardModel_0.py:3905): gas (correlated-k mixed), CIA, Rayleigh, dust.
+    ForwardModel_0.py:3905): gas (correlated-k mixed, line-by-line tables,
+    or runtime line-by-line synthesis), CIA, Rayleigh, dust.
 
     Returns dict with taugas (NWAVE,NG,NLAY), taucia/tauray/taudust/tauscat
     (NWAVE,NLAY), tauclscat (NWAVE,NLAY,NDUST), tautot (NWAVE,NG,NLAY).
@@ -213,18 +273,17 @@ def layer_optical_depths(
     spec_idx = torch.as_tensor(cfg.spec_gas_idx, device=dev)
     amounts = layers.amount[:, spec_idx].T * SQ_CM_TO_SQ_M  # (NGAS, NLAY)
     if ktab.ilbl == SpectralCalculationMode.LINE_BY_LINE_RUNTIME:
-        raise NotImplementedError(
-            "runtime line-by-line opacity comes with the runtime-LBL slice "
-            "of the port"
-        )
-    k_gas = interp_ktables(ktab.k, ktab.press, ktab.temp, press_atm,
-                           layers.temp, logk=ktab.logk)
-    if ktab.ilbl == SpectralCalculationMode.LINE_BY_LINE_TABLES:
+        taugas = runtime_lbl_tau(cfg, layers, ktab, press_atm, amounts)
+    elif ktab.ilbl == SpectralCalculationMode.LINE_BY_LINE_TABLES:
+        k_gas = interp_ktables(ktab.k, ktab.press, ktab.temp, press_atm,
+                               layers.temp, logk=ktab.logk)
         # monochromatic: plain sum over gases, NG=1
         # (reference ForwardModel_0.py:3796-3818)
         taugas = torch.einsum("wglr,rl->wgl", k_gas, amounts)
     else:
         # correlated-k random overlap (ForwardModel_0.py:3853-3885)
+        k_gas = interp_ktables(ktab.k, ktab.press, ktab.temp, press_atm,
+                               layers.temp, logk=ktab.logk)
         taugas = mix_gas_k(cfg.del_g, k_gas, amounts)
 
     q_lay = layers.pp / layers.press[:, None]
@@ -345,14 +404,17 @@ def forward_nadir(
     device=None,
 ):
     """One nadir-geometry thermal-emission forward evaluation on the
-    k-table wave grid (reference nemesisfm for a single (IGEOM, IAV) +
-    CIRSrad). Returns the (NWAVE, 1) spectrum.
+    k-table (or runtime line-by-line) wave grid (reference nemesisfm for a
+    single (IGEOM, IAV) + CIRSrad). Returns the (NWAVE, 1) spectrum.
 
     The structures are moved to ``device`` first (None = CUDA; raises
-    without a card unless ``device="cpu"``).
+    without a card unless ``device="cpu"``); a ``RuntimeLBL`` stays on the
+    host and its synthesis runs on ``device``.
     """
     device = resolve_device(device)
-    atm, ktab = atm.to(device), ktab.to(device)
+    atm = atm.to(device)
+    if not isinstance(ktab, RuntimeLBL):
+        ktab = ktab.to(device)
     cia = cia.to(device) if cia is not None else None
     aero = aero.to(device) if aero is not None else None
     surf = surf.to(device) if surf is not None else None
@@ -367,9 +429,15 @@ def forward_nadir(
         azi_ang=azi_ang,
         imod=PathCalc.THERMAL_EMISSION,
     )
-    wave = ktab.wave
+    if isinstance(ktab, RuntimeLBL):
+        # the host grid in the run's type (the synthesis reads its own
+        # float64 copy)
+        wave = layers.temp.new_tensor(ktab.wave)
+        del_g = layers.temp.new_tensor(ktab.del_g)
+    else:
+        wave, del_g = ktab.wave, ktab.del_g
     taus = layer_optical_depths(cfg, layers, wave, ktab, cia, aero)
-    spec = path_spectrum(cfg, wave, taus["tautot"], path, surf, ktab.del_g)
+    spec = path_spectrum(cfg, wave, taus["tautot"], path, surf, del_g)
     if return_diagnostics:
         return spec, {"layers": layers, "path": path, **taus}
     return spec

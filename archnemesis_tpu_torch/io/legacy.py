@@ -6,9 +6,10 @@ re-implemented from observation of the reference readers, Files.py:404
 read_input_files, :1170 read_inp, :1269 read_set, :1383 read_fla;
 Atmosphere_0.py:1353 read_ref, :1491 read_aerosol; Measurement_0.py:828
 read_spx; Scatter_0.py:559 read_xsc; CIA_0.py:323 read_cia). The loader is
-host-only: the structures it returns hold float64 CPU tensors, and the
-entry points that compute (``retrievals.make_retrieval_setup``) move them to
-the card. The runtime line-by-line ``.lls`` branch and the Hapke ``.hap``
+host-only: the structures it returns hold float64 CPU tensors (a runtime
+line-by-line deck's ``RuntimeLBL``, float64 numpy), and the entry points
+that compute (``retrievals.make_retrieval_setup``) move them to the card.
+The ``.lta`` line-by-line table ``.lls`` branch and the Hapke ``.hap``
 surface raise until their slices are ported; ``read_drv``/``write_drv``
 wait.
 """
@@ -42,6 +43,7 @@ from archnemesis_tpu_torch.enums import (
 )
 from archnemesis_tpu_torch.io.cia import read_cia_tab
 from archnemesis_tpu_torch.io.ktables import read_kls
+from archnemesis_tpu_torch.io.linedata import read_lls_runtime
 from archnemesis_tpu_torch.rt.atmosphere import (
     calc_grav,
     calc_molwt,
@@ -117,7 +119,7 @@ class Deck:
     layer_config: LayerConfig
     geometry: Geometry
     settings: RunSettings
-    ktables: Optional[KTables] = None
+    ktables: Optional[KTables] = None  # a RuntimeLBL for ILBL=1 decks
     cia: Optional[CIATables] = None
     aerosol: Optional[AerosolOptics] = None
     surface: Optional[SurfaceSpec] = None
@@ -465,14 +467,12 @@ def load_deck(deck_dir: str, runname: str) -> Deck:
             runname + ".lls"
         ):
             raise NotImplementedError(
-                "line-by-line .lta tables (.lls) come with the runtime-LBL "
-                "slice (ROADMAP Queue 1 item 9)")
+                "line-by-line .lta tables (.lls): not ported yet (ROADMAP "
+                "Queue 1 item 2)")
         elif ilbl == SpectralCalculationMode.LINE_BY_LINE_RUNTIME and os.path.exists(
             runname + ".lls"
         ):
-            raise NotImplementedError(
-                "runtime line-by-line decks (.lls line lists) come with the "
-                "runtime-LBL slice (ROADMAP Queue 1 item 9)")
+            ktab = read_lls_runtime(runname + ".lls")
 
         table_locations = None
         for lst in (runname + ".kls", runname + ".lls"):

@@ -17,23 +17,19 @@ The kernels replace the TPU kernels ``combine_pair_pallas``
 (``archnemesis_tpu/ops/overlap_pallas.py:398``) and its tangent co-sort
 (``_combine_pallas`` with tangents, ``:292-329``). They are built with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface at
-first use (under ``build/`` at the repository root), and bound with
-``ctypes``.
+first use (``ops/cuda_build.py``, under ``build/`` at the repository root),
+and bound with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import numpy as np
 import torch
 
+from archnemesis_tpu_torch.ops import cuda_build
 from archnemesis_tpu_torch.ops.overlap import (
     _combine_pair,
     _combine_pair_with_tangents,
@@ -41,16 +37,6 @@ from archnemesis_tpu_torch.ops.overlap import (
     pair_weights,
 )
 
-_SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "csrc", "overlap_combine.cu",
-)
-_BUILD_ROOT = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "build", "overlap_combine",
-)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_NG = 32  # e_pad = next pow2 of NG*NG must fit 32 per lane of one warp
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
@@ -62,47 +48,10 @@ def e_pad(ng: int) -> int:
     return max(32, 1 << (ng * ng - 1).bit_length())
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
-
-
 def build() -> dict:
     """Compile the kernel library (once per source content) and return
-    ``{"path", "seconds", "ptxas"}``; ``seconds`` is 0 when it was built
-    before. Raises if nvcc fails."""
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    out_dir = os.path.join(_BUILD_ROOT, digest.hexdigest()[:16])
-    lib = os.path.join(out_dir, "liboverlap_combine.so")
-    log = os.path.join(out_dir, "ptxas.txt")
-    if os.path.exists(lib):
-        with open(log) as f:
-            return {"path": lib, "seconds": 0.0, "ptxas": f.read()}
-    nvcc = _nvcc()
-    if not os.path.isfile(nvcc):
-        raise RuntimeError(f"no nvcc at {nvcc}: the kernel is built with the "
-                           "CUDA toolkit (set CUDA_HOME or PATH)")
-    os.makedirs(out_dir, exist_ok=True)
-    # each building process writes its own file and renames it into place
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, _SOURCE],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {_SOURCE}:\n{proc.stderr}"
-        )
-    with open(log, "w") as f:
-        f.write(proc.stderr)
-    os.replace(tmp, lib)
-    return {"path": lib, "seconds": seconds, "ptxas": proc.stderr}
+    ``{"path", "seconds", "ptxas"}`` (``ops.cuda_build.build``)."""
+    return cuda_build.build("overlap_combine")
 
 
 @functools.lru_cache(maxsize=1)

@@ -33,6 +33,7 @@ from archnemesis_tpu_torch.enums import (
 )
 from archnemesis_tpu_torch.forward import forward_nadir, make_forward_config
 from archnemesis_tpu_torch.io.legacy import Deck, load_deck
+from archnemesis_tpu_torch.io.linedata import RuntimeLBL
 from archnemesis_tpu_torch.ops.convolution import (
     apply_ils,
     conv_channel_interp,
@@ -110,11 +111,13 @@ def cast_deck_components(deck: Deck, dtype) -> Deck:
     """Cast a loaded deck's floating component structures to ``dtype`` (the
     float32 path): ``core.spectra.cast_deck`` per component, which also
     prescales CIA tables out of the float32 subnormal range and attaches
-    the host log-k table before k is truncated."""
+    the host log-k table before k is truncated. A ``RuntimeLBL`` is not
+    cast: its line lists stay float64 on the host, so the float32
+    synthesis can split the line centres into two floats."""
     casted = {}
     for name in _DECK_COMPONENTS:
         v = getattr(deck, name)
-        if v is None:
+        if v is None or isinstance(v, RuntimeLBL):
             continue
         casted[name] = cast_deck(v, dtype)
     return dataclasses.replace(deck, **casted)
@@ -147,9 +150,20 @@ def _attach_logk(deck: Deck, dtype) -> Deck:
 
 
 def _deck_to(deck: Deck, device) -> Deck:
+    """The deck's tensor structures on ``device``; a ``RuntimeLBL`` stays a
+    host structure (its synthesis puts what it needs on the device)."""
     moved = {name: getattr(deck, name).to(device)
-             for name in _DECK_COMPONENTS if getattr(deck, name) is not None}
+             for name in _DECK_COMPONENTS
+             if getattr(deck, name) is not None
+             and not isinstance(getattr(deck, name), RuntimeLBL)}
     return dataclasses.replace(deck, **moved)
+
+
+def _host_wave(kt) -> np.ndarray:
+    """The calc grid of k-tables or of a ``RuntimeLBL`` as host float64."""
+    if isinstance(kt, RuntimeLBL):
+        return np.asarray(kt.wave, dtype=np.float64)
+    return kt.wave.detach().cpu().double().numpy()
 
 
 def _not_ported(what: str, item: str):
@@ -297,14 +311,19 @@ def make_retrieval_setup(
             lo = invert_doppler_shift(wavemin, st.v_doppler, st.ispace)
             hi = invert_doppler_shift(wavemax, st.v_doppler, st.ispace)
             wavemin, wavemax = min(wavemin, lo), max(wavemax, hi)
-        ktw = _windowed_ktab(deck, wavemin, wavemax,
-                             pad_multiple=wave_pad_multiple)
+        if isinstance(deck.ktables, RuntimeLBL):
+            # the lines inside the geometry's range, blocked on the full
+            # calc grid (reference Spectroscopy_0.py:1468-1485)
+            ktw = deck.ktables.windowed(wavemin, wavemax)
+        else:
+            ktw = _windowed_ktab(deck, wavemin, wavemax,
+                                 pad_multiple=wave_pad_multiple)
         if ktab_transform is not None:
             ktw = ktab_transform(ktw)
         # ILS weight matrices live on the observer-frame (Doppler-corrected)
         # calc grid (reference conv/lblconv correct Wave first,
         # Measurement_0.py:2149)
-        wave_host = ktw.wave.detach().cpu().double().numpy()
+        wave_host = _host_wave(ktw)
         wavecorr = doppler_corrected_wave(wave_host, st.v_doppler, st.ispace)
         if ils_w is True:
             if st.ilbl == SpectralCalculationMode.K_TABLES:
@@ -349,7 +368,7 @@ def make_retrieval_setup(
     if cia is not None:
         # spectroscopy wave range in cm-1 for CIA-domain models
         # (reference model_500 hook, model_500.py:185-196)
-        tw = deck.ktables.wave.detach().cpu().numpy()
+        tw = _host_wave(deck.ktables)
         cia_range = (
             (float(tw.min()), float(tw.max()))
             if int(st.ispace) == 0

@@ -7,9 +7,11 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``); exits non-zero
 without them. Phases, each of which fails the run on its own:
 
 1. device and build: the card's name and power limit, the torch/CUDA
-   versions; the random-overlap kernels (primal and tangent variant, one
-   source) built from ``archnemesis_tpu_torch/csrc/overlap_combine.cu``
-   with the build time and ptxas' register report;
+   versions; every kernel library built from the checkout, one nvcc per
+   source, all started together: the random-overlap kernels (primal and
+   tangent variant, ``archnemesis_tpu_torch/csrc/overlap_combine.cu``) and
+   the line-by-line cross-section (``csrc/lbl_cross_section.cu``), with the
+   build times and ptxas' register reports;
 2. kernel vs plain: the kernel against its plain PyTorch version at NG
    10, 20 and 32 (the largest the kernel takes) in float32 (rtol 2e-5,
    atol 1e-7, the JAX package's own Pallas-vs-XLA bound) and float64
@@ -48,12 +50,35 @@ without them. Phases, each of which fails the run on its own:
    float32 against float64 (spectrum inside the float32 bounds, Jacobian
    within ``JAC_F32_BOUND`` of each column's peak), and the wall-clock of a
    3-iteration retrieval;
+7. LBL kernel vs plain: the cross-section kernel against its plain
+   PyTorch version and the reference (``tests/goldens/co_lbl.npz``, line
+   data from the ``.npz`` export: the card's machine has no h5py) on that
+   golden's grid and cases, for all six lineshapes with s_floor > 0, no
+   shift and the iso-0 factor, at block widths 128 and 200 and with
+   blocks that hold no lines: float64 within rtol 1e-10, float32 within
+   5e-5 max / 2e-5 median relative error of float64 (the JAX package's
+   co_runtime_voigt bound); at the full-width configuration (80,000 waves
+   x 5,092 lines x 40 layers) float32 against the plain version and, on 2
+   layers, float64 against the plain float64 version; the kernel's time
+   beside its operation bound (``lbl_bound_ms``) and the plain version's
+   time over all 40 layers;
+8. the runtime golden deck (``tests/fixtures/co_runtime``, copied with its
+   line data pointed at the export) through ``load_deck``: float64 TAUGAS
+   and SPECONV within rtol 1e-7 / 1e-6 of ``co_runtime_fm.npz``, float32
+   within the float32 bound, 1 launch per forward;
+9. the LBL headline forward (``synthetic.lbl_headline``, float32): 1
+   launch per forward, median time of 12 forwards, waves/s, peak memory,
+   float32 within the float32 bound of the float64 forward;
+10. the runtime retrieval on the card: ``forward_fn(xa)`` and
+    ``forward_and_jacobian`` (15 tangents) in float64 equal to the port's
+    CPU result, 1 launch per evaluation, the wall-clock and phi history of
+    ``retrieval_nemesis(niter=3)`` on the card and on the CPU;
 
 then a JSON line of the kernels (launches on the main paths, error, times,
 bound) and, last, ``{"ok": true, "device": {...}}``. ``--profile`` adds
-``torch.profiler`` traces of three headline forwards and of one
-forward-plus-Jacobian evaluation: device time by kernel, the device's busy
-share, and Chrome traces in ``build/``.
+``torch.profiler`` traces of three headline forwards, of one
+forward-plus-Jacobian evaluation and of three LBL headline forwards: device
+time by kernel, the device's busy share, and Chrome traces in ``build/``.
 
 TF32 is switched off for matmuls and cuDNN: the g-quadrature and emission
 ``einsum``s must run in full float32, as the JAX package computes them.
@@ -79,6 +104,12 @@ OE_GOLDEN = "tests/goldens/jupiter_oe.npz"
 FD_GOLDEN = "tests/goldens/jupiter_fd_jac.npz"
 RETRIEVAL_GOLDEN = "tests/goldens/jupiter_retrieval.npz"
 CIA_TAB = "archnemesis_tpu/data/reference_data/cia/isotest.tab"
+# the runtime line-by-line slice: the CO line list's export (the card's
+# machine has no h5py), the reference's cross-sections and the runtime deck
+LINEDATA_NPZ = "archnemesis_tpu_torch/data/CO_1_ambient_AIR.npz"
+CO_LBL_GOLDEN = "tests/goldens/co_lbl.npz"
+CO_RUNTIME = "tests/fixtures/co_runtime"
+CO_RUNTIME_GOLDEN = "tests/goldens/co_runtime_fm.npz"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores
@@ -98,6 +129,17 @@ F32_BOUNDS = (1.0e-4, 1.0e-5)  # max / median relative error vs float64
 JAC_F32_BOUND = 1.0e-3
 HEADLINE_RUNS = 12
 JACOBIAN_RUNS = 5
+# float32 line-by-line synthesis against float64: max / median relative
+# error, the JAX package's own co_runtime_voigt bound
+# (tests/test_f32_parity.py:23)
+LBL_F32_BOUNDS = (5.0e-5, 2.0e-5)
+# float64 kernel against the plain version and the reference golden (the
+# JAX package's Pallas-vs-XLA bound, tests/test_lbl_pallas.py:38)
+LBL_F64_RTOL = 1.0e-10
+LBL_KERNEL_RUNS = 10
+# the layers of the full-width configuration on which the float64 plain
+# version (3.3 GB per (block, line, wave) temporary) is compared
+LBL_COMPARE_LAYERS = (0, 39)
 # the retrieval's pair combine: 559 waves x 71 layers, 81 state elements
 TAN_ROWS, TAN_NTAN = 39_689, 81
 
@@ -316,9 +358,13 @@ def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def phase_build():
+    """The card and the versions; every kernel library built from the
+    checkout's sources, one nvcc per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
-    from archnemesis_tpu_torch.ops import overlap_cuda
+    from archnemesis_tpu_torch.ops import lbl_cuda, overlap_cuda
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -328,9 +374,14 @@ def phase_build():
     _print(f"card: {card}")
     _print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
            f"device {torch.cuda.get_device_name(0)}")
-    built = overlap_cuda.build()
-    _print(f"built {built['path']} in {built['seconds']:.2f} s")
-    _print(built["ptxas"].strip())
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = [pool.submit(m.build) for m in (overlap_cuda, lbl_cuda)]
+        builds = [f.result() for f in futures]
+    for built in builds:
+        _print(f"built {built['path']} in {built['seconds']:.2f} s")
+        _print(built["ptxas"].strip())
+    _print(f"kernel builds: {time.perf_counter() - t0:.2f} s of wall time")
     return card
 
 
@@ -763,6 +814,440 @@ def phase_retrieval(profile: bool = False):
     return launches
 
 
+# ---- runtime line-by-line slice ------------------------------------------
+
+# Operations the line-by-line synthesis needs (not the kernel's own count),
+# counting an exp, a pow, a sqrt and a division as one operation each.
+# Re w(z) by the Weideman-24 expansion: the two shifted arguments (2), |.|^2
+# (3), the reciprocal (2 divisions, 1 negation), the Moebius map (6), 23
+# complex Horner steps of 4 multiplies and 3 adds (161), the last product
+# (6), the doubling and offset (4), the real part of the final product (3).
+LBL_OPS_WEIDEMAN = 188
+# Re w(z) by the 6-convergent continued fraction: per convergent |d|^2 (3),
+# its reciprocal (1), the two updates (3 each); then |d|^2, a multiply and a
+# division (5).
+LBL_OPS_CF = 65
+# every (line, wave) pair inside the window: the delta (4 with two floats,
+# 1 in float64), two window tests (4 compares), the weighted add (2)
+LBL_OPS_PAIR_F32, LBL_OPS_PAIR_F64 = 10, 7
+# a core pair beyond Re w: x = delta * scale, the float32 branch test
+# |z|^2 > 49 (4), the normalisation (3 multiplies)
+LBL_OPS_CORE_F32, LBL_OPS_CORE_F64 = 8, 4
+# a wing pair beyond the above: delta^2 and a division
+LBL_OPS_WING = 2
+# per (layer, line): Boltzmann factor (2), stimulated emission (4), the
+# strength (4), the Doppler width (2), the Lorentz width (2 pows, 6), the
+# shift (2), the lineshape's two parameters (2), the s_floor test (1), and
+# the wing value f(wn_calc) wn_calc^2 (the continued fraction in float32,
+# the expansion in float64, plus 9)
+LBL_OPS_LINE = 25
+
+
+def lbl_pair_counts(ll, blocks, t, p, amb, wn_calc=25.0, wn_approx=75.0):
+    """(core_cf, core_weideman, wing, lines) pair counts of one synthesis,
+    from its inputs: for each (layer, line) of non-zero strength, the waves
+    within wn_calc of the shifted centre (split at |z|^2 = 49), and those
+    between wn_calc and wn_approx. t, p [atm], amb: (NLAY,) float64."""
+    import torch
+
+    from archnemesis_tpu_torch.ops.lbl import layer_line_params
+
+    s, alpha, gamma, shift = (x.numpy() for x in layer_line_params(
+        ll, *(torch.as_tensor(np.asarray(x, dtype=np.float64))
+              for x in (t, p, amb))))
+    wave = blocks.wn_pad[:blocks.n_wave]
+    ctr = ll.nu[None, :] + shift
+    live = s > 0
+
+    def within(half):
+        """waves with |wave - ctr| < half (clipped to the window)"""
+        lo = np.searchsorted(wave, ctr - half, side="left")
+        hi = np.searchsorted(wave, ctr + half, side="left")
+        return np.where(live, hi - lo, 0)
+
+    core, full = within(wn_calc), within(wn_approx)
+    scale = np.sqrt(np.log(2.0)) / alpha
+    y = gamma * scale
+    half_w = np.where(y < 7.0, np.sqrt(np.maximum(49.0 - y * y, 0.0)) / scale,
+                      0.0)
+    weid = np.minimum(within(half_w), core)
+    return (int((core - weid).sum()), int(weid.sum()), int((full - core).sum()),
+            int(live.sum()))
+
+
+def lbl_bound_ms(ll, blocks, t, p, amb, itemsize: int) -> tuple:
+    """(bound_ms, bound_by, ops) of one synthesis on an H100: the larger of
+    its bytes (the ten line columns, the wave grid's two parts, the block
+    ranges and the layer scalars read once, k written once) over HBM
+    bandwidth and the operations these inputs need over the peak rate of
+    the type. In float32 a core pair takes the continued fraction where
+    |z|^2 > 49 and the Weideman expansion elsewhere; float64 takes the
+    expansion everywhere."""
+    cf, weid, wing, lines = lbl_pair_counts(ll, blocks, t, p, amb)
+    nlay = len(t)
+    if itemsize == 4:
+        pair, core, peak, line_w = (LBL_OPS_PAIR_F32, LBL_OPS_CORE_F32,
+                                    PEAK_F32_OPS_S, LBL_OPS_CF)
+        ops = (cf * (pair + core + LBL_OPS_CF)
+               + weid * (pair + core + LBL_OPS_WEIDEMAN))
+    else:
+        pair, core, peak, line_w = (LBL_OPS_PAIR_F64, LBL_OPS_CORE_F64,
+                                    PEAK_F64_OPS_S, LBL_OPS_WEIDEMAN)
+        ops = (cf + weid) * (pair + core + LBL_OPS_WEIDEMAN)
+    ops += wing * (pair + LBL_OPS_WING) + lines * (LBL_OPS_LINE + line_w)
+    nbytes = itemsize * (10 * ll.n_lines + 2 * blocks.wn_pad.size
+                         + 4 * nlay + blocks.n_wave * nlay) + 8 * blocks.n_blocks
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    ops_ms = ops / peak * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", ops
+    return bytes_ms, "bytes", ops
+
+
+def lbl_kernel_and_plain(ll, blocks, t, p, amb, **kw):
+    """(kernel, plain) k of one synthesis on the card: the wrapper's launch
+    and the plain version on the same (NLAY,) CUDA tensors."""
+    from archnemesis_tpu_torch.ops import lbl_cuda
+    from archnemesis_tpu_torch.ops.lbl import lbl_cross_section_plain
+
+    k = lbl_cuda.lbl_cross_section(ll, blocks, t, p, amb, **kw)
+    return k, lbl_cross_section_plain(ll, blocks, t, p, amb, **kw)
+
+
+def _lbl_f32_check(k32, k64, what: str) -> tuple:
+    """float32 against float64 at the LBL float32 bound; returns (max,
+    median) relative error."""
+    r = rel_err(k32.double().cpu().numpy(), k64.double().cpu().numpy())
+    ok = r.max() < LBL_F32_BOUNDS[0] and np.median(r) < LBL_F32_BOUNDS[1]
+    _print(f"{what}: float32 vs float64 max rel {r.max():.3e}, median rel "
+           f"{np.median(r):.3e} ({'ok' if ok else 'FAIL'})")
+    if not ok:
+        raise AssertionError(f"{what}: float32 outside "
+                             f"{LBL_F32_BOUNDS[0]:.0e} / {LBL_F32_BOUNDS[1]:.0e}")
+    return float(r.max()), float(np.median(r))
+
+
+def _lbl_f64_check(k, ref, what: str):
+    """float64 kernel against float64 ``ref`` at ``LBL_F64_RTOL``."""
+    import torch
+
+    err = ((k - ref).abs() / ref.abs().clamp_min(1e-300)).max().item()
+    ok = torch.allclose(k, ref, rtol=LBL_F64_RTOL, atol=0.0)
+    _print(f"{what}: float64 max rel {err:.3e} ({'ok' if ok else 'FAIL'})")
+    if not ok:
+        raise AssertionError(f"{what}: float64 outside rtol {LBL_F64_RTOL}")
+
+
+def phase_lbl_kernel_vs_plain():
+    """The LBL kernel against its plain version and the reference on the
+    card; returns the record of the full-width configuration."""
+    import dataclasses
+
+    import torch
+
+    from archnemesis_tpu_torch.forward import (
+        ATM_TO_PA,
+        forward_nadir,
+        runtime_ambient_fraction,
+    )
+    from archnemesis_tpu_torch.io.linedata import (
+        _slice_lines,
+        read_ans_linedata,
+    )
+    from archnemesis_tpu_torch.ops import lbl_cuda
+    from archnemesis_tpu_torch.ops.lbl import (
+        build_blocks,
+        lbl_cross_section_plain,
+    )
+    from archnemesis_tpu_torch.ops.voigt import LINESHAPES
+    from archnemesis_tpu_torch.synthetic import lbl_headline
+
+    def card(x, dtype=torch.float64):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device="cuda")
+
+    ll = read_ans_linedata(LINEDATA_NPZ, gas_id=5, iso_id=1)
+    # --- the reference's cross-sections (tests/test_lbl.py)
+    d = np.load(CO_LBL_GOLDEN)
+    blocks = build_blocks(d["WAVE"], ll.nu)
+    t, p, amb = (card(d["CASES"][:, i]) for i in range(3))
+    k64, plain64 = lbl_kernel_and_plain(ll, blocks, t, p, amb)
+    _lbl_f64_check(k64, plain64, "co_lbl kernel vs plain")
+    _lbl_f64_check(k64, card(d["K"]), "co_lbl kernel vs reference")
+    k32 = lbl_cuda.lbl_cross_section(ll, blocks, t.float(), p.float(),
+                                     amb.float())
+    _lbl_f32_check(k32, card(d["K"]), "co_lbl kernel")
+
+    # --- every lineshape on the same grid and cases with s_floor > 0, no
+    # shift and the iso-0 factor, at block widths 128 and 200, and with the
+    # lines above 2100 cm-1 dropped, so that the upper blocks hold none
+    ll0 = dataclasses.replace(ll, iso_id=0)
+    for lls, width in ((ll0, 128), (ll0, 200),
+                       (_slice_lines(ll0, 2000.0, 2100.0), 128)):
+        blk = build_blocks(d["WAVE"], lls.nu, block_width=width)
+        empty = int((blk.counts == 0).sum())
+        for shape in LINESHAPES:
+            kw = dict(lineshape=shape, s_floor=1.0e-25,
+                      include_pressure_shift=False)
+            k64, plain64 = lbl_kernel_and_plain(lls, blk, t, p, amb, **kw)
+            what = (f"{shape}, W={width}, {lls.n_lines} lines, {empty} "
+                    "blocks without lines")
+            _lbl_f64_check(k64, plain64, what)
+            k32 = lbl_cuda.lbl_cross_section(lls, blk, t.float(), p.float(),
+                                             amb.float(), **kw)
+            _lbl_f32_check(k32, plain64, what)
+    if empty == 0:
+        raise AssertionError("the last grid has no block without lines")
+
+    # --- the full-width configuration, at the inputs its forward gives
+    atm, laycfg, rt, surf, cfg = lbl_headline(dtype=torch.float32,
+                                              device="cuda")
+    _, diag = forward_nadir(atm, laycfg, rt, None, None, surf, cfg,
+                            emiss_ang=0.0, return_diagnostics=True,
+                            device="cuda")
+    layers = diag["layers"]
+    t32 = layers.temp
+    p32 = layers.press / ATM_TO_PA
+    amb32 = runtime_ambient_fraction(cfg, layers, 0)
+    lls, blk = rt.line_lists[0], rt.blocks[0]
+
+    def kernel():
+        return lbl_cuda.lbl_cross_section(lls, blk, t32, p32, amb32)
+
+    def plain():
+        return lbl_cross_section_plain(lls, blk, t32, p32, amb32)
+
+    k32 = kernel()
+    ms = _cuda_ms(kernel, reps=LBL_KERNEL_RUNS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain32 = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (k32 - plain32).abs().max().item()
+    _lbl_f32_check(k32, plain32, "full width, kernel vs plain (float32)")
+    del plain32
+    sel = list(LBL_COMPARE_LAYERS)
+    t64, p64, a64 = (x[sel].double() for x in (t32, p32, amb32))
+    k64, plain64 = lbl_kernel_and_plain(lls, blk, t64, p64, a64)
+    _lbl_f64_check(k64, plain64, f"full width, layers {sel}")
+    _lbl_f32_check(k32[:, sel], plain64, f"full width, layers {sel}")
+    del k64, plain64
+    bound_ms, bound_by, ops = lbl_bound_ms(
+        lls, blk, *(x.double().cpu().numpy() for x in (t32, p32, amb32)),
+        itemsize=4)
+    cf, weid, wing, lines = lbl_pair_counts(
+        lls, blk, *(x.double().cpu().numpy() for x in (t32, p32, amb32)))
+    _print(f"lbl_cross_section at {blk.n_wave} waves x {lls.n_lines} lines x "
+           f"{len(t32)} layers, float32: kernel {ms:.4f} ms, plain "
+           f"{plain_ms:.4f} ms (all {len(t32)} layers, one call), bound "
+           f"{bound_ms:.4f} ms ({bound_by}; {ops:.4e} operations: "
+           f"{cf:.4e} continued-fraction and {weid:.4e} Weideman core pairs, "
+           f"{wing:.4e} wing pairs, {lines} (layer, line) terms); "
+           f"max_abs_err {err:.3e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def copy_runtime_deck(base: str) -> str:
+    """A copy of the runtime deck under ``base`` whose ``.lls`` reads the
+    line data from its ``.npz`` export (DBASE_LD / DBASE_PF), so that a
+    machine without h5py reads it through the port's ``load_deck``."""
+    dst = os.path.join(base, "deck")
+    shutil.copytree(CO_RUNTIME, dst)
+    lls = os.path.join(dst, "cirstest.lls")
+    with open(lls) as f:
+        lines = f.readlines()
+    npz = os.path.abspath(LINEDATA_NPZ)
+    with open(lls, "w") as f:
+        for line in lines:
+            key = line.split()[0] if line.split() else ""
+            f.write(f"{key:<17}{npz}\n" if key in ("DBASE_LD", "DBASE_PF")
+                    else line)
+    return dst
+
+
+def runtime_deck_forward(deck_dir: str, dtype, device):
+    """(TAUGAS, SPECONV, launches) of the runtime deck as
+    ``tests/test_forward_runtime.py`` sets it up (the a-priori state
+    applied, lines windowed to the channel range), through the port."""
+    import torch
+
+    from archnemesis_tpu_torch.core.spectra import cast_deck
+    from archnemesis_tpu_torch.forward import forward_nadir, make_forward_config
+    from archnemesis_tpu_torch.io.legacy import load_deck
+    from archnemesis_tpu_torch.ops import lbl_cuda
+    from archnemesis_tpu_torch.ops.convolution import conv_channel_interp
+    from archnemesis_tpu_torch.retrieval.statevector import (
+        apply_state,
+        read_apr,
+    )
+
+    deck = load_deck(deck_dir, "cirstest")
+    sv = read_apr(os.path.join(deck_dir, "cirstest.apr"), deck.atmosphere)
+    atm = apply_state(deck.atmosphere, torch.as_tensor(sv.xa), sv)
+    nconv = int(deck.geometry.nconv[0])
+    vconv = deck.geometry.vconv[:nconv, 0]
+    rt = deck.ktables.windowed(vconv.min(), vconv.max())
+    cfg = make_forward_config(atm, rt, None, iray=deck.settings.iray,
+                              ispace=deck.settings.ispace, gasgiant=True)
+    atm, surf = cast_deck(atm, dtype), cast_deck(deck.surface, dtype)
+    lbl_cuda.lbl_cross_section.launches = 0
+    spec, diag = forward_nadir(atm, deck.layer_config, rt, None, None, surf,
+                               cfg, emiss_ang=0.0, return_diagnostics=True,
+                               device=device)
+    launches = lbl_cuda.lbl_cross_section.launches
+    conv = conv_channel_interp(spec.new_tensor(rt.wave), spec[:, 0],
+                               spec.new_tensor(vconv))
+    return diag["taugas"], conv, launches
+
+
+def phase_lbl_golden_deck():
+    """The runtime deck through the port's load_deck on the card."""
+    d = np.load(CO_RUNTIME_GOLDEN)
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        deck = copy_runtime_deck(tmp)
+        tau64, conv64, n64 = runtime_deck_forward(deck, torch.float64, "cuda")
+        _, conv32, n32 = runtime_deck_forward(deck, torch.float32, "cuda")
+    want = d["TAUGAS"]
+    np.testing.assert_allclose(tau64.cpu().numpy(), want, rtol=1e-7,
+                               atol=1e-10 * np.abs(want).max())
+    nconv = int(d["NCONV"][0])
+    np.testing.assert_allclose(conv64.cpu().numpy(), d["SPECONV"][:nconv, 0],
+                               rtol=1e-6, atol=0)
+    if (n64, n32) != (1, 1):
+        raise AssertionError(f"{n64}, {n32} launches per forward, expected 1")
+    _print("runtime deck float64 (line data from the .npz export): TAUGAS "
+           "within rtol 1e-7, SPECONV within rtol 1e-6 of the golden; 1 "
+           "launch per forward")
+    _lbl_f32_check(conv32, conv64, "runtime deck SPECONV")
+
+
+def phase_lbl_headline(profile: bool = False):
+    """Drive the runtime line-by-line headline forward; returns (launches of
+    the main path, median ms)."""
+    import torch
+
+    from archnemesis_tpu_torch.forward import forward_nadir
+    from archnemesis_tpu_torch.ops import lbl_cuda
+    from archnemesis_tpu_torch.synthetic import LBL_NWAVE, lbl_headline
+
+    atm, laycfg, rt, surf, cfg = lbl_headline(dtype=torch.float32,
+                                              device="cuda")
+
+    def forward():
+        return forward_nadir(atm, laycfg, rt, None, None, surf, cfg,
+                             emiss_ang=0.0, device="cuda")
+
+    # the main path, counted on its own
+    lbl_cuda.lbl_cross_section.launches = 0
+    spec = forward()
+    torch.cuda.synchronize()
+    launches = lbl_cuda.lbl_cross_section.launches
+    if launches != 1:
+        raise AssertionError(f"{launches} LBL launches, expected 1")
+    if spec.shape != (LBL_NWAVE, 1) or not torch.isfinite(spec).all():
+        raise AssertionError(f"LBL headline spectrum not finite "
+                             f"({LBL_NWAVE}, 1)")
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    before = lbl_cuda.lbl_cross_section.launches
+    for i in range(HEADLINE_RUNS + 2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        forward()
+        end.record()
+        end.synchronize()
+        if i >= 2:
+            times.append(start.elapsed_time(end))
+    if lbl_cuda.lbl_cross_section.launches - before != HEADLINE_RUNS + 2:
+        raise AssertionError("LBL launches did not rise by 1 per forward")
+    peak = torch.cuda.max_memory_allocated()
+    ms = float(np.median(times))
+    nlines = rt.line_lists[0].n_lines
+    _print(f"LBL headline forward ({LBL_NWAVE} waves x {nlines} lines x "
+           f"{laycfg.nlay} layers, float32): median {ms:.3f} ms over "
+           f"{len(times)} runs (min {min(times):.3f}, max {max(times):.3f}); "
+           f"{LBL_NWAVE / ms * 1e3:.1f} waves/s; peak memory "
+           f"{peak / 2**30:.3f} GiB")
+
+    atm64, laycfg, rt64, surf64, cfg = lbl_headline(dtype=torch.float64,
+                                                    device="cuda")
+    spec64 = forward_nadir(atm64, laycfg, rt64, None, None, surf64, cfg,
+                           emiss_ang=0.0, device="cuda")
+    _lbl_f32_check(spec, spec64, "LBL headline spectrum")
+    if profile:
+        profile_forward(forward, what="LBL headline forward",
+                        trace="build/lbl_headline_trace.json")
+    return launches, ms
+
+
+def phase_lbl_retrieval():
+    """The retrieval entry point on a copy of the runtime deck, on the card
+    against the port's CPU result; returns the launches of one
+    forward-plus-Jacobian evaluation."""
+    import torch
+
+    from archnemesis_tpu_torch.ops import lbl_cuda
+    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
+    from archnemesis_tpu_torch.retrievals import (
+        make_retrieval_setup,
+        retrieval_nemesis,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        deck = copy_runtime_deck(tmp)
+        cpu = make_retrieval_setup(deck, "cirstest", device="cpu")
+        gpu = make_retrieval_setup(deck, "cirstest", device="cuda")
+        ngas = gpu.deck.ktables.ngas
+        xa = torch.as_tensor(cpu.sv.xa)
+        yn_cpu, kk_cpu = forward_and_jacobian(cpu.forward_fn, xa)
+        y0 = gpu.forward_fn(xa.cuda())
+        lbl_cuda.lbl_cross_section.launches = 0
+        yn, kk = forward_and_jacobian(gpu.forward_fn, xa.cuda())
+        torch.cuda.synchronize()
+        launches = lbl_cuda.lbl_cross_section.launches
+        if launches != ngas:
+            raise AssertionError(f"{launches} LBL launches per evaluation, "
+                                 f"expected {ngas}")
+        for what, got, want in (("forward_fn(xa)", y0, yn_cpu),
+                                ("spectrum", yn, yn_cpu)):
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                       rtol=1e-10, atol=0, err_msg=what)
+        # the Jacobian at rtol 1e-10 and, for entries that are rounding
+        # noise (the first card run read 2 of 900 near 1e-31, 21 orders
+        # under their column's peak), within 1e-10 of each column's peak
+        col_peak = kk_cpu.abs().max(dim=0).values.numpy()
+        np.testing.assert_array_less(
+            np.abs(kk.cpu().numpy() - kk_cpu.numpy()),
+            1e-10 * np.abs(kk_cpu.numpy()) + 1e-10 * col_peak[None, :]
+            + np.finfo(np.float64).tiny)
+        _print(f"runtime retrieval set-up on the card (NX={gpu.sv.nx}, "
+               f"NY={gpu.y.shape[0]}), float64: forward_fn(xa) and the "
+               f"spectrum equal the CPU's at rtol 1e-10, the Jacobian at "
+               f"rtol 1e-10 + 1e-10 of each column's peak; {launches} "
+               f"launch per evaluation ({ngas} gas)")
+        hist = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res = retrieval_nemesis(deck, "cirstest", niter=3,
+                                    write_outputs=False, device=device)
+            wall = time.perf_counter() - t0
+            hist[device] = res.phi_history
+            if not (np.isfinite(res.xn).all()
+                    and res.phi_history[-1] < res.phi_history[0]):
+                raise AssertionError(f"runtime retrieval ({device}) did not "
+                                     "reduce phi")
+            _print(f"retrieval_nemesis(co_runtime, niter=3, float64, "
+                   f"{device}): {wall:.3f} s wall, {res.n_iter} iterations, "
+                   f"phi {['%.6e' % x for x in res.phi_history]}")
+    np.testing.assert_allclose(hist["cuda"], hist["cpu"], rtol=1e-8)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -780,6 +1265,10 @@ def main() -> int:
     launches, _ = phase_headline(profile=profile)
     tan_record = phase_tangent_kernel_vs_plain()
     tan_launches = phase_retrieval(profile=profile)
+    lbl_record = phase_lbl_kernel_vs_plain()
+    phase_lbl_golden_deck()
+    lbl_launches, _ = phase_lbl_headline(profile=profile)
+    phase_lbl_retrieval()
 
     kernels = [dict(
         name="overlap_combine",
@@ -804,6 +1293,18 @@ def main() -> int:
         plain_ms=tan_record["plain_ms"],
         bound_ms=tan_record["bound_ms"],
         bound_by=tan_record["bound_by"],
+        library_ms=None,
+    ), dict(
+        name="lbl_cross_section",
+        route="cuda",
+        source="archnemesis_tpu_torch/csrc/lbl_cross_section.cu",
+        replaces="archnemesis_tpu/ops/lbl_pallas.py:228",
+        launches=lbl_launches,
+        max_abs_err=lbl_record["max_abs_err"],
+        ms=lbl_record["ms"],
+        plain_ms=lbl_record["plain_ms"],
+        bound_ms=lbl_record["bound_ms"],
+        bound_by=lbl_record["bound_by"],
         library_ms=None,
     )]
     _print(f"total {time.perf_counter() - t0:.1f} s")

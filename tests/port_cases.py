@@ -9,6 +9,7 @@ carried across with ``archnemesis_tpu_torch.convert``.
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke
@@ -181,3 +182,57 @@ def copy_deck(tmp_path_factory, name, deck=FDRET):
     (the deck's .kls names them by relative path); returns the deck
     directory."""
     return chip_smoke.copy_deck(deck, str(tmp_path_factory.mktemp(name)))
+
+
+# --- the runtime line-by-line slice
+
+LINE_H5 = "tests/fixtures/linedata/CO_1_ambient_AIR.h5"
+LINEDATA_NPZ = chip_smoke.LINEDATA_NPZ
+CO_LBL_GOLDEN = chip_smoke.CO_LBL_GOLDEN
+CO_RUNTIME = chip_smoke.CO_RUNTIME
+CO_RUNTIME_GOLDEN = chip_smoke.CO_RUNTIME_GOLDEN
+LLS = f"{CO_RUNTIME}/cirstest.lls"
+
+
+def write_linedata_export(path: str = LINEDATA_NPZ):
+    """Write the ``.npz`` export of the CO line list and partition function
+    (``archnemesis_tpu_torch/data/CO_1_ambient_AIR.npz``, read on machines
+    without h5py) from the HDF5 fixture."""
+    from archnemesis_tpu_torch.io.linedata import export_ans_linedata
+
+    export_ans_linedata(LINE_H5, path, gas_id=5, iso_id=1, ambient="AIR")
+
+
+def lbl_voigt_grid(n: int = 4000, seed: int = 0):
+    """(delta, alpha_d, gamma_l, |z|) float64: |z| log-uniform from 1e-3 to
+    1e3 at a uniform angle in the first quadrant, Doppler widths from 1e-3
+    to 0.3 cm-1 (so |delta| reaches every sub-Lorentzian chi band), the
+    first ten deltas zero."""
+    rng = np.random.default_rng(seed)
+    z = 10.0 ** rng.uniform(-3.0, 3.0, n)
+    angle = rng.uniform(0.0, np.pi / 2, n)
+    alpha = 10.0 ** rng.uniform(-3.0, -0.5, n)
+    x, y = z * np.cos(angle), z * np.sin(angle)
+    x[:10] = 0.0
+    z = np.hypot(x, y)
+    scale = np.sqrt(np.log(2.0)) / alpha
+    return x / scale, alpha, y / scale, z
+
+
+def copy_runtime_deck(tmp_path_factory, name):
+    """A temporary copy of the runtime deck whose ``.lls`` reads the line
+    data's ``.npz`` export, as ``chip_smoke.py`` makes it on the card."""
+    return chip_smoke.copy_runtime_deck(str(tmp_path_factory.mktemp(name)))
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's torch work on one intra-op thread: the suite runs in
+    several worker processes that share the machine's cores, and torch's
+    default of one thread per core oversubscribes them (its large
+    elementwise passes then run many times slower). The count is restored
+    after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -137,16 +137,20 @@ def test_sur_and_vpf_blocks(tmp_path_factory):
 
 
 def test_unported_branches_raise(tmp_path_factory):
+    """A ``.lls`` of ``.lta`` tables raises with its ROADMAP item under
+    ILBL=2; under ILBL=1 the file is read as a runtime ``.lls`` and, having
+    no WAVE line, refused as the JAX package refuses it."""
     d = copy_deck(tmp_path_factory, "lbldeck")
     inp = os.path.join(d, "cirstest.inp")
     lines = open(inp).read().splitlines()
     first = lines[0].split()
-    for ilbl in (1, 2):
+    for ilbl, error, match in ((1, ValueError, "must define WAVE"),
+                               (2, NotImplementedError, "Queue 1 item 2")):
         first[2] = str(ilbl)
         lines[0] = " ".join(first)
         open(inp, "w").write("\n".join(lines) + "\n")
         open(os.path.join(d, "cirstest.lls"), "w").write("x.lta\n")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        with pytest.raises(error, match=match):
             legacy.load_deck(d, "cirstest")
     assert not hasattr(legacy, "read_drv")
 

@@ -195,9 +195,11 @@ def test_lbl_table_branch_matches_jax(lbl_case):
 
 
 def test_runtime_lbl_branch_raises(lbl_case):
+    """k-tables flagged ILBL=1 are refused: the runtime branch synthesises
+    from a RuntimeLBL's line lists (tests/test_torch_runtime_*.py)."""
     _, (atm, laycfg, ktab, _, _, surf, cfg) = lbl_case
     ktab = ktab.replace(ilbl=SpectralCalculationMode.LINE_BY_LINE_RUNTIME)
-    with pytest.raises(NotImplementedError, match="runtime-LBL slice"):
+    with pytest.raises(TypeError, match="needs a RuntimeLBL"):
         forward_nadir(atm, laycfg, ktab, None, None, surf, cfg,
                       emiss_ang=0.0, device="cpu")
 

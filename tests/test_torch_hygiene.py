@@ -184,3 +184,75 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _run_smoke(tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_lbl_cuda_imports_without_nvcc(tmp_path):
+    """The LBL kernel module imports and its wrapper serves CPU tensors
+    where no CUDA compiler exists; building the kernel there raises."""
+    code = (
+        "import numpy as np, torch\n"
+        "from archnemesis_tpu_torch.ops import lbl_cuda as m\n"
+        "from archnemesis_tpu_torch.io.linedata import read_ans_linedata\n"
+        "from archnemesis_tpu_torch.ops.lbl import build_blocks\n"
+        "from archnemesis_tpu_torch.synthetic import LBL_LINEDATA\n"
+        "ll = read_ans_linedata(LBL_LINEDATA, 5, 1)\n"
+        "b = build_blocks(np.linspace(2100.0, 2110.0, 300), ll.nu)\n"
+        "x = torch.tensor([200.0], dtype=torch.float64)\n"
+        "k = m.lbl_cross_section(ll, b, x, x * 0 + 0.1, x * 0 + 0.9)\n"
+        "assert k.shape == (300, 1) and m.lbl_cross_section.launches == 0\n"
+        "try:\n"
+        "    m.build()\n"
+        "except (OSError, RuntimeError) as e:\n"
+        "    print('build raised', type(e).__name__)\n"
+    )
+    env = dict(os.environ, PATH=str(tmp_path),
+               CUDA_HOME=str(tmp_path / "no-cuda"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "build raised" in out.stdout
+
+
+def test_lbl_entry_points_raise_without_cuda(no_cuda):
+    """``lbl_cross_section`` and the runtime headline run on the card unless
+    asked for the CPU."""
+    from archnemesis_tpu_torch.io.linedata import read_ans_linedata
+    from archnemesis_tpu_torch.ops.lbl import build_blocks, lbl_cross_section
+
+    ll = read_ans_linedata(synthetic.LBL_LINEDATA, 5, 1)
+    blocks = build_blocks(np.linspace(2100.0, 2110.0, 300), ll.nu)
+    state = ([200.0], [0.1], [0.9])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lbl_cross_section(ll, blocks, *state)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synthetic.lbl_headline(256)
+    k = lbl_cross_section(ll, blocks, *state, device="cpu")
+    assert k.device.type == "cpu" and k.shape == (300, 1)
+
+
+def test_float32_runtime_deck_keeps_float64_line_centres():
+    """The float32 retrieval set-up casts the atmosphere but not the
+    RuntimeLBL: its line centres stay float64 on the host, so the float32
+    synthesis takes the two-float delta (plain version and kernel
+    inputs)."""
+    from archnemesis_tpu_torch.ops.lbl import uses_two_float
+    from archnemesis_tpu_torch.ops.lbl_cuda import LblSpec, kernel_inputs
+    from archnemesis_tpu_torch.retrievals import make_retrieval_setup
+
+    setup = make_retrieval_setup("tests/fixtures/co_runtime", "cirstest",
+                                 device="cpu", dtype=torch.float32)
+    assert setup.deck.atmosphere.t.dtype == torch.float32
+    rt = setup.deck.ktables.windowed(2120.0, 2180.0)
+    ll = rt.line_lists[0]
+    assert isinstance(ll.nu, np.ndarray) and ll.nu.dtype == np.float64
+    assert uses_two_float(ll, torch.float32)
+    assert not uses_two_float(ll, torch.float64)
+    spec = LblSpec(ll=ll, blocks=rt.blocks[0], lineshape="voigt",
+                   s_floor=0.0, wn_calc_window=25.0, wn_approx_window=75.0,
+                   include_pressure_shift=True, factor=1.0)
+    packed = kernel_inputs(spec, torch.float32, torch.device("cpu"))
+    assert packed["twofloat"]
+    # hi + lo carry 48 of the float64 centre's 53 bits; hi alone 24
+    hi, lo = packed["cols"][0].double(), packed["cols"][1].double()
+    np.testing.assert_allclose((hi + lo).numpy(), ll.nu, rtol=2.0**-46)
+    assert np.abs(hi.numpy() - ll.nu).max() > 2.0**-46 * ll.nu.max()
