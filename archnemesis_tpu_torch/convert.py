@@ -169,23 +169,36 @@ def lbl_blocks(fields) -> LblBlocks:
     return LblBlocks(starts=starts.astype(np.int64), counts=counts, **kw)
 
 
-def runtime_lbl(fields) -> RuntimeLBL:
-    """RuntimeLBL of the port (a host structure: no device) from the JAX
-    one's fields; its line lists, blocks and pseudo-continua are carried
-    across as above. A wave-sharded one (``shard_data``/``mesh`` set)
-    raises: sharding is ROADMAP Queue 1 item 14."""
+def runtime_lbl(fields, device=None) -> RuntimeLBL:
+    """RuntimeLBL of the port (a host structure) from the JAX one's fields;
+    its line lists, blocks and pseudo-continua are carried across as above.
+    A wave-sharded one (``shard_data``/``mesh`` set) is carried across
+    unsharded and partitioned again with the same shard count over the
+    default process group, or one process where none is started
+    (``parallel.sharded.shard_runtime_lbl``), its kernel inputs packed in
+    float64 on ``device`` (None = CUDA); ``device`` matters only then."""
+    from archnemesis_tpu_torch.parallel.mesh import make_mesh
+    from archnemesis_tpu_torch.parallel.sharded import shard_runtime_lbl
+
     f = _fields_of(fields)
-    if f.get("shard_data") or f.get("mesh") is not None:
-        raise ValueError("a wave-sharded RuntimeLBL has no port yet "
-                         "(ROADMAP Queue 1 item 14)")
-    kw = {k: v for k, v in f.items() if k != "mesh"}
+    shard_data = f.get("shard_data") or ()
+    kw = {k: v for k, v in f.items() if k not in ("mesh", "shard_data")}
     kw["line_lists"] = tuple(line_list(x) for x in f["line_lists"])
     kw["blocks"] = tuple(lbl_blocks(x) for x in f.get("blocks", ()))
     kw["pseudo_continuum"] = tuple(
         None if x is None else pseudo_continuum(x)
         for x in f.get("pseudo_continuum", ()))
     kw["ilbl"] = int(kw.get("ilbl", 1))
-    return _host_dataclass(RuntimeLBL, kw)
+    rt = _host_dataclass(RuntimeLBL, kw)
+    if not shard_data:
+        if f.get("mesh") is not None:
+            raise ValueError("a RuntimeLBL with a mesh but no shard data")
+        return rt
+    n_shards = {_fields_of(sh)["n_shards"] for sh in shard_data}
+    if len(n_shards) != 1:
+        raise ValueError(f"the gases' shard counts differ: {n_shards}")
+    return shard_runtime_lbl(rt, make_mesh(n_wave=n_shards.pop()),
+                             device=device)
 
 
 def deck(fields: dict, device=None) -> Deck:
@@ -201,7 +214,7 @@ def deck(fields: dict, device=None) -> Deck:
         if v is None:
             kw[name] = None
         elif name == "ktables" and "line_lists" in v:
-            kw[name] = runtime_lbl(v)
+            kw[name] = runtime_lbl(v, device=device)
         elif name in makers:
             kw[name] = makers[name](v, device=device)
         elif name == "layer_config":

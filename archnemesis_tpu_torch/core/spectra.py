@@ -49,6 +49,10 @@ class KTables:
     ilbl: SpectralCalculationMode = static_field(
         default=SpectralCalculationMode.K_TABLES
     )
+    # this rank's part of a wave-sharded grid (parallel/mesh.py:
+    # shard_ktables_by_wave; wave and k hold only its waves); None: the
+    # whole grid
+    wave_slice: Any = static_field(default=None)
 
     @property
     def ngas(self) -> int:

@@ -219,36 +219,52 @@ def runtime_lbl_tau(cfg: ForwardConfig, layers, rt: RuntimeLBL, press_atm,
     """Gas optical depths (NWAVE, 1, NLAY) of a runtime line-by-line deck:
     per gas the on-the-fly line synthesis (reference calc_klbl_online
     Spectroscopy_0.py:2046) plus its weak-line pseudo-continuum, times the
-    gas's layer amounts; NG = 1."""
+    gas's layer amounts; NG = 1. A wave-sharded deck (``rt.shard_data``)
+    synthesises this rank's waves only, shard by shard
+    (``parallel/sharded.py``)."""
     if not isinstance(rt, RuntimeLBL):
         raise TypeError(f"ILBL=1 (runtime line-by-line) needs a RuntimeLBL, "
                         f"got {type(rt).__name__}")
     dev = layers.temp.device
-    taugas = layers.temp.new_zeros((rt.wave.shape[0], layers.nlay))
+    wave = runtime_wave(rt)
+    taugas = layers.temp.new_zeros((wave.shape[0], layers.nlay))
     for i in range(rt.ngas):
         amb = runtime_ambient_fraction(cfg, layers, i)
-        if rt.include_lines[i] and rt.shard_data:
-            raise NotImplementedError(
-                "wave-sharded line synthesis: not ported yet (ROADMAP "
-                "Queue 1 item 14)")
+        opts = dict(
+            lineshape=rt.lineshape[i], s_floor=rt.s_floor[i],
+            wn_calc_window=rt.wn_calc_window[i],
+            wn_approx_window=rt.wn_approx_window[i],
+            include_pressure_shift=rt.include_pressure_shift[i])
         k_i = 0.0
-        if rt.include_lines[i]:
+        if rt.include_lines[i] and rt.shard_data:
+            from archnemesis_tpu_torch.parallel.sharded import (
+                sharded_lbl_cross_section,
+            )
+
+            k_i = sharded_lbl_cross_section(
+                rt.line_lists[i], rt.shard_data[i], rt.wave_slice.mesh,
+                layers.temp, press_atm, amb, **opts)  # (NWAVE_rank, NLAY)
+        elif rt.include_lines[i]:
             k_i = lbl_cross_section(
                 rt.line_lists[i], rt.blocks[i], layers.temp, press_atm, amb,
-                lineshape=rt.lineshape[i], s_floor=rt.s_floor[i],
-                wn_calc_window=rt.wn_calc_window[i],
-                wn_approx_window=rt.wn_approx_window[i],
-                include_pressure_shift=rt.include_pressure_shift[i],
-                device=dev,
-            )  # (NWAVE, NLAY)
+                device=dev, **opts)  # (NWAVE, NLAY)
         if rt.include_continuum[i] and rt.pseudo_continuum[i] is not None:
             # weak-line pseudo-continuum (reference
             # add_monochromatic_absorption LineData_0.py:2436-2460)
             k_i = k_i + pseudo_continuum_k(
-                rt.pseudo_continuum[i], rt.wave, layers.temp, press_atm, amb,
+                rt.pseudo_continuum[i], wave, layers.temp, press_atm, amb,
                 lineshape=rt.lineshape[i])
         taugas = taugas + k_i * amounts[i][None, :]
     return taugas[:, None, :]
+
+
+def runtime_wave(rt: RuntimeLBL):
+    """The host calc grid a runtime deck synthesises on this rank: the
+    whole grid, or the rank's part of a wave-sharded one."""
+    if rt.wave_slice is None:
+        return rt.wave
+    lo, hi = rt.wave_slice.bounds()
+    return rt.wave[lo:hi]
 
 
 def layer_optical_depths(
@@ -407,6 +423,11 @@ def forward_nadir(
     k-table (or runtime line-by-line) wave grid (reference nemesisfm for a
     single (IGEOM, IAV) + CIRSrad). Returns the (NWAVE, 1) spectrum.
 
+    Wave-sharded tables (``parallel/mesh.py:shard_ktables_by_wave``,
+    ``parallel/sharded.py:shard_runtime_lbl``) run every per-wave stage on
+    this rank's waves and gather the whole spectrum on every rank; the
+    diagnostics stay the rank's.
+
     The structures are moved to ``device`` first (None = CUDA; raises
     without a card unless ``device="cpu"``); a ``RuntimeLBL`` stays on the
     host and its synthesis runs on ``device``.
@@ -432,12 +453,16 @@ def forward_nadir(
     if isinstance(ktab, RuntimeLBL):
         # the host grid in the run's type (the synthesis reads its own
         # float64 copy)
-        wave = layers.temp.new_tensor(ktab.wave)
+        wave = layers.temp.new_tensor(runtime_wave(ktab))
         del_g = layers.temp.new_tensor(ktab.del_g)
     else:
         wave, del_g = ktab.wave, ktab.del_g
     taus = layer_optical_depths(cfg, layers, wave, ktab, cia, aero)
     spec = path_spectrum(cfg, wave, taus["tautot"], path, surf, del_g)
+    if ktab.wave_slice is not None:
+        # wave-sharded tables: every stage above ran on this rank's waves;
+        # the spectrum is gathered once, before the instrument function
+        spec = ktab.wave_slice.gather(spec, dim=0)
     if return_diagnostics:
         return spec, {"layers": layers, "path": path, **taus}
     return spec

@@ -283,9 +283,12 @@ class RuntimeLBL:
     include_lines: tuple = ()
     include_continuum: tuple = ()
 
-    # wave-sharded synthesis data (ROADMAP Queue 1 item 14); empty ->
-    # single-device synthesis
+    # wave-sharded synthesis (parallel/sharded.py:shard_runtime_lbl): per
+    # gas the partition with this rank's packed kernel inputs, and the
+    # rank's part of the grid; empty / None -> the whole grid in one
+    # synthesis per gas
     shard_data: tuple = ()
+    wave_slice: object = None
 
     del_g: np.ndarray = None
     ilbl: int = 1  # SpectralCalculationMode.LINE_BY_LINE_RUNTIME

@@ -14,7 +14,10 @@ batched primal is still one launch; under ``torch.func.jacfwd`` the primal
 is not batched and launches once per call, whatever the number of tangents.
 
 The kernel replaces the TPU kernel ``lbl_cross_section_pallas``
-(``archnemesis_tpu/ops/lbl_pallas.py:228``). It is built with ``nvcc`` for
+(``archnemesis_tpu/ops/lbl_pallas.py:228``); ``lbl_kernel_packed`` is the
+entry of its wave-sharded twin ``lbl_cross_section_pallas_packed``
+(``lbl_pallas.py:312``): the same kernel, its inputs packed once per shard
+at partition time. It is built with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface at first use
 (``ops/cuda_build.py``, under ``build/`` at the repository root), and bound
 with ``ctypes``.
@@ -82,6 +85,9 @@ class LblSpec:
     wn_approx_window: float
     include_pressure_shift: bool
     factor: float
+    # the kernel's static inputs packed once on the device (``kernel_inputs``,
+    # for ``lbl_kernel_packed``); None: packed anew at every launch
+    packed: dict | None = None
 
     def plain(self, t_calc, p_calc, amb_frac):
         return lbl_cross_section_plain(
@@ -143,13 +149,12 @@ def _check_cuda_inputs(spec: LblSpec, t, p, amb):
         raise ValueError(f"unknown lineshape {spec.lineshape!r}")
 
 
-def lbl_kernel(spec: LblSpec, t, p, amb):
-    """One launch of the CUDA kernel on (NLAY,) CUDA tensors; returns
-    k (NWAVE, NLAY) in ``t``'s type."""
+def _launch(spec: LblSpec, static: dict, t, p, amb):
+    """One launch of the CUDA kernel with the packed ``static`` inputs on
+    (NLAY,) CUDA tensors; returns k (NWAVE, NLAY) in ``t``'s type."""
     _check_cuda_inputs(spec, t, p, amb)
     ll, blocks = spec.ll, spec.blocks
     dtype, device = t.dtype, t.device
-    static = kernel_inputs(spec, dtype, device)
     lay = torch.stack([t, p.to(dtype), amb.to(dtype),
                        partition_ratio(ll, t)], dim=1).contiguous()
     out = torch.empty((blocks.n_wave, t.shape[0]), dtype=dtype, device=device)
@@ -164,8 +169,27 @@ def lbl_kernel(spec: LblSpec, t, p, amb):
              float(spec.wn_approx_window), float(spec.factor), C2_CGS,
              DOPPLER_CONST, device.index or 0, stream)
     if err != 0:
-        raise RuntimeError(f"lbl_cross_section launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"lbl_cross_section launch failed: CUDA error {err}")
+    return out
+
+
+def lbl_kernel(spec: LblSpec, t, p, amb):
+    """One launch of the CUDA kernel on (NLAY,) CUDA tensors, its static
+    inputs packed for this call; returns k (NWAVE, NLAY) in ``t``'s type."""
+    out = _launch(spec, kernel_inputs(spec, t.dtype, t.device), t, p, amb)
     lbl_cross_section.launches += 1
+    return out
+
+
+def _launch_packed(spec: LblSpec, t, p, amb):
+    """One launch of the CUDA kernel with the inputs packed in the spec."""
+    cols = spec.packed["cols"]
+    if cols.dtype != t.dtype or cols.device != t.device:
+        raise ValueError(f"inputs packed as {cols.dtype} on {cols.device}, "
+                         f"the layers are {t.dtype} on {t.device}")
+    out = _launch(spec, spec.packed, t, p, amb)
+    lbl_kernel_packed.launches += 1
     return out
 
 
@@ -176,7 +200,9 @@ def _primal(spec: LblSpec, t, p, amb):
         return spec.plain(t, p, amb)
     if t.device.type != "cuda":
         raise ValueError(f"no LBL synthesis for device {t.device}")
-    return lbl_kernel(spec, t, p, amb)
+    if spec.packed is None:
+        return lbl_kernel(spec, t, p, amb)
+    return _launch_packed(spec, t, p, amb)
 
 
 def _stack_batch(x, dim, batch_size):
@@ -253,3 +279,19 @@ def lbl_cross_section(
 
 lbl_cross_section.launches = 0
 lbl_cross_section.calls = 0
+
+
+def lbl_kernel_packed(spec: LblSpec, t_calc, p_calc, amb_frac):
+    """k(NWAVE, NLAY) of a synthesis whose kernel inputs were packed once on
+    the device (``spec.packed``, from ``kernel_inputs``): the entry of the
+    wave-sharded synthesis (``parallel/sharded.py``), one launch per shard,
+    without the per-call host packing and copies. CUDA tensors launch the
+    kernel and add one to ``lbl_kernel_packed.launches``; CPU tensors run
+    the plain version. Forward-mode differentiable as
+    ``lbl_cross_section``."""
+    if spec.packed is None:
+        raise ValueError("the spec carries no packed kernel inputs")
+    return _LblCrossSection.apply(t_calc, p_calc, amb_frac, spec)
+
+
+lbl_kernel_packed.launches = 0

@@ -70,7 +70,7 @@ class RetrievalSetup:
     y: np.ndarray  # measurement vector
     se: np.ndarray  # measurement covariance (diagonal)
     vconv_list: list
-    device: torch.device = torch.device("cpu")
+    device: torch.device  # where forward_fn computes (required: no default)
     dtype: torch.dtype = torch.float64
 
 
@@ -186,7 +186,10 @@ def make_retrieval_setup(
     ``wave_pad_multiple`` / ``ktab_transform``: hooks of the wave-sharded
     path: pad each geometry's windowed calc grid to a shardable length and
     apply a placement transform to the windowed tables before the forward
-    closure captures them.
+    closure captures them (``parallel.mesh.shard_ktables_by_wave`` for
+    k-tables, ``parallel.sharded.shard_runtime_lbl`` for a runtime
+    line-by-line deck; the forward then gathers each spectrum before the
+    instrument function).
 
     ``device`` (None = the CUDA card; raises without one) is where the
     deck's tensors live and ``forward_fn`` computes; ``dtype`` is the run's
@@ -318,12 +321,14 @@ def make_retrieval_setup(
         else:
             ktw = _windowed_ktab(deck, wavemin, wavemax,
                                  pad_multiple=wave_pad_multiple)
-        if ktab_transform is not None:
-            ktw = ktab_transform(ktw)
         # ILS weight matrices live on the observer-frame (Doppler-corrected)
         # calc grid (reference conv/lblconv correct Wave first,
-        # Measurement_0.py:2149)
+        # Measurement_0.py:2149): the whole grid, taken before a sharding
+        # transform cuts the tables to this rank's waves (the forward
+        # gathers the whole spectrum)
         wave_host = _host_wave(ktw)
+        if ktab_transform is not None:
+            ktw = ktab_transform(ktw)
         wavecorr = doppler_corrected_wave(wave_host, st.v_doppler, st.ispace)
         if ils_w is True:
             if st.ilbl == SpectralCalculationMode.K_TABLES:

@@ -9,9 +9,11 @@ without them. Phases, each of which fails the run on its own:
 1. device and build: the card's name and power limit, the torch/CUDA
    versions; every kernel library built from the checkout, one nvcc per
    source, all started together: the random-overlap kernels (primal and
-   tangent variant, ``archnemesis_tpu_torch/csrc/overlap_combine.cu``) and
-   the line-by-line cross-section (``csrc/lbl_cross_section.cu``), with the
-   build times and ptxas' register reports;
+   tangent variant, ``archnemesis_tpu_torch/csrc/overlap_combine.cu``),
+   the line-by-line cross-section (``csrc/lbl_cross_section.cu``), the
+   combine's A/B variants (``csrc/overlap_variants.cu``) and the FMA-peak
+   probe (``csrc/fma_peak.cu``), with the build times and ptxas' register
+   reports;
 2. kernel vs plain: the kernel against its plain PyTorch version at NG
    10, 20 and 32 (the largest the kernel takes) in float32 (rtol 2e-5,
    atol 1e-7, the JAX package's own Pallas-vs-XLA bound) and float64
@@ -73,9 +75,37 @@ without them. Phases, each of which fails the run on its own:
     ``forward_and_jacobian`` (15 tangents) in float64 equal to the port's
     CPU result, 1 launch per evaluation, the wall-clock and phi history of
     ``retrieval_nemesis(niter=3)`` on the card and on the CPU;
+11. the float32 FMA-peak probe (``csrc/fma_peak.cu``): the kernel equal to
+    its plain version bit for bit on random input, the FFMA count of its
+    SASS, then the probe tool's measurement at 72,704 x 512 (the main
+    path: ``tools/fma_peak.measure``, 24 launches): TFLOP/s and the share
+    of the data-sheet peak;
+12. the combine's A/B variants (``csrc/overlap_variants.cu``): every mode
+    against its plain version at R = 581,632, NG = 20 (``sortonly`` and
+    ``rollonly`` bit for bit; ``full`` and ``edges`` within
+    ``variant_f32_tol`` of each row's peak of the float64 result, and
+    within the sum of the two modes' bounds of kernel 1), ``full`` bit for
+    bit equal to kernel 1 at every row tile; then the variants tool (the
+    main path: ``tools/overlap_variants.run``)
+    with ms per mode and per rows-per-block, and the library time of
+    ``torch.topk`` (sortonly) and ``torch.roll`` (rollonly);
+13. the LBL headline's synthesis as 4 logical wave shards through the
+    packed entry (``ops/lbl_cuda.py:lbl_kernel_packed``): the shards'
+    concatenation equal to the unsharded kernel bit for bit and, on all 40
+    layers, within the float32 bound of the plain version; ms per shard
+    launch beside each shard's bound, its halo (lines per shard); then the
+    sharded LBL headline forward (the main path: 4 launches) against the
+    unsharded one;
+14. the wave-sharded forward with ``torch.distributed`` on the card: a
+    one-rank NCCL group started through ``parallel.multihost.initialize``
+    with a ``file://`` store; ``jupiter_nadir`` in float64, forward and 3
+    Jacobian columns, sharded over 4 wave shards (k-tables) against
+    unsharded, and the ``co_runtime`` retrieval set-up with its runtime
+    deck sharded over 4 shards against unsharded (forward and Jacobian),
+    every spectrum gathered through the group;
 
 then a JSON line of the kernels (launches on the main paths, error, times,
-bound) and, last, ``{"ok": true, "device": {...}}``. ``--profile`` adds
+bound, library time) and, last, ``{"ok": true, "device": {...}}``. ``--profile`` adds
 ``torch.profiler`` traces of three headline forwards, of one
 forward-plus-Jacobian evaluation and of three LBL headline forwards: device
 time by kernel, the device's busy share, and Chrome traces in ``build/``.
@@ -89,7 +119,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -364,19 +393,22 @@ def phase_build():
 
     import torch
 
-    from archnemesis_tpu_torch.ops import lbl_cuda, overlap_cuda
+    from archnemesis_tpu_torch.ops import (
+        fma_peak,
+        lbl_cuda,
+        overlap_cuda,
+        overlap_variants,
+    )
+    from archnemesis_tpu_torch.tools.common import card_line
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     _print(f"card: {card}")
     _print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
            f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        futures = [pool.submit(m.build) for m in (overlap_cuda, lbl_cuda)]
+    modules = (overlap_cuda, lbl_cuda, overlap_variants, fma_peak)
+    with ThreadPoolExecutor(max_workers=len(modules)) as pool:
+        futures = [pool.submit(m.build) for m in modules]
         builds = [f.result() for f in futures]
     for built in builds:
         _print(f"built {built['path']} in {built['seconds']:.2f} s")
@@ -1248,6 +1280,399 @@ def phase_lbl_retrieval():
     return launches
 
 
+
+# ---- the last TPU kernels: the FMA-peak probe, the combine's variants,
+# ---- the packed LBL shard entry; wave sharding over torch.distributed
+
+# the wave shards of phases 13 and 14
+N_SHARDS = 4
+
+
+def phase_fma_peak():
+    """Kernel 4 against its plain version bit for bit, its SASS, then the
+    probe tool's measurement (the main path); returns the record."""
+    from archnemesis_tpu_torch.ops import fma_peak
+    from archnemesis_tpu_torch.tools import fma_peak as tool
+
+    differ = tool.check()
+    _print(f"fma_peak kernel vs plain on {tool.CHECK_ROWS * tool.COLS + 3} "
+           f"random float32 elements: {differ} differ "
+           f"({'ok' if differ == 0 else 'FAIL'})")
+    if differ:
+        raise AssertionError("the FMA probe differs from its plain version")
+    ops = tool.sass_opcodes(fma_peak.build()["path"])
+    if ops is None:
+        _print("fma_peak SASS: no cuobjdump in the toolkit")
+    else:
+        # two unrolled copies of 4 elements x 2 chains x (2 + 256) FMAs
+        # (the 16-byte path and the ragged end), nothing folded
+        want = 2 * 4 * 2 * (fma_peak.STEPS + 1)
+        _print(f"fma_peak SASS: {ops['FFMA']} FFMA (expected {want}), "
+               f"{ops['FMUL']} FMUL, {ops['FADD']} FADD of "
+               f"{sum(ops.values())} instructions")
+        if ops["FFMA"] != want or ops["FMUL"]:
+            raise AssertionError("the probe's loop is not the FFMA chains")
+
+    # the main path, counted on its own
+    fma_peak.fma_chain.launches = 0
+    rec = tool.measure()
+    launches = fma_peak.fma_chain.launches
+    if rec["max_abs_err"] != 0.0:
+        raise AssertionError("the probe differs from its plain version")
+    numel = rec["flops"] // fma_peak.FLOPS_PER_ELEMENT
+    bytes_ms = 8 * numel / PEAK_BYTES_S * 1e3
+    ops_ms = rec["flops"] / PEAK_F32_OPS_S * 1e3
+    _print(f"fma_peak at {tool.ROWS} x {tool.COLS} float32 ones: kernel "
+           f"{rec['ms']:.4f} ms (median of 20), {rec['tflops']:.3f} TFLOP/s "
+           f"= {rec['share']:.4f} of the data sheet's "
+           f"{PEAK_F32_OPS_S / 1e12:.0f} TFLOP/s; plain {rec['plain_ms']:.3f} "
+           f"ms; bound {ops_ms:.4f} ms (operations; bytes {bytes_ms:.4f}); "
+           f"{launches} launches")
+    return dict(launches=launches, max_abs_err=rec["max_abs_err"],
+                ms=rec["ms"], plain_ms=rec["plain_ms"],
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                library_ms=None)
+
+
+def variant_f32_tol(del_g, mode: str) -> float:
+    """float32 bound of a variant kernel's rebinned values against the
+    float64 plain version, relative to each row's peak: ``tangent_f32_tol``
+    for ``full`` (the rounding of an overlap's prefix sums against the
+    narrowest bin, 2.7e-5 at NG = 20; the card's first run read 1.35e-5)
+    and twice that for ``edges``, which subtracts two cumulative edge sums
+    that reach the row's total (read 2.37e-5). The kernel and the plain
+    float32 version are held to each other within three times the bound:
+    the plain version's serial cumsum over NG^2 weights is the less
+    accurate of the two (read 5.1e-5 and 6.0e-5 of the peak)."""
+    return tangent_f32_tol(del_g) * (2.0 if mode == "edges" else 1.0)
+
+
+def variant_bound_ms(mode: str, rows: int, ng: int, presorted: bool) -> tuple:
+    """(bound_ms, bound_by) of one variant call in float32: the combine's
+    bound for ``full`` and ``edges``; for ``sortonly`` the larger of the
+    bytes and the merge of NG presorted runs of NG pair sums (the n pair
+    sums and n ceil(log2 NG) comparisons); for ``rollonly`` the bytes in and
+    out."""
+    if mode in ("full", "edges"):
+        return combine_bound_ms(rows, ng, 4, presorted)
+    bytes_ms = 3 * rows * ng * 4 / PEAK_BYTES_S * 1e3
+    if mode == "rollonly":
+        return bytes_ms, "bytes"
+    n = ng * ng
+    ops_ms = rows * (n + n * _ceil_log2(ng)) / PEAK_F32_OPS_S * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations"
+    return bytes_ms, "bytes"
+
+
+def phase_overlap_variants():
+    """Kernel 3, every mode against its plain version at the tool's shape,
+    then the variants tool (the main path); returns one record per mode."""
+    import torch
+
+    from archnemesis_tpu_torch.ops import overlap_variants as ov
+    from archnemesis_tpu_torch.ops.overlap_cuda import combine_pair
+    from archnemesis_tpu_torch.tools import overlap_variants as tool
+
+    a, b, del_g = tool.inputs()
+    rows, ng = a.shape
+    n = ng * ng
+    presorted = is_sorted_along_g(a, b)
+    pairs = (a[:, :, None] + b[:, None, :]).reshape(rows, n)
+    padded = pairs.new_full((rows, ov.ref_pad(ng)), torch.finfo(a.dtype).max)
+    padded[:, :n] = pairs
+    library = {
+        "sortonly": lambda: torch.topk(pairs, ng, largest=False).values,
+        "rollonly": lambda: torch.roll(padded, ov.roll_shift(ng), dims=1),
+    }
+    kernel1 = combine_pair(a, b, del_g)
+    records = {}
+    for mode in ov.MODES:
+        got = ov.combine_lean(a, b, del_g, mode)
+        plain = ov.combine_lean_plain(a, b, del_g, mode)
+        torch.cuda.synchronize()
+        err = (got - plain).abs().max().item()
+        line = f"overlap_variants {mode} vs plain at R={rows}, NG={ng}: "
+        if mode in library:
+            ok = torch.equal(got, plain)
+            lib = library[mode]()[:, :ng]
+            ok = ok and torch.equal(lib, got)
+            line += (f"equal bit for bit: {ok}; the library call "
+                     f"({'torch.topk' if mode == 'sortonly' else 'torch.roll'}"
+                     f") equal too")
+        else:
+            ref = ov.combine_lean_plain(a.double(), b.double(), del_g, mode)
+            peak = ref.abs().max(dim=1, keepdim=True).values.clamp_min(1e-300)
+            k_err = ((got.double() - ref).abs() / peak).max().item()
+            p_err = ((plain.double() - ref).abs() / peak).max().item()
+            kp_err = ((got - plain).double().abs() / peak).max().item()
+            tol = variant_f32_tol(del_g, mode)
+            # kernel 1 is held to the float64 result at the full mode's
+            # bound (phase 2 holds it to its own), so the two variants
+            # differ from it by at most the sum of the two bounds
+            k1_err = ((got - kernel1).double().abs() / peak).max().item()
+            k1_tol = tol + variant_f32_tol(del_g, "full")
+            ok = k_err <= tol and kp_err <= 3 * tol and k1_err <= k1_tol
+            line += (f"max_abs_err {err:.3e}; of each row's peak: kernel vs "
+                     f"float64 {k_err:.3e}, plain float32 vs float64 "
+                     f"{p_err:.3e}, kernel vs plain {kp_err:.3e} (bound "
+                     f"{tol:.2e}, {3 * tol:.2e} between the two), vs "
+                     f"kernel 1 {k1_err:.3e} (bound {k1_tol:.2e})")
+        if mode == "full":
+            same = torch.equal(got, kernel1) and all(
+                torch.equal(ov.combine_lean(a, b, del_g, mode, t), got)
+                for t in ov.ROW_TILES[:-1])
+            ok = ok and same
+            line += f"; equal to kernel 1 at every row tile: {same}"
+        _print(f"{line} ({'ok' if ok else 'FAIL'})")
+        if not ok:
+            raise AssertionError(f"overlap variant {mode} disagrees")
+        plain_ms = _cuda_ms(lambda: ov.combine_lean_plain(a, b, del_g, mode),
+                            reps=2, warmup=1)
+        bound_ms, bound_by = variant_bound_ms(mode, rows, ng, presorted)
+        library_ms = (_cuda_ms(library[mode], reps=10) if mode in library
+                      else None)
+        records[mode] = dict(max_abs_err=err, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=library_ms)
+
+    # the main path, counted on its own: the variants tool
+    for mode in ov.MODES:
+        ov.combine_lean.launches[mode] = 0
+    times = tool.run(list(tool.NAMES), a, b, del_g)
+    torch.cuda.synchronize()
+    for mode, name in zip(ov.MODES, ("lean", "edges", "sortonly",
+                                     "rollonly")):
+        rec = records[mode]
+        rec.update(ms=times[name], launches=ov.combine_lean.launches[mode])
+        if rec["launches"] == 0:
+            raise AssertionError(f"the tool did not launch {mode}")
+        lib = ("" if rec["library_ms"] is None
+               else f", library {rec['library_ms']:.4f} ms")
+        _print(f"overlap_variants {mode}: {rec['ms']:.4f} ms per pair "
+               f"(kernel 1: {times['current']:.4f}), plain "
+               f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+               f"({rec['bound_by']}){lib}; {rec['launches']} launches")
+    _print("overlap_variants full by rows per block: " + ", ".join(
+        f"{t}: {times['lean' if t == ov.ROW_TILE else f'lean{t}']:.4f} ms"
+        for t in ov.ROW_TILES))
+    return records
+
+
+def phase_sharded_lbl(profile: bool = False):
+    """The LBL headline's synthesis as N_SHARDS logical wave shards through
+    the packed entry, then the sharded LBL headline forward (the main
+    path); returns the record."""
+    import torch
+
+    from archnemesis_tpu_torch.forward import (
+        ATM_TO_PA,
+        forward_nadir,
+        runtime_ambient_fraction,
+    )
+    from archnemesis_tpu_torch.ops import lbl_cuda
+    from archnemesis_tpu_torch.parallel.mesh import WaveMesh
+    from archnemesis_tpu_torch.parallel.sharded import (
+        shard_runtime_lbl,
+        shard_spec,
+        sharded_lbl_cross_section,
+    )
+    from archnemesis_tpu_torch.synthetic import LBL_NWAVE, lbl_headline
+
+    atm, laycfg, rt, surf, cfg = lbl_headline(dtype=torch.float32,
+                                              device="cuda")
+    mesh = WaveMesh(n_data=1, n_wave=N_SHARDS)  # one process, no group
+    rt_sh = shard_runtime_lbl(rt, mesh, dtype=torch.float32, device="cuda")
+    sh, ll, blk = rt_sh.shard_data[0], rt.line_lists[0], rt.blocks[0]
+    _, diag = forward_nadir(atm, laycfg, rt, None, None, surf, cfg,
+                            emiss_ang=0.0, return_diagnostics=True,
+                            device="cuda")
+    layers = diag["layers"]
+    state = (layers.temp, layers.press / ATM_TO_PA,
+             runtime_ambient_fraction(cfg, layers, 0))
+    host_state = [x.double().cpu().numpy() for x in state]
+
+    k_sh = sharded_lbl_cross_section(ll, sh, mesh, *state)
+    k_un = lbl_cuda.lbl_cross_section(ll, blk, *state)
+    torch.cuda.synchronize()
+    same = torch.equal(k_sh, k_un)
+    _print(f"sharded synthesis ({N_SHARDS} shards) equals the unsharded "
+           f"kernel bit for bit: {same} ({'ok' if same else 'FAIL'})")
+    if not same:
+        raise AssertionError("the sharded synthesis differs from kernel 2")
+    specs = [shard_spec(ll, sh, s, packed=packed)
+             for s, packed in zip(sh.shards, sh.packed)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = torch.cat([spec.plain(*state) for spec in specs])[:sh.n_wave]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (k_sh - plain).abs().max().item()
+    _lbl_f32_check(k_sh, plain, f"sharded synthesis vs the plain version "
+                   f"per shard, all {len(state[0])} layers")
+    del plain
+
+    shard_ms, bounds = [], []
+    for s, spec in zip(sh.shards, specs):
+        ms = _cuda_ms(lambda: lbl_cuda.lbl_kernel_packed(spec, *state),
+                      reps=5)
+        bound_ms, bound_by, ops = lbl_bound_ms(spec.ll, spec.blocks,
+                                               *host_state, itemsize=4)
+        shard_ms.append(ms)
+        bounds.append((bound_ms, bound_by, ops))
+        halo = int(sh.line_hi[s] - sh.line_lo[s])
+        _print(f"shard {s}: waves {s * spec.blocks.n_wave}-"
+               f"{(s + 1) * spec.blocks.n_wave - 1} (padded), lines "
+               f"[{sh.line_lo[s]}, {sh.line_hi[s]}) = {halo} of "
+               f"{ll.n_lines}; kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+               f"({bound_by}, {ops:.4e} operations)")
+    total_ms = _cuda_ms(lambda: sharded_lbl_cross_section(ll, sh, mesh,
+                                                          *state), reps=5)
+    un_ms = _cuda_ms(lambda: lbl_cuda.lbl_cross_section(ll, blk, *state),
+                     reps=5)
+    un_bound, _, un_ops = lbl_bound_ms(ll, blk, *host_state, itemsize=4)
+    sh_ops = sum(o for _, _, o in bounds)
+    bound_ms = sum(b for b, _, _ in bounds)
+    pad_waves = sh.n_shards * sh.blocks_per_shard * sh.block_width - sh.n_wave
+    _print(f"sharded synthesis: {N_SHARDS} launches, {total_ms:.4f} ms "
+           f"({sum(shard_ms):.4f} ms over the launches timed one by one), "
+           f"bound {bound_ms:.4f} ms ({sh_ops:.4e} operations); unsharded "
+           f"kernel {un_ms:.4f} ms, bound {un_bound:.4f} ms ({un_ops:.4e}); "
+           f"the halo and the {pad_waves} pad waves add {sh_ops - un_ops:.4e} "
+           f"operations; plain {plain_ms:.1f} ms per shard in all")
+
+    def forward(rt_run):
+        return forward_nadir(atm, laycfg, rt_run, None, None, surf, cfg,
+                             emiss_ang=0.0, device="cuda")
+
+    # the main path, counted on its own
+    lbl_cuda.lbl_kernel_packed.launches = 0
+    spec_sh = forward(rt_sh)
+    torch.cuda.synchronize()
+    launches = lbl_cuda.lbl_kernel_packed.launches
+    if launches != N_SHARDS:
+        raise AssertionError(f"{launches} packed launches, expected "
+                             f"{N_SHARDS}")
+    spec_un = forward(rt)
+    if spec_sh.shape != (LBL_NWAVE, 1) or not torch.isfinite(spec_sh).all():
+        raise AssertionError("sharded LBL spectrum not finite")
+    torch.testing.assert_close(spec_sh, spec_un, rtol=1e-6, atol=0)
+    times = {}
+    for name, rt_run in (("sharded", rt_sh), ("unsharded", rt),
+                         ("sharded again", rt_sh)):
+        t = []
+        for i in range(HEADLINE_RUNS + 2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            forward(rt_run)
+            end.record()
+            end.synchronize()
+            if i >= 2:
+                t.append(start.elapsed_time(end))
+        times[name] = float(np.median(t))
+    _print(f"LBL headline forward, {N_SHARDS} wave shards in one process: "
+           f"median {times['sharded']:.3f} / {times['sharded again']:.3f} ms "
+           f"against {times['unsharded']:.3f} ms unsharded (spectra equal "
+           f"{torch.equal(spec_sh, spec_un)}, within rtol 1e-6); "
+           f"{launches} packed launches per forward")
+    if profile:
+        profile_forward(lambda: forward(rt_sh),
+                        what="sharded LBL headline forward",
+                        trace="build/lbl_sharded_trace.json")
+    return dict(launches=launches, max_abs_err=err, ms=total_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bounds[0][1], library_ms=None)
+
+
+def phase_distributed():
+    """The wave-sharded forward on the card through a one-rank NCCL group:
+    jupiter_nadir (k-tables) and co_runtime (runtime LBL), sharded against
+    unsharded; returns the packed launches of one runtime evaluation."""
+    import torch
+    import torch.distributed as dist
+
+    from archnemesis_tpu_torch.ops import lbl_cuda
+    from archnemesis_tpu_torch.parallel import multihost
+    from archnemesis_tpu_torch.parallel.mesh import (
+        make_mesh,
+        shard_ktables_by_wave,
+    )
+    from archnemesis_tpu_torch.parallel.sharded import shard_runtime_lbl
+    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
+    from archnemesis_tpu_torch.retrievals import make_retrieval_setup
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rank = multihost.initialize(init_method=f"file://{tmp}/store",
+                                    world_size=1, rank=0)
+        try:
+            backend = dist.get_backend()
+            mesh = make_mesh(n_wave=N_SHARDS)
+            if (rank, backend, mesh.world) != (0, "nccl", 1) or (
+                    mesh.group is None):
+                raise AssertionError(f"rank {rank}, backend {backend}")
+            plain = make_retrieval_setup(DECK, "cirstest", device="cuda",
+                                         wave_pad_multiple=N_SHARDS)
+            sharded = make_retrieval_setup(
+                DECK, "cirstest", device="cuda", wave_pad_multiple=N_SHARDS,
+                ktab_transform=lambda kt: shard_ktables_by_wave(kt, mesh))
+            xa = torch.as_tensor(plain.sv.xa, device="cuda")
+            y0, y1 = plain.forward_fn(xa), sharded.forward_fn(xa)
+            np.testing.assert_allclose(
+                y1.cpu().numpy(), y0.cpu().numpy(), rtol=1e-12,
+                atol=1e-14 * y0.abs().max().item())
+            nx = xa.shape[0]
+            basis = torch.eye(nx, dtype=xa.dtype,
+                              device="cuda")[[0, nx // 2, nx - 1]]
+
+            def columns(fn):
+                return torch.func.vmap(
+                    lambda v: torch.func.jvp(fn, (xa,), (v,))[1])(basis)
+
+            j0, j1 = columns(plain.forward_fn), columns(sharded.forward_fn)
+            np.testing.assert_allclose(
+                j1.cpu().numpy(), j0.cpu().numpy(), rtol=1e-10,
+                atol=1e-12 * j0.abs().max().item())
+            _print(f"jupiter_nadir float64 over {N_SHARDS} wave shards "
+                   f"({backend} group of {mesh.world}, file:// store; NY = "
+                   f"{y0.shape[0]}): forward equal to unsharded at rtol "
+                   f"1e-12, 3 Jacobian columns at rtol 1e-10 (max diff "
+                   f"{(y1 - y0).abs().max().item():.3e} / "
+                   f"{(j1 - j0).abs().max().item():.3e})")
+
+            deck = copy_runtime_deck(os.path.join(tmp, "co"))
+            rt_plain = make_retrieval_setup(deck, "cirstest", device="cuda")
+            rt_sharded = make_retrieval_setup(
+                deck, "cirstest", device="cuda",
+                ktab_transform=lambda rt: shard_runtime_lbl(
+                    rt, mesh, dtype=torch.float64, device="cuda"))
+            xr = torch.as_tensor(rt_plain.sv.xa, device="cuda")
+            yn0, kk0 = forward_and_jacobian(rt_plain.forward_fn, xr)
+            lbl_cuda.lbl_kernel_packed.launches = 0
+            yn1, kk1 = forward_and_jacobian(rt_sharded.forward_fn, xr)
+            torch.cuda.synchronize()
+            launches = lbl_cuda.lbl_kernel_packed.launches
+            if launches != N_SHARDS:
+                raise AssertionError(f"{launches} packed launches per "
+                                     f"evaluation, expected {N_SHARDS}")
+            np.testing.assert_allclose(yn1.cpu().numpy(), yn0.cpu().numpy(),
+                                       rtol=1e-12, atol=0)
+            col_peak = kk0.abs().max(dim=0).values
+            np.testing.assert_array_less(
+                (kk1 - kk0).abs().cpu().numpy(),
+                (1e-10 * kk0.abs() + 1e-10 * col_peak[None, :]).cpu().numpy()
+                + np.finfo(np.float64).tiny)
+            _print(f"co_runtime float64, runtime deck over {N_SHARDS} wave "
+                   f"shards through the group: spectrum equal to unsharded "
+                   f"at rtol 1e-12, Jacobian ({kk1.shape[1]} columns) at rtol "
+                   f"1e-10 + 1e-10 of each column's peak; {launches} packed "
+                   "launches per evaluation")
+        finally:
+            dist.destroy_process_group()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1269,6 +1694,10 @@ def main() -> int:
     phase_lbl_golden_deck()
     lbl_launches, _ = phase_lbl_headline(profile=profile)
     phase_lbl_retrieval()
+    fma_record = phase_fma_peak()
+    variant_records = phase_overlap_variants()
+    packed_record = phase_sharded_lbl(profile=profile)
+    phase_distributed()
 
     kernels = [dict(
         name="overlap_combine",
@@ -1306,7 +1735,27 @@ def main() -> int:
         bound_ms=lbl_record["bound_ms"],
         bound_by=lbl_record["bound_by"],
         library_ms=None,
+    ), dict(
+        name="lbl_cross_section_packed",
+        route="cuda",
+        source="archnemesis_tpu_torch/csrc/lbl_cross_section.cu",
+        replaces="archnemesis_tpu/ops/lbl_pallas.py:312",
+        **packed_record,
     )]
+    kernels += [dict(
+        name=f"overlap_variants_{mode}",
+        route="cuda",
+        source="archnemesis_tpu_torch/csrc/overlap_variants.cu",
+        replaces="tools/bench_overlap_variants.py:131",
+        **rec,
+    ) for mode, rec in variant_records.items()]
+    kernels.append(dict(
+        name="fma_peak",
+        route="cuda",
+        source="archnemesis_tpu_torch/csrc/fma_peak.cu",
+        replaces="tools/bench_vpu_peak.py:39",
+        **fma_record,
+    ))
     _print(f"total {time.perf_counter() - t0:.1f} s")
     _print(card)
     _print(json.dumps({"kernels": kernels}))

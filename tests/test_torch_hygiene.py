@@ -71,7 +71,7 @@ def test_import_leaves_no_jax_in_sys_modules():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 33
+    assert int(out.stdout.split()[-1]) >= 43
 
 
 @pytest.fixture
@@ -256,3 +256,62 @@ def test_float32_runtime_deck_keeps_float64_line_centres():
     hi, lo = packed["cols"][0].double(), packed["cols"][1].double()
     np.testing.assert_allclose((hi + lo).numpy(), ll.nu, rtol=2.0**-46)
     assert np.abs(hi.numpy() - ll.nu).max() > 2.0**-46 * ll.nu.max()
+
+
+def test_probe_and_variant_modules_import_without_nvcc(tmp_path):
+    """The FMA-peak and variant kernel modules import where no CUDA compiler
+    exists: the variants serve CPU tensors with their plain versions, the
+    probe has no CPU path and raises; building either kernel raises."""
+    code = (
+        "import numpy as np, torch\n"
+        "from archnemesis_tpu_torch.ops import fma_peak, overlap_variants\n"
+        "a = torch.zeros((3, 4))\n"
+        "out = overlap_variants.combine_lean(a, a, np.full(4, 0.25))\n"
+        "assert out.shape == (3, 4)\n"
+        "assert sum(overlap_variants.combine_lean.launches.values()) == 0\n"
+        "try:\n"
+        "    fma_peak.fma_chain(torch.ones(4))\n"
+        "except ValueError:\n"
+        "    print('probe raised')\n"
+        "for m in (fma_peak, overlap_variants):\n"
+        "    try:\n"
+        "        m.build()\n"
+        "    except (OSError, RuntimeError) as e:\n"
+        "        print('build raised', type(e).__name__)\n"
+    )
+    env = dict(os.environ, PATH=str(tmp_path),
+               CUDA_HOME=str(tmp_path / "no-cuda"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.count("build raised") == 2
+    assert "probe raised" in out.stdout
+
+
+def test_sharding_and_tools_need_a_card(no_cuda):
+    """The sharded synthesis packs its kernel inputs on the card unless asked
+    for the CPU; the measurement tools refuse to run without a card; a
+    retrieval set-up names its device."""
+    from archnemesis_tpu_torch.io.linedata import read_ans_linedata
+    from archnemesis_tpu_torch.io.linedata import RuntimeLBL
+    from archnemesis_tpu_torch.parallel.mesh import make_mesh
+    from archnemesis_tpu_torch.parallel.sharded import shard_runtime_lbl
+    from archnemesis_tpu_torch.retrievals import RetrievalSetup
+    from archnemesis_tpu_torch.tools import common
+
+    ll = read_ans_linedata(synthetic.LBL_LINEDATA, 5, 1)
+    rt = RuntimeLBL(
+        wave=np.linspace(2100.0, 2110.0, 300), gas_id=(5,), iso_id=(1,),
+        line_lists=(ll,), lineshape=("voigt",), wn_calc_window=(25.0,),
+        wn_approx_window=(75.0,), s_floor=(0.0,),
+        include_pressure_shift=(True,)).windowed(2000.0, 2200.0)
+    mesh = make_mesh(n_wave=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        shard_runtime_lbl(rt, mesh)
+    sharded = shard_runtime_lbl(rt, mesh, device="cpu")
+    assert sharded.shard_data[0].packed[0]["cols"].device.type == "cpu"
+    with pytest.raises(SystemExit):
+        common.require_cuda()
+    with pytest.raises(TypeError, match="device"):
+        RetrievalSetup(deck=None, sv=None, forward_fn=None, y=None, se=None,
+                       vconv_list=[])
