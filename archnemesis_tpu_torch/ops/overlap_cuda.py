@@ -37,14 +37,14 @@ from archnemesis_tpu_torch.ops.overlap import (
     pair_weights,
 )
 
-MAX_NG = 32  # e_pad = next pow2 of NG*NG must fit 32 per lane of one warp
+MAX_NG = 32  # NG lanes of one warp; the tangent kernel's e_pad <= 1024
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def e_pad(ng: int) -> int:
-    """Padded element count of one row: next power of two of NG*NG, at
-    least one per lane of a warp."""
+    """Padded element count of one row in the tangent kernel: next power of
+    two of NG*NG, at least one per lane of a warp."""
     return max(32, 1 << (ng * ng - 1).bit_length())
 
 
@@ -129,8 +129,11 @@ def _del_g_key(del_g) -> tuple:
     return tuple(float(x) for x in np.asarray(del_g, dtype=np.float64))
 
 
-def _combine_primal(tau_a, tau_b, del_g: tuple):
-    """The primal combine on plain (not dual, not batched) tensors."""
+def _combine_primal(tau_a, tau_b, del_g: tuple, warps: int = 0):
+    """The primal combine on plain (not dual, not batched) tensors; on the
+    card ``warps`` rows per block (1 .. 16), or with 0 the count that keeps
+    the most rows resident on an SM (``csrc/overlap_combine.cu:
+    launch_primal``)."""
     if tau_a.device.type == "cpu":
         return combine_pair_plain(tau_a, tau_b, del_g)
     if tau_a.device.type != "cuda":
@@ -143,7 +146,7 @@ def _combine_primal(tau_a, tau_b, del_g: tuple):
     fn = getattr(_library(), f"overlap_combine_{_DTYPES[tau_a.dtype]}")
     stream = torch.cuda.current_stream(tau_a.device).cuda_stream
     err = fn(tau_a.data_ptr(), tau_b.data_ptr(), w2.data_ptr(),
-             edges.data_ptr(), out.data_ptr(), rows, ng, e_pad(ng),
+             edges.data_ptr(), out.data_ptr(), rows, ng, warps,
              tau_a.device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"overlap_combine launch failed: CUDA error {err}")

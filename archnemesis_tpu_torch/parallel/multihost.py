@@ -10,7 +10,8 @@ Port of the JAX package's ``parallel/multihost.py``:
    one (:func:`hosts_axis_mesh`), so the wave gather stays inside a host and
    only the data-parallel axis crosses hosts;
 3. every process runs the same program on its own shards (SPMD);
-   :func:`process_local_batch` cuts a batch to the process's data rows.
+   :func:`process_local_batch` assembles the global batch from each
+   process's rows.
 """
 
 from __future__ import annotations
@@ -79,16 +80,42 @@ def hosts_axis_mesh(n_hosts: Optional[int] = None,
                     group=mesh.group)
 
 
-def process_local_batch(mesh: WaveMesh, global_batch):
-    """This process's part of a batch split along its first axis over the
-    mesh's data rows: the rows of the data shards it owns (the whole batch
-    in a single process). The batch length must split into ``n_data`` equal
-    parts."""
-    batch = torch.as_tensor(global_batch)
-    n = batch.shape[0]
-    if n % mesh.n_data:
-        raise ValueError(f"a batch of {n} does not split over "
+def process_local_batch(mesh: WaveMesh, local_batch):
+    """The global batch from this process's part of it, as the JAX
+    function's ``make_array_from_process_local_data``: each process passes
+    the rows of the data shards it owns (ranks sharing a data row pass the
+    same rows), and every process gets the whole batch back along the
+    first axis, in data-row order, through one ``all_gather`` over the
+    mesh's group (after a small one of the parts' shapes, so that parts
+    that differ raise on every rank). In a single process the batch comes
+    back unchanged.
+    Every rank's part must have the same shape, on the group's device, and
+    the global batch must split into ``n_data`` equal parts."""
+    local = torch.as_tensor(local_batch)
+    if mesh.group is None:
+        return _check_split(local, mesh)
+    world = mesh.world
+    shape = torch.tensor(local.shape, dtype=torch.int64, device=local.device)
+    shapes = [torch.empty_like(shape) for _ in range(world)]
+    dist.all_gather(shapes, shape, group=mesh.group)
+    if any(not torch.equal(x, shape) for x in shapes):
+        raise ValueError("local batches differ in shape across ranks: "
+                         f"{[tuple(x.tolist()) for x in shapes]}")
+    parts = [torch.empty_like(local) for _ in range(world)]
+    dist.all_gather(parts, local.contiguous(), group=mesh.group)
+    # one part per data row run: ranks own contiguous runs in data-major
+    # order, so the first owner of each run supplies it
+    seen, pieces = set(), []
+    for r in range(world):
+        rows = mesh.data_rows(r)
+        if rows.start not in seen:
+            seen.add(rows.start)
+            pieces.append(parts[r])
+    return _check_split(torch.cat(pieces), mesh)
+
+
+def _check_split(batch, mesh: WaveMesh):
+    if batch.shape[0] % mesh.n_data:
+        raise ValueError(f"a batch of {batch.shape[0]} does not split over "
                          f"{mesh.n_data} data rows")
-    per = n // mesh.n_data
-    rows = mesh.data_rows()
-    return batch[rows.start * per:rows.stop * per]
+    return batch

@@ -7,9 +7,15 @@ The TPU tool's inputs (``default_rng(0)``, rows of 20 log-normal values
 sorted along g, R = 8192 x 71, Gauss-Legendre del_g) and its variant
 names: ``check`` (the lean combine against the combine kernel, max relative
 difference), ``current`` (the combine kernel, ``ops/overlap_cuda.py:
-combine_pair``), ``lean``, ``edges``, ``sortonly``, ``rollonly`` (the modes
+combine_pair``: the merge of the presorted runs with a rebin of the
+straddled bins), ``lean``, ``edges``, ``sortonly``, ``rollonly`` (the modes
 of ``ops/overlap_variants.py:combine_lean`` at 256 rows per block) and
-``lean8`` .. ``lean128`` (the full mode at 8 .. 128 rows per block).
+``lean8`` .. ``lean128`` (the full mode at 8 .. 128 rows per block). The
+full mode (``lean``) is the combine kernel's earlier design, a bitonic
+network in registers with every element tested against every bin, in its
+lean form; it gives the tangent kernel's primal bit for bit. So one call
+times the current kernel beside the earlier design and beside the
+earlier design's sort and data movement alone.
 Prints ms per pair combine, the median of CUDA-event times, with the
 card's name and power limit. Default: every name.
 """

@@ -97,7 +97,15 @@ def _worker(rank, store, out_dir):
     try:
         mesh = make_mesh(n_wave=N_WAVE)
         hosts = multihost.hosts_axis_mesh(n_hosts=WORLD, n_shards=8)
-        batch = multihost.process_local_batch(hosts, np.arange(8.0))
+        # each rank passes its own half of the batch and gets all of it
+        batch = multihost.process_local_batch(
+            hosts, np.arange(8.0)[4 * rank:4 * rank + 4])
+        try:  # local parts of different lengths: every rank raises
+            multihost.process_local_batch(
+                hosts, np.arange(8.0)[4 * rank:4 * rank + 4 - rank])
+            mismatch = None
+        except ValueError as exc:
+            mismatch = str(exc)
         _ktable_deck(mesh)
         bounds = _runtime_deck(mesh)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -105,6 +113,7 @@ def _worker(rank, store, out_dir):
                 rank=got, world=mesh.world, shards=list(mesh.wave_shards()),
                 hosts_rows=list(hosts.data_rows()),
                 hosts_owners=hosts.owners.tolist(), batch=batch.tolist(),
+                mismatch=mismatch,
                 runtime_bounds=list(bounds), gathers=gathers), f)
     finally:
         dist.destroy_process_group()
@@ -130,7 +139,8 @@ def test_two_gloo_ranks_match_unsharded(tmp_path):
         # one host per rank: rank r owns data row r
         assert run["hosts_rows"] == [r]
         assert run["hosts_owners"] == [[0] * 4, [1] * 4]
-        assert run["batch"] == list(np.arange(8.0)[4 * r:4 * r + 4])
+        assert run["batch"] == list(np.arange(8.0))
+        assert "differ in shape" in run["mismatch"]
         # each rank synthesises its own half of the 512-wave sub-grid
         assert run["runtime_bounds"] == [256 * r, 256 * (r + 1)]
         # collectives: the k-table forward (primal), its Jacobian (primal

@@ -168,8 +168,9 @@ def test_runtime_retrieval_setup_sharded_matches():
 
 def test_multihost_single_process(monkeypatch):
     """``initialize`` is a no-op in one process; ``hosts_axis_mesh`` lays
-    data across hosts and wave shards within one, contiguous; a batch is
-    cut to the process's data rows (all of them here)."""
+    data across hosts and wave shards within one, contiguous; the global
+    batch is assembled from the processes' rows (one process holds all of
+    them here)."""
     for name in ("WORLD_SIZE", "RANK", "MASTER_ADDR"):
         monkeypatch.delenv(name, raising=False)
     assert multihost.initialize() == 0
@@ -183,6 +184,8 @@ def test_multihost_single_process(monkeypatch):
     assert list(mesh.wave_shards()) == [0, 1, 2, 3]
     with pytest.raises(ValueError, match="hosts"):
         multihost.hosts_axis_mesh(n_hosts=3, n_shards=8)
+    # one process holds the whole batch: it comes back unchanged, as from
+    # the JAX function in one process
     batch = np.arange(8.0 * 6).reshape(8, 6)
     np.testing.assert_array_equal(
         multihost.process_local_batch(mesh, batch).numpy(), batch)
