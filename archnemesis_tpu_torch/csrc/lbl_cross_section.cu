@@ -20,39 +20,58 @@
 // centre, where a plain float32 difference of two ~2e3 cm-1 numbers would
 // lose the ~1e-3 cm-1 delta. In float64 it is wn - (nu + shift), the
 // reference's association. The Voigt function is the Weideman-24 rational
-// expansion of Re w(z); in float32 a 6-convergent continued fraction
-// replaces it where |z|^2 > 49, where the expansion cancels its O(1) terms
-// down to a ~y/|z|^2 result (a per-element branch: only the taken side is
-// evaluated). Q(Tref)/Q(T), one interpolation per layer, comes in with the
-// layer's T, p and ambient fraction.
+// expansion of Re w(z); in float32 the 6-convergent continued fraction
+// replaces it where |z|^2 > 49 (a per-element branch: only the taken side
+// is evaluated). Q(Tref)/Q(T), one interpolation per layer, comes in with
+// the layer's T, p and ambient fraction.
 //
 // What bounds it on the card: operations. The line and wave columns and the
 // output are ~13 MB at the full-width configuration (80,000 waves, 5,092
 // lines, 40 layers), a few microseconds at the HBM rate, while the
 // function needs a lineshape for each of ~1.9e8 (line, wave) pairs per
-// layer inside the 25 cm-1 core window (~80 float32 operations each where
-// the continued fraction applies, ~190 for the Weideman expansion) and a
-// few operations for each of ~2.0e8 wing pairs (chip_smoke.py:
-// lbl_bound_ms counts them from the run's inputs). The design spends
-// nothing on memory and keeps the arithmetic to what one pair needs:
-//   - one block per (wave block of W waves, layer), one thread per wave,
-//     its running sum in a register; blocks read their own exact line
-//     range [starts[b], starts[b] + counts[b]) from build_blocks (no
-//     padding to a chunk size);
-//   - the range is walked in tiles of W lines: the block's threads compute
-//     each line's per-(layer, line) physics once into shared memory (delta
-//     parts, the lineshape's two per-line parameters, the wing value
-//     f(wn_calc) wn_calc^2 and the weighted strength), then every thread
-//     runs over the tile against its own wave, reading the line's values
-//     as shared-memory broadcasts;
-//   - a line whose weighted strength is zero is skipped by the whole
-//     block, a pair outside the 75 cm-1 window costs a compare, and a
-//     wing pair a division;
-//   - sums run in line order, without atomics: the result is
-//     deterministic.
-// No fast-math: expf, powf and the divisions stay IEEE (float64 results
-// agree with the plain version to ~1e-15, float32 ones with float64 within
-// the float32 bound).
+// layer inside the 25 cm-1 core window and a reciprocal for each of ~2.0e8
+// wing pairs (chip_smoke.py:lbl_bound_ms counts them from the run's
+// inputs). The design keeps the arithmetic of a pair to what it needs:
+//   - pass 1 (line_kernel), one thread per (layer, line): the per-(layer,
+//     line) physics once per synthesis, into a 32-byte record (64 in
+//     float64) of the centre's parts, the lineshape's two parameters, the
+//     strength times the lineshape's normalisation, the wing value
+//     f(wn_calc) wn_calc^2 S and S itself (0 below s_floor);
+//   - pass 2 (pair_kernel), one block per (block of W waves of
+//     build_blocks, layer), V waves per thread (ceil(W / V) threads, the
+//     V waves' parts and sums in registers): the block's exact line range
+//     [starts[b], starts[b] + counts[b]) is staged in tiles of 128 records
+//     through shared memory (two 128-bit loads per record per thread, used
+//     for all V waves). The tiles are staged by plain loads: the records
+//     are L2-resident and the pass is bound by instruction issue, and a
+//     double-buffered cp.async staging (kept as the sweep's ASYNC variant,
+//     Voigt only) gives the same bits and took 0.1-3.7 % longer on an
+//     H100 in every timed turn;
+//   - staging classifies each (block, line) once from the deltas at the
+//     block's first and last wave, with a margin of 1e-4 (wn_approx + 1)
+//     cm-1 that covers the rounding of delta between them: skip (zero
+//     strength, or outside the window for every wave), wing (every wave in
+//     wn_calc <= |delta| < wn_approx: delta^2, one reciprocal, one FMA),
+//     core (every wave inside |delta| < wn_calc: the lineshape, no window
+//     test) or straddle (the per-pair tests). The class is the same for
+//     every thread of the block, so no warp diverges on it; a margin case
+//     only moves a line to the straddle class, where the pair's own tests
+//     decide, so the classes change no pair's result;
+//   - float32 Re w(z) for |z|^2 > 49 is the continued fraction's 6th
+//     convergent written as a ratio of two polynomials in t = 1/z^2:
+//     w = (i/sqrt(pi)) p5(t) / (z p6(t)), p5 = 1 - 10 t + 21.75 t^2 - 6 t^3,
+//     p6 = 1 - 10.5 t + 26.25 t^2 - 13.125 t^3 (the forward recurrence
+//     P_{k+1} = z P_k - c_k P_{k-1} divided by z^(k+1), so no term
+//     overflows at |z| ~ 1e4): two approximate reciprocals (1/|z|^2 and
+//     1/|p6|^2, |p6| in [0.78, 1.22]) instead of six IEEE reciprocals and a
+//     division; the float32 wing's 1/delta^2 (delta^2 >= wn_calc^2) is one
+//     approximate reciprocal. float64 keeps the Weideman expansion and
+//     IEEE divisions throughout;
+//   - sums run in line order per wave, without atomics: the result is
+//     deterministic, and a wave-shard launch gives the unsharded bits.
+// No global fast-math: expf, powf and the float64 divisions stay IEEE; the
+// only approximate operation is rcp.approx.f32 (1 ulp) in the float32
+// continued fraction and wing.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -122,16 +141,55 @@ enum Column {
   kGammaAmb = 7,
   kNAmb = 8,
   kDeltaAmb = 9,
-  kColumns = 10,
 };
 
-// per-line values a tile keeps in shared memory
-constexpr int kTileArrays = 7;
+// A (layer, line) record of pass 1. Two-float: centre nu_hi, nu_lo, shift;
+// otherwise nu + shift, 0, 0. Then the lineshape's parameters a, b (Voigt
+// family: scale = sqrt(ln 2) / alpha_d and y = gamma_l scale; Gaussian:
+// sigma; Lorentz: gamma_l, gamma_l^2), cs = S times the lineshape's
+// normalisation, ws = f(wn_calc) wn_calc^2 S, and S (0 below s_floor),
+// which staging replaces by the (block, line) class.
+enum Field { kC0 = 0, kC1, kC2, kA, kB, kCs, kWs, kS, kFields };
+
+template <typename T>
+struct alignas(kFields * sizeof(T)) Rec {
+  T v[kFields];
+};
+
+// (block, line) classes
+constexpr int kSkip = 0, kWing = 1, kCore = 2, kStraddle = 3;
+// records per shared-memory tile: 4 KB in float32, 8 KB in float64
+constexpr int kTile = 128;
+// waves per thread of the pair pass unless the caller asks for another
+constexpr int kWavesPerThread = 2;
+constexpr int kLineThreads = 128;
 
 struct Params {
   double t_ref, p_ref, mass, s_floor, wn_calc, wn_approx, factor, c2,
       doppler;
 };
+
+// 16-byte asynchronous copy from global to shared memory (sm_80 and later)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most one committed group of this thread is in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
 
 // Re w(z), Weideman-24 (the operations of voigt.complex_err_fn_weideman24)
 template <typename T>
@@ -160,24 +218,42 @@ __device__ __forceinline__ T weideman24_re(T zr, T zi) {
   return x_r * inv_r - x_i * inv_i;
 }
 
-// Re w(z), 6-convergent continued fraction (voigt._cpf_continued_fraction)
-__device__ __forceinline__ float cf_re(float zr, float zi) {
-  constexpr float c[6] = {3.0f, 2.5f, 2.0f, 1.5f, 1.0f, 0.5f};
-  float d_r = zr;
-  float d_i = zi;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    const float r = 1.0f / (d_r * d_r + d_i * d_i);
-    d_r = zr - c[k] * d_r * r;
-    d_i = zi + c[k] * d_i * r;
-  }
-  return float(kInvSqrtPi) * d_i / (d_r * d_r + d_i * d_i);
+// (q_r, q_i) <- t q + c, complex t and q, real c
+__device__ __forceinline__ void horner_step(float t_r, float t_i, float& q_r,
+                                            float& q_i, float c) {
+  const float r = fmaf(t_r, q_r, fmaf(-t_i, q_i, c));
+  q_i = fmaf(t_r, q_i, t_i * q_r);
+  q_r = r;
+}
+
+// Re w(z) for |z|^2 = r2 > 49: the 6-convergent continued fraction
+// (voigt._cpf_continued_fraction) as (i/sqrt(pi)) p5(t) / (z p6(t)),
+// t = 1/z^2 (ops/voigt.py:cf_ratio_re is its plain mirror)
+__device__ __forceinline__ float cf_re(float x, float y, float r2) {
+  const float r = rcp_approx(r2);
+  const float u_r = x * r;  // 1/z
+  const float u_i = -y * r;
+  const float t_r = fmaf(u_r, u_r, -u_i * u_i);
+  const float t_i = 2.0f * u_r * u_i;
+  float p5_r = fmaf(-6.0f, t_r, 21.75f), p5_i = -6.0f * t_i;
+  float p6_r = fmaf(-13.125f, t_r, 26.25f), p6_i = -13.125f * t_i;
+  horner_step(t_r, t_i, p5_r, p5_i, -10.0f);
+  horner_step(t_r, t_i, p6_r, p6_i, -10.5f);
+  horner_step(t_r, t_i, p5_r, p5_i, 1.0f);
+  horner_step(t_r, t_i, p6_r, p6_i, 1.0f);
+  const float m_r = fmaf(p5_r, u_r, -p5_i * u_i);  // p5 / z
+  const float m_i = fmaf(p5_r, u_i, p5_i * u_r);
+  // Re(i m conj(p6)) / |p6|^2
+  const float im = fmaf(m_i, p6_r, -m_r * p6_i);
+  return -float(kInvSqrtPi) * im *
+         rcp_approx(fmaf(p6_r, p6_r, p6_i * p6_i));
 }
 
 template <typename T>
 __device__ __forceinline__ T w_re(T x, T y) {
   if constexpr (sizeof(T) == 4) {
-    if (x * x + y * y > T(kAsymR2)) return cf_re(x, y);
+    const T r2 = x * x + y * y;
+    if (r2 > T(kAsymR2)) return cf_re(x, y, r2);
   }
   return weideman24_re(x, y);
 }
@@ -197,184 +273,316 @@ __device__ __forceinline__ T chi_hartmann(T ad) {
   return T(0.0684) * exp(-ad / T(393.0));
 }
 
-// The two per-line parameters of a lineshape: Voigt family (scale, y),
-// Gaussian (sigma, sigma sqrt(2 pi)), Lorentz (gamma, gamma^2).
+// The record's lineshape parameters (a, b) and normalisation from the
+// line's widths.
 template <typename T, int SHAPE>
-__device__ __forceinline__ void shape_params(T alpha_d, T gamma_l, T& p0,
-                                             T& p1) {
+__device__ __forceinline__ void shape_params(T alpha_d, T gamma_l, T& a, T& b,
+                                             T& norm) {
   if constexpr (SHAPE == kGaussian) {
-    const T sigma = alpha_d / T(kSqrt2Log2);
-    p0 = sigma;
-    p1 = sigma * T(kSqrt2Pi);
+    a = alpha_d / T(kSqrt2Log2);
+    b = a * T(kSqrt2Pi);
+    norm = T(1) / b;
   } else if constexpr (SHAPE == kLorentz) {
-    p0 = gamma_l;
-    p1 = gamma_l * gamma_l;
+    a = gamma_l;
+    b = gamma_l * gamma_l;
+    norm = gamma_l / T(kPi);
   } else {
     if constexpr (SHAPE == kVoigtCh4H2) {
       alpha_d = alpha_d / T(kSqrt2);
       gamma_l = gamma_l / T(kSqrt2);
     }
-    const T scale = T(kSqrtLog2) / alpha_d;
-    p0 = scale;
-    p1 = gamma_l * scale;
+    a = T(kSqrtLog2) / alpha_d;
+    b = gamma_l * a;
+    norm = a * T(kInvSqrt2Pi) * T(kSqrt2);
   }
 }
 
-// The lineshape at delta from its per-line parameters.
+// S times the lineshape at delta, from the record's a, b and cs.
 template <typename T, int SHAPE>
-__device__ __forceinline__ T shape_value(T delta, T p0, T p1) {
+__device__ __forceinline__ T core_value(T delta, T a, T b, T cs) {
   if constexpr (SHAPE == kGaussian) {
-    const T r = delta / p0;
-    return exp(T(-0.5) * (r * r)) / p1;
+    const T r = delta / a;
+    return exp(T(-0.5) * (r * r)) * cs;
   } else if constexpr (SHAPE == kLorentz) {
-    return p0 / (T(kPi) * (p1 + delta * delta));
+    return cs / (b + delta * delta);
   } else {
-    const T v = w_re<T>(delta * p0, p1) * p0 * T(kInvSqrt2Pi) * T(kSqrt2);
+    const T v = w_re<T>(delta * a, b) * cs;
     if constexpr (SHAPE == kTonkov) return chi_tonkov(fabs(delta)) * v;
     if constexpr (SHAPE == kHartmann) return chi_hartmann(fabs(delta)) * v;
     return v;
   }
 }
 
-// grid (n_blocks, nlay), one thread per wave of the block (blockDim.x = W)
+// ws / delta^2 (one approximate reciprocal in float32)
+template <typename T>
+__device__ __forceinline__ T wing_value(T delta, T ws) {
+  if constexpr (sizeof(T) == 4) return ws * rcp_approx(delta * delta);
+  return ws / (delta * delta);
+}
+
+template <typename T, bool TWOFLOAT>
+__device__ __forceinline__ T delta_of(T w_hi, T w_lo, const Rec<T>& r) {
+  if (TWOFLOAT) return ((w_hi - r.v[kC0]) + (w_lo - r.v[kC1])) - r.v[kC2];
+  return w_hi - r.v[kC0];
+}
+
+// Pass 1: grid (ceil(n_lines / kLineThreads), nlay), one thread per (layer,
+// line), writing rec[l * n_lines + i].
 template <typename T, int SHAPE, bool TWOFLOAT>
-__global__ void lbl_kernel(const T* __restrict__ cols, int n_lines,
-                           const T* __restrict__ wn,
-                           const int* __restrict__ ranges,
-                           const T* __restrict__ lay, T* __restrict__ out,
-                           int nb, int n_wave, int nlay, Params prm) {
-  extern __shared__ unsigned char smem_raw[];
-  const int width = blockDim.x;
-  T* s_c0 = reinterpret_cast<T*>(smem_raw);  // nu_hi (f32) / nu + shift
-  T* s_c1 = s_c0 + width;                    // nu_lo (two-float)
-  T* s_c2 = s_c1 + width;                    // shift (two-float)
-  T* s_p0 = s_c2 + width;                    // lineshape parameters
-  T* s_p1 = s_p0 + width;
-  T* s_wing = s_p1 + width;  // f(wn_calc) wn_calc^2
-  T* s_s = s_wing + width;   // strength, 0 below s_floor
-
-  const int b = blockIdx.x;
+__global__ void line_kernel(const T* __restrict__ cols, int n_lines,
+                            const T* __restrict__ lay,
+                            Rec<T>* __restrict__ rec,
+                            Params prm) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int l = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int iw = b * width + tid;
-
+  if (i >= n_lines) return;
   // per-layer factors, formed as the plain version forms them
   const T t = lay[4 * l];
   const T p = lay[4 * l + 1];
   const T amb = lay[4 * l + 2];
   const T q_ratio = lay[4 * l + 3];
   const T t_ref = T(prm.t_ref);
-  const T c_boltz = T(prm.c2) * (t - t_ref) / (t * t_ref);
-  const T neg_c2 = T(-prm.c2);
-  const T sqrt_tm = sqrt(t / T(prm.mass));
   const T t_ratio = t_ref / t;
   const T p_ratio = p / T(prm.p_ref);
-  const T f_self = T(1.0) - amb;
+
+  const T nu = cols[kNuHi * n_lines + i];
+  const T boltz = exp(T(prm.c2) * (t - t_ref) / (t * t_ref) *
+                      cols[kElower * n_lines + i]);
+  const T stim = T(1.0) - exp(T(-prm.c2) * nu / t);
+  const T s = cols[kSw * n_lines + i] *
+              (stim / cols[kStimRef * n_lines + i]) * boltz * q_ratio;
+  const T alpha_d = T(prm.doppler) * nu * sqrt(t / T(prm.mass));
+  const T gamma_l = (pow(t_ratio, cols[kNSelf * n_lines + i]) *
+                         cols[kGammaSelf * n_lines + i] * (T(1.0) - amb) +
+                     pow(t_ratio, cols[kNAmb * n_lines + i]) *
+                         cols[kGammaAmb * n_lines + i] * amb) *
+                    p_ratio;
+  const T shift = p_ratio * cols[kDeltaAmb * n_lines + i] * amb;
+  const T s_eff = s >= T(prm.s_floor) ? s : T(0);
+  T a, b, norm;
+  shape_params<T, SHAPE>(alpha_d, gamma_l, a, b, norm);
+  const T cs = s_eff * norm;
   const T wc = T(prm.wn_calc);
-  const T wa = T(prm.wn_approx);
-  const T wc2 = T(prm.wn_calc * prm.wn_calc);
-  const T s_floor = T(prm.s_floor);
-
-  const T wn_hi = wn[iw];
-  const T wn_lo = TWOFLOAT ? wn[nb * width + iw] : T(0);
-  const int start = ranges[b];
-  const int count = ranges[nb + b];
-
-  T acc = T(0);
-  for (int base = 0; base < count; base += width) {
-    const int n_tile = min(width, count - base);
-    if (tid < n_tile) {
-      const int i = start + base + tid;
-      const T nu = cols[kNuHi * n_lines + i];
-      const T boltz = exp(c_boltz * cols[kElower * n_lines + i]);
-      const T stim = T(1.0) - exp(neg_c2 * nu / t);
-      const T s = cols[kSw * n_lines + i] *
-                  (stim / cols[kStimRef * n_lines + i]) * boltz * q_ratio;
-      const T alpha_d = T(prm.doppler) * nu * sqrt_tm;
-      const T gamma_l =
-          (pow(t_ratio, cols[kNSelf * n_lines + i]) *
-               cols[kGammaSelf * n_lines + i] * f_self +
-           pow(t_ratio, cols[kNAmb * n_lines + i]) *
-               cols[kGammaAmb * n_lines + i] * amb) *
-          p_ratio;
-      const T shift = p_ratio * cols[kDeltaAmb * n_lines + i] * amb;
-      T p0, p1;
-      shape_params<T, SHAPE>(alpha_d, gamma_l, p0, p1);
-      if (TWOFLOAT) {
-        s_c0[tid] = nu;
-        s_c1[tid] = cols[kNuLo * n_lines + i];
-        s_c2[tid] = shift;
-      } else {
-        s_c0[tid] = nu + shift;
-      }
-      s_p0[tid] = p0;
-      s_p1[tid] = p1;
-      s_wing[tid] = shape_value<T, SHAPE>(wc, p0, p1) * wc2;
-      s_s[tid] = s >= s_floor ? s : T(0);
-    }
-    __syncthreads();
-    for (int j = 0; j < n_tile; ++j) {
-      const T s = s_s[j];
-      if (s == T(0)) continue;  // the same for every thread of the block
-      const T delta = TWOFLOAT
-                          ? ((wn_hi - s_c0[j]) + (wn_lo - s_c1[j])) - s_c2[j]
-                          : wn_hi - s_c0[j];
-      if (!(delta >= -wa && delta < wa)) continue;
-      const T v = (delta >= -wc && delta < wc)
-                      ? shape_value<T, SHAPE>(delta, s_p0[j], s_p1[j])
-                      : s_wing[j] / (delta * delta);
-      acc += v * s;
-    }
-    __syncthreads();
+  Rec<T> r;
+  if (TWOFLOAT) {
+    r.v[kC0] = nu;
+    r.v[kC1] = cols[kNuLo * n_lines + i];
+    r.v[kC2] = shift;
+  } else {
+    r.v[kC0] = nu + shift;
+    r.v[kC1] = T(0);
+    r.v[kC2] = T(0);
   }
-  if (iw < n_wave) out[static_cast<size_t>(iw) * nlay + l] = acc * T(prm.factor);
+  r.v[kA] = a;
+  r.v[kB] = b;
+  r.v[kCs] = cs;
+  r.v[kWs] = core_value<T, SHAPE>(wc, a, b, cs) * T(prm.wn_calc * prm.wn_calc);
+  r.v[kS] = s_eff;
+  rec[static_cast<size_t>(l) * n_lines + i] = r;
 }
 
-template <typename T, int SHAPE, bool TWOFLOAT>
-cudaError_t launch_one(dim3 grid, dim3 block, size_t smem, cudaStream_t s,
-                       const T* cols, int n_lines, const T* wn,
-                       const int* ranges, const T* lay, T* out, int nb,
-                       int n_wave, int nlay, const Params& prm) {
-  lbl_kernel<T, SHAPE, TWOFLOAT><<<grid, block, smem, s>>>(
-      cols, n_lines, wn, ranges, lay, out, nb, n_wave, nlay, prm);
+// The (block, line) class from the deltas at the block's first and last
+// wave (the computed delta is monotone in the wave up to a few ulps, which
+// `margin` covers).
+template <typename T>
+__device__ __forceinline__ int line_class(T d_first, T d_last, T wc, T wa,
+                                          T margin) {
+  if (d_last < -wa - margin || d_first >= wa + margin) return kSkip;
+  const T wcore = wc < wa ? wc : wa;
+  if (d_first >= -wcore + margin && d_last < wcore - margin) return kCore;
+  if ((d_first >= wc + margin && d_last < wa - margin) ||
+      (d_first >= -wa + margin && d_last < -wc - margin))
+    return kWing;
+  return kStraddle;
+}
+
+// Sums the lines of one staged tile into the V waves of the thread.
+template <typename T, int SHAPE, bool TWOFLOAT, int V>
+__device__ __forceinline__ void sum_tile(const Rec<T>* tile, int n_tile,
+                                         const T (&w_hi)[V],
+                                         const T (&w_lo)[V], T (&acc)[V],
+                                         T wc, T wa) {
+  for (int j = 0; j < n_tile; ++j) {
+    const Rec<T> r = tile[j];
+    const T cls = r.v[kS];  // compared as stored, with no conversion
+    if (cls == T(kWing)) {
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        acc[k] += wing_value(delta_of<T, TWOFLOAT>(w_hi[k], w_lo[k], r),
+                             r.v[kWs]);
+    } else if (cls == T(kCore)) {
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        acc[k] += core_value<T, SHAPE>(
+            delta_of<T, TWOFLOAT>(w_hi[k], w_lo[k], r), r.v[kA], r.v[kB],
+            r.v[kCs]);
+    } else if (cls == T(kStraddle)) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const T d = delta_of<T, TWOFLOAT>(w_hi[k], w_lo[k], r);
+        if (!(d >= -wa && d < wa)) continue;
+        acc[k] += (d >= -wc && d < wc)
+                      ? core_value<T, SHAPE>(d, r.v[kA], r.v[kB], r.v[kCs])
+                      : wing_value(d, r.v[kWs]);
+      }
+    }
+  }
+}
+
+// Pass 2: grid (nb, nlay), ceil(width / V) threads; thread t holds the
+// block's waves t + k ceil(width / V), k < V. ASYNC: the records are
+// staged by cp.async into two shared-memory tiles (the next tile loads
+// while the current one is summed) and classed in place after they land;
+// otherwise each thread loads, classes and stores its records of a tile.
+// Both sum the same values in the same order: the same bits.
+template <typename T, int SHAPE, bool TWOFLOAT, int V, bool ASYNC>
+__global__ void __launch_bounds__(512)
+    pair_kernel(const T* __restrict__ wn, const int* __restrict__ ranges,
+                const Rec<T>* __restrict__ rec, T* __restrict__ out,
+                int n_lines, int nb, int width, int n_wave, int nlay, T wc,
+                T wa, T margin, T factor) {
+  __shared__ Rec<T> s_rec[ASYNC ? 2 : 1][kTile];
+  const int nt = blockDim.x;
+  const int b = blockIdx.x;
+  const int l = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int base_w = b * width;
+  const T* wn_lo = wn + static_cast<size_t>(nb) * width;
+
+  T w_hi[V], w_lo[V], acc[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int j = min(tid + k * nt, width - 1);  // idle slots repeat a wave
+    w_hi[k] = wn[base_w + j];
+    w_lo[k] = TWOFLOAT ? wn_lo[base_w + j] : T(0);
+    acc[k] = T(0);
+  }
+  const T f_hi = wn[base_w], l_hi = wn[base_w + width - 1];
+  const T f_lo = TWOFLOAT ? wn_lo[base_w] : T(0);
+  const T l_lo = TWOFLOAT ? wn_lo[base_w + width - 1] : T(0);
+  const Rec<T>* lrec = rec + static_cast<size_t>(l) * n_lines + ranges[b];
+  const int count = ranges[nb + b];
+
+  // the class of a record, in its strength's place
+  auto classify = [&](Rec<T>& r) {
+    int cls = kSkip;
+    if (r.v[kS] != T(0))
+      cls = line_class(delta_of<T, TWOFLOAT>(f_hi, f_lo, r),
+                       delta_of<T, TWOFLOAT>(l_hi, l_lo, r), wc, wa, margin);
+    r.v[kS] = T(cls);
+  };
+
+  if constexpr (ASYNC) {
+    constexpr int kChunks = sizeof(Rec<T>) / 16;  // 16-byte copies a record
+    auto stage = [&](int buf, int base) {
+      const int n = min(kTile, count - base) * kChunks;
+      const char* src = reinterpret_cast<const char*>(lrec + base);
+      char* dst = reinterpret_cast<char*>(s_rec[buf]);
+      for (int c = tid; c < n; c += nt) cp_async16(dst + 16 * c, src + 16 * c);
+    };
+    if (count > 0) stage(0, 0);
+    cp_async_commit();
+    for (int base = 0, buf = 0; base < count; base += kTile, buf ^= 1) {
+      const int n_tile = min(kTile, count - base);
+      if (base + kTile < count) stage(buf ^ 1, base + kTile);
+      cp_async_commit();
+      cp_async_wait_one();  // this thread's copies of the current tile
+      __syncthreads();      // everyone's
+      for (int j = tid; j < n_tile; j += nt) classify(s_rec[buf][j]);
+      __syncthreads();
+      sum_tile<T, SHAPE, TWOFLOAT, V>(s_rec[buf], n_tile, w_hi, w_lo, acc, wc,
+                                      wa);
+      __syncthreads();  // the tile is free for the copy after next
+    }
+  } else {
+    for (int base = 0; base < count; base += kTile) {
+      const int n_tile = min(kTile, count - base);
+      for (int j = tid; j < n_tile; j += nt) {
+        Rec<T> r = lrec[base + j];
+        classify(r);
+        s_rec[0][j] = r;
+      }
+      __syncthreads();
+      sum_tile<T, SHAPE, TWOFLOAT, V>(s_rec[0], n_tile, w_hi, w_lo, acc, wc,
+                                      wa);
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int j = tid + k * nt;
+    const int iw = base_w + j;
+    if (j < width && iw < n_wave)
+      out[static_cast<size_t>(iw) * nlay + l] = acc[k] * factor;
+  }
+}
+
+struct Launch {
+  const void *cols, *wn, *ranges, *lay;
+  void *rec, *out;
+  int n_lines, nb, width, n_wave, nlay;
+  Params prm;
+  cudaStream_t stream;
+};
+
+template <typename T, int SHAPE, bool TWOFLOAT, int V, bool ASYNC = false>
+cudaError_t launch_one(const Launch& a) {
+  Rec<T>* rec = static_cast<Rec<T>*>(a.rec);
+  if (a.n_lines > 0) {
+    const dim3 grid((a.n_lines + kLineThreads - 1) / kLineThreads, a.nlay);
+    line_kernel<T, SHAPE, TWOFLOAT><<<grid, kLineThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.cols), a.n_lines,
+        static_cast<const T*>(a.lay), rec, a.prm);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const T wa = T(a.prm.wn_approx);
+  pair_kernel<T, SHAPE, TWOFLOAT, V, ASYNC>
+      <<<dim3(a.nb, a.nlay), (a.width + V - 1) / V, 0, a.stream>>>(
+          static_cast<const T*>(a.wn), static_cast<const int*>(a.ranges), rec,
+          static_cast<T*>(a.out), a.n_lines, a.nb, a.width, a.n_wave, a.nlay,
+          T(a.prm.wn_calc), wa, T(1e-4) * (fabs(wa) + T(1)), T(a.prm.factor));
   return cudaGetLastError();
 }
 
 template <typename T, bool TWOFLOAT>
-int launch(const void* cols, const void* wn, const void* ranges,
-           const void* lay, void* out, int n_lines, int nb, int width,
-           int n_wave, int nlay, int shape, const Params& prm, int device,
-           void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (nb <= 0 || nlay <= 0) return 0;
-  const dim3 grid(nb, nlay);
-  const dim3 block(width);
-  const size_t smem = kTileArrays * width * sizeof(T);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* pc = static_cast<const T*>(cols);
-  const T* pw = static_cast<const T*>(wn);
-  const int* pr = static_cast<const int*>(ranges);
-  const T* pl = static_cast<const T*>(lay);
-  T* po = static_cast<T*>(out);
-#define LAUNCH_CASE(SHAPE)                                                  \
-  case SHAPE:                                                               \
-    err = launch_one<T, SHAPE, TWOFLOAT>(grid, block, smem, s, pc, n_lines, \
-                                         pw, pr, pl, po, nb, n_wave, nlay,  \
-                                         prm);                              \
-    break;
-  switch (shape) {
-    LAUNCH_CASE(kVoigt)
-    LAUNCH_CASE(kGaussian)
-    LAUNCH_CASE(kLorentz)
-    LAUNCH_CASE(kTonkov)
-    LAUNCH_CASE(kHartmann)
-    LAUNCH_CASE(kVoigtCh4H2)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+cudaError_t launch_shape(const Launch& a, int shape, int wpt, int staging) {
+  constexpr int V = kWavesPerThread;
+  if (wpt == 0) wpt = V;
+  // every lineshape at the default waves per thread with plain loads;
+  // Voigt also at 1 and 4, and with cp.async staging (chip_smoke's sweep)
+  if (staging != 0) {
+    if (shape != kVoigt || wpt != V || staging != 1)
+      return cudaErrorInvalidValue;
+    return launch_one<T, kVoigt, TWOFLOAT, V, true>(a);
   }
-#undef LAUNCH_CASE
-  return static_cast<int>(err);
+  if (shape == kVoigt) {
+    switch (wpt) {
+      case 1:
+        return launch_one<T, kVoigt, TWOFLOAT, 1>(a);
+      case 2:
+        return launch_one<T, kVoigt, TWOFLOAT, 2>(a);
+      case 4:
+        return launch_one<T, kVoigt, TWOFLOAT, 4>(a);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
+  if (wpt != V) return cudaErrorInvalidValue;
+  switch (shape) {
+    case kGaussian:
+      return launch_one<T, kGaussian, TWOFLOAT, V>(a);
+    case kLorentz:
+      return launch_one<T, kLorentz, TWOFLOAT, V>(a);
+    case kTonkov:
+      return launch_one<T, kTonkov, TWOFLOAT, V>(a);
+    case kHartmann:
+      return launch_one<T, kHartmann, TWOFLOAT, V>(a);
+    case kVoigtCh4H2:
+      return launch_one<T, kVoigtCh4H2, TWOFLOAT, V>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -384,35 +592,50 @@ int launch(const void* cols, const void* wn, const void* ranges,
 // n_self, g_amb, n_amb, d_amb (zeros without the pressure shift); wn (2,
 // nb * width): the wave grid's hi and lo parts (lo zero and unread unless
 // twofloat); ranges (2, nb) int32: starts, counts; lay (nlay, 4): T, p
-// [atm], ambient fraction, Q(Tref)/Q(T); out (n_wave, nlay). Each launches
-// on `stream`, does not synchronise, and returns cudaGetLastError() after
-// the launch.
+// [atm], ambient fraction, Q(Tref)/Q(T); rec: scratch of nlay * n_lines * 8
+// values of the type (pass 1 writes it, pass 2 reads it); out (n_wave,
+// nlay). wpt: waves per thread of pass 2 (0: the default); staging: 0
+// plain loads, 1 double-buffered cp.async (Voigt, default wpt). Each launches
+// both passes on `stream`, does not synchronise, and returns
+// cudaGetLastError() after the launches.
 extern "C" int lbl_cross_section_f32(
     const void* cols, const void* wn, const void* ranges, const void* lay,
-    void* out, int n_lines, int nb, int width, int n_wave, int nlay,
-    int shape, int twofloat, double t_ref, double p_ref, double mass,
-    double s_floor, double wn_calc, double wn_approx, double factor,
-    double c2, double doppler, int device, void* stream) {
-  const Params prm{t_ref,   p_ref,     mass,   s_floor, wn_calc,
-                   wn_approx, factor, c2,     doppler};
-  if (twofloat)
-    return launch<float, true>(cols, wn, ranges, lay, out, n_lines, nb,
-                               width, n_wave, nlay, shape, prm, device,
-                               stream);
-  return launch<float, false>(cols, wn, ranges, lay, out, n_lines, nb, width,
-                              n_wave, nlay, shape, prm, device, stream);
+    void* rec, void* out, int n_lines, int nb, int width, int n_wave,
+    int nlay, int shape, int twofloat, int wpt, int staging, double t_ref,
+    double p_ref, double mass, double s_floor, double wn_calc,
+    double wn_approx, double factor, double c2, double doppler, int device,
+    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (nb <= 0 || nlay <= 0) return 0;
+  const Launch a{cols,   wn,    ranges, lay,    rec,
+                 out,    n_lines, nb,   width,  n_wave,
+                 nlay,
+                 Params{t_ref, p_ref, mass, s_floor, wn_calc, wn_approx,
+                        factor, c2, doppler},
+                 static_cast<cudaStream_t>(stream)};
+  err = twofloat ? launch_shape<float, true>(a, shape, wpt, staging)
+                 : launch_shape<float, false>(a, shape, wpt, staging);
+  return static_cast<int>(err);
 }
 
 extern "C" int lbl_cross_section_f64(
     const void* cols, const void* wn, const void* ranges, const void* lay,
-    void* out, int n_lines, int nb, int width, int n_wave, int nlay,
-    int shape, int twofloat, double t_ref, double p_ref, double mass,
-    double s_floor, double wn_calc, double wn_approx, double factor,
-    double c2, double doppler, int device, void* stream) {
-  const Params prm{t_ref,   p_ref,     mass,   s_floor, wn_calc,
-                   wn_approx, factor, c2,     doppler};
+    void* rec, void* out, int n_lines, int nb, int width, int n_wave,
+    int nlay, int shape, int twofloat, int wpt, int staging, double t_ref,
+    double p_ref, double mass, double s_floor, double wn_calc,
+    double wn_approx, double factor, double c2, double doppler, int device,
+    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (twofloat) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<double, false>(cols, wn, ranges, lay, out, n_lines, nb,
-                               width, n_wave, nlay, shape, prm, device,
-                               stream);
+  if (nb <= 0 || nlay <= 0) return 0;
+  const Launch a{cols,   wn,    ranges, lay,    rec,
+                 out,    n_lines, nb,   width,  n_wave,
+                 nlay,
+                 Params{t_ref, p_ref, mass, s_floor, wn_calc, wn_approx,
+                        factor, c2, doppler},
+                 static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(
+      launch_shape<double, false>(a, shape, wpt, staging));
 }

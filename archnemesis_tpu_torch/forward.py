@@ -245,9 +245,11 @@ def runtime_lbl_tau(cfg: ForwardConfig, layers, rt: RuntimeLBL, press_atm,
                 rt.line_lists[i], rt.shard_data[i], rt.wave_slice.mesh,
                 layers.temp, press_atm, amb, **opts)  # (NWAVE_rank, NLAY)
         elif rt.include_lines[i]:
+            # the kernel's static inputs, packed once per deck on the card
             k_i = lbl_cross_section(
                 rt.line_lists[i], rt.blocks[i], layers.temp, press_atm, amb,
-                device=dev, **opts)  # (NWAVE, NLAY)
+                device=dev, packed=rt.packed_inputs(i),
+                **opts)  # (NWAVE, NLAY)
         if rt.include_continuum[i] and rt.pseudo_continuum[i] is not None:
             # weak-line pseudo-continuum (reference
             # add_monochromatic_absorption LineData_0.py:2436-2460)

@@ -262,8 +262,8 @@ class RuntimeLBL:
     A host structure (numpy, float64) that takes the k-tables' place in the
     forward model (wave / del_g / gas_id / iso_id / ilbl);
     ``layer_optical_depths`` dispatches on ``ilbl``. It is never cast or
-    moved: each synthesis call puts what it needs on the device, in the
-    run's type.
+    moved: a synthesis on the card keeps its gas's kernel inputs in
+    ``packed_inputs``, packed in the run's type at the first forward.
     """
 
     wave: np.ndarray
@@ -293,6 +293,12 @@ class RuntimeLBL:
     del_g: np.ndarray = None
     ilbl: int = 1  # SpectralCalculationMode.LINE_BY_LINE_RUNTIME
 
+    # per gas: the LBL kernel's static inputs by (dtype, device)
+    # (``packed_inputs``); a copy made by ``dataclasses.replace`` starts
+    # empty
+    packed: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
+
     def __post_init__(self):
         if self.del_g is None:
             self.del_g = np.array([1.0])
@@ -307,6 +313,13 @@ class RuntimeLBL:
     @property
     def ngas(self):
         return len(self.gas_id)
+
+    def packed_inputs(self, i: int) -> dict:
+        """The dict in which gas ``i``'s kernel launches keep their static
+        inputs (line columns, wave grid, block ranges) by (dtype, device)
+        (``ops/lbl_cuda.py:static_inputs``): packed at the first launch of
+        each, so that later forwards on the card pack and copy none."""
+        return self.packed.setdefault(i, {})
 
     def windowed(self, wavemin, wavemax):
         """Restrict the LINE LISTS to [wavemin, wavemax] and build the

@@ -266,14 +266,17 @@ def lbl_cross_section(
     include_pressure_shift: bool = True,
     factor: float | None = None,
     device=None,
+    packed: dict | None = None,
 ):
     """Absorption cross-section k(NWAVE, NLAY) [cm^2 molecule^-1].
 
     t_calc (K), p_calc (atm), amb_frac: (NLAY,) tensors or host arrays,
     put on ``device`` (None = the CUDA card; raises without one). There a
     CUDA tensor launches the kernel of ``csrc/lbl_cross_section.cu``
-    (``ops/lbl_cuda.py``) and a CPU tensor runs the plain version.
-    Forward-mode differentiable: the tangent is the plain version's.
+    (``ops/lbl_cuda.py``; ``packed``: a dict that keeps its static inputs
+    across calls, or None to pack them for this launch) and a CPU tensor
+    runs the plain version. Forward-mode differentiable: the tangent is
+    the plain version's.
     """
     from archnemesis_tpu_torch.ops import lbl_cuda
 
@@ -283,4 +286,5 @@ def lbl_cross_section(
     return lbl_cuda.lbl_cross_section(
         ll, blocks, t, p, amb, lineshape=lineshape, s_floor=s_floor,
         wn_calc_window=wn_calc_window, wn_approx_window=wn_approx_window,
-        include_pressure_shift=include_pressure_shift, factor=factor)
+        include_pressure_shift=include_pressure_shift, factor=factor,
+        packed=packed)

@@ -69,6 +69,35 @@ def _cpf_continued_fraction(z_r, z_i):
     return INV_SQRT_PI * d_i / m, INV_SQRT_PI * d_r / m
 
 
+# the continued fraction's 6th convergent as w = (i/sqrt(pi)) p5(t) /
+# (z p6(t)), t = 1/z^2: the forward recurrence P_{k+1} = z P_k - c_k P_{k-1}
+# (P_{-1} = 1, P_0 = z) divided by z^(k+1); coefficients of t^0..t^3
+CF_P5 = (1.0, -10.0, 21.75, -6.0)
+CF_P6 = (1.0, -10.5, 26.25, -13.125)
+
+
+def cf_ratio_re(x, y):
+    """Re w(z) of the 6-convergent continued fraction in the arithmetic of
+    the float32 CUDA kernel (``csrc/lbl_cross_section.cu:cf_re``): two
+    reciprocals, 1/|z|^2 and 1/|p6|^2, where the nested form takes six and
+    a division; no term grows with |z| (|t| < 1/49 where it applies). The
+    kernel's reciprocals are approximate (1 ulp), these are IEEE."""
+    r = 1.0 / (x * x + y * y)
+    u_r, u_i = x * r, -y * r  # 1/z
+    t_r, t_i = u_r * u_r - u_i * u_i, 2.0 * u_r * u_i
+
+    def poly(c):
+        q_r, q_i = c[3] * t_r + c[2], c[3] * t_i
+        for a in (c[1], c[0]):
+            q_r, q_i = t_r * q_r - t_i * q_i + a, t_r * q_i + t_i * q_r
+        return q_r, q_i
+
+    (p5_r, p5_i), (p6_r, p6_i) = poly(CF_P5), poly(CF_P6)
+    m_r, m_i = p5_r * u_r - p5_i * u_i, p5_r * u_i + p5_i * u_r  # p5 / z
+    im = m_i * p6_r - m_r * p6_i
+    return -INV_SQRT_PI * im / (p6_r * p6_r + p6_i * p6_i)
+
+
 def complex_err_fn_weideman24(z_r, z_i):
     """Real/imag parts of w(z) = e^{-z^2} erfc(-iz): the Weideman-24
     rational expansion (matches reference complex_err_fn_weideman_24a),

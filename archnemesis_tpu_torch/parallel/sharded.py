@@ -168,7 +168,11 @@ def shard_spec(ll, sh: ShardedLblData, s: int, lineshape: str = "voigt",
                wn_approx_window: float = 75.0, factor=None,
                packed=None) -> LblSpec:
     """The synthesis of shard ``s`` (its line slice, its blocks, the
-    options) with its packed kernel inputs, if given."""
+    options) with its packed kernel inputs (``kernel_inputs``), if
+    given."""
+    if packed is not None:
+        cols = packed["cols"]
+        packed = {(cols.dtype, cols.device): packed}
     return LblSpec(
         ll=sh.shard_lines(ll, s), blocks=sh.shard_blocks(s),
         lineshape=lineshape, s_floor=float(s_floor),

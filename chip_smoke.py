@@ -62,21 +62,34 @@ without them. Phases, each of which fails the run on its own:
    PyTorch version and the reference (``tests/goldens/co_lbl.npz``, line
    data from the ``.npz`` export: the card's machine has no h5py) on that
    golden's grid and cases, for all six lineshapes with s_floor > 0, no
-   shift and the iso-0 factor, at block widths 128 and 200 and with
-   blocks that hold no lines: float64 within rtol 1e-10, float32 within
-   5e-5 max / 2e-5 median relative error of float64 (the JAX package's
-   co_runtime_voigt bound); at the full-width configuration (80,000 waves
-   x 5,092 lines x 40 layers) float32 against the plain version and, on 2
-   layers, float64 against the plain float64 version; the kernel's time
-   beside its operation bound (``lbl_bound_ms``) and the plain version's
-   time over all 40 layers;
+   shift and the iso-0 factor, at block widths 128, 200, 1 and 512 and
+   with blocks that hold no lines, and in a pressure-shift case that moves
+   line centres across the blocks' core/wing boundaries
+   (``SHIFT_CASE_STATE``; its class changes are counted and must be some):
+   float64 within rtol 1e-10, float32 within 5e-5 max / 2e-5 median
+   relative error of float64 (the JAX package's co_runtime_voigt bound);
+   in the shift case float32 within that bound of the plain float32
+   version, and against float64 no further off than the plain float32
+   version plus the bound (both errors printed);
+   at the full-width configuration (80,000 waves x 5,092 lines x 40
+   layers) two float32 launches equal bit for bit, float32 against the
+   plain version and, on 2 layers, float64 against the plain float64
+   version; the kernel's time beside its operation bound
+   (``lbl_bound_ms``; beside it the bound with the nested continued
+   fraction's operation count, as given before the ratio form), per waves
+   per thread (1, 2, 4) of the pair pass and per staging of its record
+   tiles (plain loads or double-buffered ``cp.async``, bit for bit), the
+   device times of its line and pair passes (``torch.profiler``), the
+   (block, line) class counts; the plain version's time over all 40
+   layers;
 8. the runtime golden deck (``tests/fixtures/co_runtime``, copied with its
    line data pointed at the export) through ``load_deck``: float64 TAUGAS
    and SPECONV within rtol 1e-7 / 1e-6 of ``co_runtime_fm.npz``, float32
    within the float32 bound, 1 launch per forward;
 9. the LBL headline forward (``synthetic.lbl_headline``, float32): 1
-   launch per forward, median time of 12 forwards, waves/s, peak memory,
-   float32 within the float32 bound of the float64 forward;
+   launch per forward and no packing of the static kernel inputs after
+   the first, median time of 12 forwards, waves/s, peak memory, float32
+   within the float32 bound of the float64 forward;
 10. the runtime retrieval on the card: ``forward_fn(xa)`` and
     ``forward_and_jacobian`` (15 tangents) in float64 equal to the port's
     CPU result, 1 launch per evaluation, the wall-clock and phi history of
@@ -623,6 +636,23 @@ def profile_forward(forward, runs: int = 3, what: str = "headline forward",
     prof.export_chrome_trace(trace)
 
 
+def kernel_device_ms(fn, runs: int = 5) -> dict:
+    """Device time per call of ``fn`` by kernel name, in ms, over ``runs``
+    calls (``torch.profiler``, CUDA activity only)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / runs / 1e3
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
 def phase_headline(profile: bool = False):
     """Drive the headline forward; returns (launches of the main path,
     median ms)."""
@@ -946,10 +976,19 @@ def phase_retrieval(profile: bool = False):
 # complex Horner steps of 4 multiplies and 3 adds (161), the last product
 # (6), the doubling and offset (4), the real part of the final product (3).
 LBL_OPS_WEIDEMAN = 188
-# Re w(z) by the 6-convergent continued fraction: per convergent |d|^2 (3),
-# its reciprocal (1), the two updates (3 each); then |d|^2, a multiply and a
-# division (5).
-LBL_OPS_CF = 65
+# Re w(z) by the 6-convergent continued fraction as the ratio of two
+# polynomials in t = 1/z^2 (the float32 kernel's form, ops/voigt.py:
+# cf_ratio_re; |z|^2 comes from the branch test): 1/|z|^2 (1), 1/z (2),
+# t = (1/z)^2 (5), the two cubics' leading steps with real coefficients (3
+# each) and their two complex Horner steps each (4 x 7), p5 / z (6), the
+# imaginary part of p5 conj(p6) / z (3), |p6|^2 (3), its reciprocal (1) and
+# the scaling (2).
+LBL_OPS_CF = 57
+# the nested form's count (per convergent |d|^2 (3), its reciprocal (1), the
+# two updates (3 each); then |d|^2, a multiply and a division (5)), in
+# which the bound was given before the ratio form; printed beside it so
+# that times compare with earlier runs
+LBL_OPS_CF_NESTED = 65
 # every (line, wave) pair inside the window: the delta (4 with two floats,
 # 1 in float64), two window tests (4 compares), the weighted add (2)
 LBL_OPS_PAIR_F32, LBL_OPS_PAIR_F64 = 10, 7
@@ -998,20 +1037,21 @@ def lbl_pair_counts(ll, blocks, t, p, amb, wn_calc=25.0, wn_approx=75.0):
             int(live.sum()))
 
 
-def lbl_bound_ms(ll, blocks, t, p, amb, itemsize: int) -> tuple:
+def lbl_bound_ms(ll, blocks, t, p, amb, itemsize: int,
+                 cf_ops: int = LBL_OPS_CF) -> tuple:
     """(bound_ms, bound_by, ops) of one synthesis on an H100: the larger of
     its bytes (the ten line columns, the wave grid's two parts, the block
     ranges and the layer scalars read once, k written once) over HBM
     bandwidth and the operations these inputs need over the peak rate of
-    the type. In float32 a core pair takes the continued fraction where
-    |z|^2 > 49 and the Weideman expansion elsewhere; float64 takes the
-    expansion everywhere."""
+    the type. In float32 a core pair takes the continued fraction
+    (``cf_ops`` operations) where |z|^2 > 49 and the Weideman expansion
+    elsewhere; float64 takes the expansion everywhere."""
     cf, weid, wing, lines = lbl_pair_counts(ll, blocks, t, p, amb)
     nlay = len(t)
     if itemsize == 4:
         pair, core, peak, line_w = (LBL_OPS_PAIR_F32, LBL_OPS_CORE_F32,
-                                    PEAK_F32_OPS_S, LBL_OPS_CF)
-        ops = (cf * (pair + core + LBL_OPS_CF)
+                                    PEAK_F32_OPS_S, cf_ops)
+        ops = (cf * (pair + core + cf_ops)
                + weid * (pair + core + LBL_OPS_WEIDEMAN))
     else:
         pair, core, peak, line_w = (LBL_OPS_PAIR_F64, LBL_OPS_CORE_F64,
@@ -1025,6 +1065,100 @@ def lbl_bound_ms(ll, blocks, t, p, amb, itemsize: int) -> tuple:
     if ops_ms >= bytes_ms:
         return ops_ms, "operations", ops
     return bytes_ms, "bytes", ops
+
+
+# the pressure-shift case of phase 7: ambient shifts of +-0.95 cm-1/atm
+# (alternating by line) and layers up to 1.95 atm move line centres by up
+# to 1.67 cm-1, less than build_blocks' 2 cm-1 shift margin, against 2.54
+# cm-1 blocks of co_lbl's 0.02 cm-1 grid: the core/wing boundaries of many
+# (block, line) pairs move across a block. (T [K], p [atm], ambient
+# fraction) per layer
+SHIFT_D_AMB = 0.95
+SHIFT_CASE_STATE = ((150.0, 0.01, 1.0), (250.0, 1.0, 1.0), (220.0, 1.95, 0.9))
+
+
+def shifted_lines(ll):
+    """The line list with the shift case's ambient pressure shifts."""
+    import dataclasses
+
+    broad = ll.broad.copy()
+    broad[5] = SHIFT_D_AMB * np.where(np.arange(ll.n_lines) % 2, 1.0, -1.0)
+    return dataclasses.replace(ll, broad=broad)
+
+
+# (block, line) classes of the LBL pair pass and the margin of its class
+# test, relative to wn_approx + 1 cm-1 (csrc/lbl_cross_section.cu:
+# line_class)
+SKIP, WING, CORE, STRADDLE = 0, 1, 2, 3
+CLASS_MARGIN = 1.0e-4
+
+
+def block_line_classes(spec, t, p, amb):
+    """(NLAY, NB, M) classes of the LBL pair pass for the lines of every
+    block (``blocks.line_idx``; ``SKIP`` on padding and on zero strength),
+    from the deltas at each block's first and last wave in the kernel's
+    arithmetic and ``t``'s type: the host's copy of the rule of the
+    kernel's ``line_class``, which the kernel applies on the card while it
+    stages the lines. A class other than ``STRADDLE`` holds for every wave
+    between, since the computed delta is monotone in the wave up to a few
+    ulps, well inside the margin."""
+    import torch
+
+    from archnemesis_tpu_torch.ops.lbl import (
+        layer_line_params,
+        line_column,
+        two_float,
+        uses_two_float,
+    )
+
+    ll, blocks = spec.ll, spec.blocks
+    strength, _, _, shift = layer_line_params(ll, t, p, amb)
+    if not spec.include_pressure_shift:
+        shift = torch.zeros_like(shift)
+    dev = t.device
+    idx = torch.as_tensor(blocks.line_idx, dtype=torch.long, device=dev)
+    w = blocks.block_width
+    ends = np.stack([blocks.wn_pad[::w], blocks.wn_pad[w - 1::w]], axis=1)
+    if uses_two_float(ll, t.dtype):
+        nu_hi, nu_lo = (torch.as_tensor(x, device=dev)[idx][None, :, :, None]
+                        for x in two_float(ll.nu))
+        e_hi, e_lo = (torch.as_tensor(x, device=dev)[None, :, None, :]
+                      for x in two_float(ends))
+        d = ((e_hi - nu_hi) + (e_lo - nu_lo)) - shift[:, idx][..., None]
+    else:
+        centre = line_column(ll.nu, t)[idx][None] + shift[:, idx]
+        d = t.new_tensor(ends)[None, :, None, :] - centre[..., None]
+    wc, wa = spec.wn_calc_window, spec.wn_approx_window
+    margin = CLASS_MARGIN * (abs(wa) + 1.0)
+    wcore = min(wc, wa)
+    first, last = d[..., 0], d[..., 1]
+    cls = torch.full(first.shape, STRADDLE, dtype=torch.int64, device=dev)
+    cls[((first >= wc + margin) & (last < wa - margin))
+        | ((first >= -wa + margin) & (last < -wc - margin))] = WING
+    cls[(first >= -wcore + margin) & (last < wcore - margin)] = CORE
+    cls[(last < -wa - margin) | (first >= wa + margin)] = SKIP
+    s = strength[:, idx]
+    mask = torch.as_tensor(blocks.line_mask > 0, device=dev)
+    return torch.where((s >= spec.s_floor) & (s != 0) & mask, cls, SKIP)
+
+
+def class_changes(spec, t, p, amb) -> tuple:
+    """(class counts (skip, wing, core, straddle) over all layers, number
+    of (layer, block, line) whose class differs from the one without the
+    pressure shift) of the pair pass by the host's rule
+    (``block_line_classes``), in ``t``'s type, layer by layer."""
+    import dataclasses
+
+    import torch
+
+    unshifted = dataclasses.replace(spec, include_pressure_shift=False)
+    counts, changed = np.zeros(4, dtype=np.int64), 0
+    for i in range(t.shape[0]):
+        lay = (t[i:i + 1], p[i:i + 1], amb[i:i + 1])
+        cls = block_line_classes(spec, *lay)
+        counts += torch.bincount(cls.reshape(-1), minlength=4).cpu().numpy()
+        changed += int((cls != block_line_classes(unshifted, *lay)).sum())
+    return counts, changed
 
 
 def lbl_kernel_and_plain(ll, blocks, t, p, amb, **kw):
@@ -1101,10 +1235,12 @@ def phase_lbl_kernel_vs_plain():
     _lbl_f32_check(k32, card(d["K"]), "co_lbl kernel")
 
     # --- every lineshape on the same grid and cases with s_floor > 0, no
-    # shift and the iso-0 factor, at block widths 128 and 200, and with the
-    # lines above 2100 cm-1 dropped, so that the upper blocks hold none
+    # shift and the iso-0 factor, at block widths 128, 200, 1 and 512 (the
+    # last three not multiples of the waves per thread, 512 the largest
+    # block), and with the lines above 2100 cm-1 dropped, so that the upper
+    # blocks hold none
     ll0 = dataclasses.replace(ll, iso_id=0)
-    for lls, width in ((ll0, 128), (ll0, 200),
+    for lls, width in ((ll0, 128), (ll0, 200), (ll0, 1), (ll0, 512),
                        (_slice_lines(ll0, 2000.0, 2100.0), 128)):
         blk = build_blocks(d["WAVE"], lls.nu, block_width=width)
         empty = int((blk.counts == 0).sum())
@@ -1121,6 +1257,43 @@ def phase_lbl_kernel_vs_plain():
     if empty == 0:
         raise AssertionError("the last grid has no block without lines")
 
+    # --- the pressure-shift case: line centres moved across the blocks'
+    # core/wing boundaries, every lineshape
+    lls = shifted_lines(ll)
+    blk = build_blocks(d["WAVE"], lls.nu)
+    ts, ps, ambs = (card(v) for v in zip(*SHIFT_CASE_STATE))
+    counts, changed = class_changes(lbl_cuda.make_spec(lls, blk),
+                                    ts.float(), ps.float(), ambs.float())
+    _print(f"shift case: (block, line) classes skip / wing / core / straddle "
+           f"{counts.tolist()}, {changed} differ from the unshifted ones")
+    if changed == 0:
+        raise AssertionError("the shift case moves no line across a class")
+    # float32 against the plain float32 version: a float32 shift of ~1.7
+    # cm-1 is itself off by ~1e-7 cm-1, which moves a narrow Gaussian's
+    # far core by up to ~1.7e-4 relative in both versions alike; against
+    # float64, the kernel may be no further off than the plain float32
+    # version plus the float32 bound
+    for shape in LINESHAPES:
+        k64, plain64 = lbl_kernel_and_plain(lls, blk, ts, ps, ambs,
+                                            lineshape=shape)
+        _lbl_f64_check(k64, plain64, f"{shape}, shift case")
+        k32, plain32 = lbl_kernel_and_plain(lls, blk, ts.float(), ps.float(),
+                                            ambs.float(), lineshape=shape)
+        _lbl_f32_check(k32, plain32, f"{shape}, shift case, kernel vs plain")
+        want = plain64.cpu().numpy()
+        r_k, r_p = (rel_err(x.double().cpu().numpy(), want)
+                    for x in (k32, plain32))
+        ok = (r_k.max() < r_p.max() + LBL_F32_BOUNDS[0]
+              and np.median(r_k) < LBL_F32_BOUNDS[1])
+        _print(f"{shape}, shift case, against float64: kernel float32 max "
+               f"rel {r_k.max():.3e} (median {np.median(r_k):.3e}), plain "
+               f"float32 max rel {r_p.max():.3e} (median "
+               f"{np.median(r_p):.3e}) ({'ok' if ok else 'FAIL'})")
+        if not ok:
+            raise AssertionError(f"{shape}, shift case: the float32 kernel "
+                                 "is further from float64 than the plain "
+                                 "float32 version allows")
+
     # --- the full-width configuration, at the inputs its forward gives
     atm, laycfg, rt, surf, cfg = lbl_headline(dtype=torch.float32,
                                               device="cuda")
@@ -1132,15 +1305,56 @@ def phase_lbl_kernel_vs_plain():
     p32 = layers.press / ATM_TO_PA
     amb32 = runtime_ambient_fraction(cfg, layers, 0)
     lls, blk = rt.line_lists[0], rt.blocks[0]
+    spec = lbl_cuda.make_spec(lls, blk)
+    static = lbl_cuda.kernel_inputs(spec, torch.float32, t32.device)
 
     def kernel():
-        return lbl_cuda.lbl_cross_section(lls, blk, t32, p32, amb32)
+        return lbl_cuda.lbl_cross_section(
+            lls, blk, t32, p32, amb32,
+            packed={(torch.float32, t32.device): static})
 
     def plain():
         return lbl_cross_section_plain(lls, blk, t32, p32, amb32)
 
     k32 = kernel()
+    same = torch.equal(k32, kernel())
+    _print(f"full width: two float32 launches equal bit for bit: {same} "
+           f"({'ok' if same else 'FAIL'})")
+    if not same:
+        raise AssertionError("two full-width launches differ")
     ms = _cuda_ms(kernel, reps=LBL_KERNEL_RUNS)
+    state = (t32, p32, amb32)
+    sweep = {}
+    for v in lbl_cuda.VOIGT_WAVES_PER_THREAD:
+        k_v = lbl_cuda._launch(spec, static, *state, waves_per_thread=v)
+        _lbl_f32_check(k_v, k32.double(), f"{v} waves per thread, against "
+                       "the default")
+        sweep[v] = (_cuda_ms(lambda: lbl_cuda._launch(
+            spec, static, *state, waves_per_thread=v), reps=LBL_KERNEL_RUNS),
+            torch.equal(k_v, k32))
+    _print("full width by waves per thread: " + ", ".join(
+        f"{v}: {t_ms:.4f} ms (bits equal the default launch's: {eq})"
+        for v, (t_ms, eq) in sweep.items()))
+    # how the pair pass stages its record tiles, timed in turns
+    staging = {name: [] for name in lbl_cuda.STAGING}
+    for name in staging:
+        k_s = lbl_cuda._launch(spec, static, *state, staging=name)
+        if not torch.equal(k_s, k32):
+            raise AssertionError(f"{name} staging changes the bits")
+    for _ in range(3):
+        for name, t_s in staging.items():
+            t_s.append(_cuda_ms(lambda: lbl_cuda._launch(
+                spec, static, *state, staging=name), reps=LBL_KERNEL_RUNS))
+    _print("full width by staging of the record tiles (3 turns, bits equal "
+           "the default launch's): " + "; ".join(
+               f"{name}: " + " / ".join(f"{t_ms:.4f}" for t_ms in t_s)
+               + " ms" for name, t_s in staging.items()))
+    # the two passes' device times (the line pass alone is too short for
+    # events around its launches, which would time the host)
+    by_kernel = kernel_device_ms(kernel)
+    line_ms, pair_ms = (sum(v for k, v in by_kernel.items() if name in k)
+                        for name in ("line_kernel", "pair_kernel"))
+    counts, changed = class_changes(spec, *state)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain32 = plain()
@@ -1155,18 +1369,24 @@ def phase_lbl_kernel_vs_plain():
     _lbl_f64_check(k64, plain64, f"full width, layers {sel}")
     _lbl_f32_check(k32[:, sel], plain64, f"full width, layers {sel}")
     del k64, plain64
-    bound_ms, bound_by, ops = lbl_bound_ms(
-        lls, blk, *(x.double().cpu().numpy() for x in (t32, p32, amb32)),
-        itemsize=4)
-    cf, weid, wing, lines = lbl_pair_counts(
-        lls, blk, *(x.double().cpu().numpy() for x in (t32, p32, amb32)))
+    host = [x.double().cpu().numpy() for x in (t32, p32, amb32)]
+    bound_ms, bound_by, ops = lbl_bound_ms(lls, blk, *host, itemsize=4)
+    nested_ms = lbl_bound_ms(lls, blk, *host, itemsize=4,
+                             cf_ops=LBL_OPS_CF_NESTED)[0]
+    cf, weid, wing, lines = lbl_pair_counts(lls, blk, *host)
     _print(f"lbl_cross_section at {blk.n_wave} waves x {lls.n_lines} lines x "
            f"{len(t32)} layers, float32: kernel {ms:.4f} ms, plain "
            f"{plain_ms:.4f} ms (all {len(t32)} layers, one call), bound "
-           f"{bound_ms:.4f} ms ({bound_by}; {ops:.4e} operations: "
+           f"{bound_ms:.4f} ms (with the nested fraction's count: "
+           f"{nested_ms:.4f} ms) ({bound_by}; {ops:.4e} operations: "
            f"{cf:.4e} continued-fraction and {weid:.4e} Weideman core pairs, "
            f"{wing:.4e} wing pairs, {lines} (layer, line) terms); "
            f"max_abs_err {err:.3e}")
+    _print(f"lbl_cross_section passes (device time, torch.profiler): line "
+           f"pass {line_ms:.4f} ms, pair pass {pair_ms:.4f} ms, beside the "
+           f"bound {bound_ms:.4f} ms; (block, line) classes skip / wing / "
+           f"core / straddle {counts.tolist()} over {len(t32)} layers "
+           f"({changed} moved by the pressure shift)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -1277,6 +1497,7 @@ def phase_lbl_headline(profile: bool = False):
     torch.cuda.reset_peak_memory_stats()
     times = []
     before = lbl_cuda.lbl_cross_section.launches
+    packs = lbl_cuda.kernel_inputs.calls
     for i in range(HEADLINE_RUNS + 2):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1288,6 +1509,12 @@ def phase_lbl_headline(profile: bool = False):
             times.append(start.elapsed_time(end))
     if lbl_cuda.lbl_cross_section.launches - before != HEADLINE_RUNS + 2:
         raise AssertionError("LBL launches did not rise by 1 per forward")
+    packs = lbl_cuda.kernel_inputs.calls - packs
+    _print(f"static kernel inputs packed in {HEADLINE_RUNS + 2} forwards "
+           f"after the first: {packs} ({'ok' if packs == 0 else 'FAIL'})")
+    if packs:
+        raise AssertionError("the LBL forward packs its static inputs per "
+                             "call")
     peak = torch.cuda.max_memory_allocated()
     ms = float(np.median(times))
     nlines = rt.line_lists[0].n_lines
@@ -1611,12 +1838,14 @@ def phase_sharded_lbl(profile: bool = False):
                    f"per shard, all {len(state[0])} layers")
     del plain
 
-    shard_ms, bounds = [], []
+    shard_ms, bounds, nested_ms = [], [], 0.0
     for s, spec in zip(sh.shards, specs):
         ms = _cuda_ms(lambda: lbl_cuda.lbl_kernel_packed(spec, *state),
                       reps=5)
         bound_ms, bound_by, ops = lbl_bound_ms(spec.ll, spec.blocks,
                                                *host_state, itemsize=4)
+        nested_ms += lbl_bound_ms(spec.ll, spec.blocks, *host_state,
+                                  itemsize=4, cf_ops=LBL_OPS_CF_NESTED)[0]
         shard_ms.append(ms)
         bounds.append((bound_ms, bound_by, ops))
         halo = int(sh.line_hi[s] - sh.line_lo[s])
@@ -1627,15 +1856,19 @@ def phase_sharded_lbl(profile: bool = False):
                f"({bound_by}, {ops:.4e} operations)")
     total_ms = _cuda_ms(lambda: sharded_lbl_cross_section(ll, sh, mesh,
                                                           *state), reps=5)
-    un_ms = _cuda_ms(lambda: lbl_cuda.lbl_cross_section(ll, blk, *state),
-                     reps=5)
+    static = lbl_cuda.kernel_inputs(lbl_cuda.make_spec(ll, blk),
+                                    state[0].dtype, state[0].device)
+    packed = {(state[0].dtype, state[0].device): static}
+    un_ms = _cuda_ms(lambda: lbl_cuda.lbl_cross_section(
+        ll, blk, *state, packed=packed), reps=5)
     un_bound, _, un_ops = lbl_bound_ms(ll, blk, *host_state, itemsize=4)
     sh_ops = sum(o for _, _, o in bounds)
     bound_ms = sum(b for b, _, _ in bounds)
     pad_waves = sh.n_shards * sh.blocks_per_shard * sh.block_width - sh.n_wave
     _print(f"sharded synthesis: {N_SHARDS} launches, {total_ms:.4f} ms "
            f"({sum(shard_ms):.4f} ms over the launches timed one by one), "
-           f"bound {bound_ms:.4f} ms ({sh_ops:.4e} operations); unsharded "
+           f"bound {bound_ms:.4f} ms ({sh_ops:.4e} operations; the nested "
+           f"fraction's count {nested_ms:.4f} ms); unsharded "
            f"kernel {un_ms:.4f} ms, bound {un_bound:.4f} ms ({un_ops:.4e}); "
            f"the halo and the {pad_waves} pad waves add {sh_ops - un_ops:.4e} "
            f"operations; plain {plain_ms:.1f} ms per shard in all")
