@@ -21,7 +21,7 @@
 // the bytes at the HBM rate.
 //
 // The primal kernel (combine_primal_kernel) does close to that work, one
-// warp per row, with the row's elements in shared memory:
+// warp per row, with the row's elements in shared memory (combine_row):
 //   1. lane j < NG loads a[r, j] and b[r, j] (coalesced). Rows sorted
 //      along g, the norm (overlap_pallas.py:52-63), are found so by one
 //      warp vote and kept; other rows are sorted by rank counting (NG
@@ -65,61 +65,85 @@
 // (PERF.md has the times); so the launch takes the rows per block that
 // keep the most warps resident.
 //
-// The tangent variant (TAN = true) replaces the TPU kernel's tangent
-// co-sort (_combine_pallas with tangents, overlap_pallas.py:292-329, body
-// _make_kernel :178-249): the same combine and, in the same pass, T tangent
-// pairs da, db (T, R, NG) pushed through the primal's permutation and
-// rebinned with the primal's overlaps and denominators,
-//   dout[t, j] = sum_e inter[e, j] * (da[t, ia(e)] + db[t, ib(e)]) / den_j.
-// The TPU kernel co-sorts T payload tiles; 81 payloads do not fit a warp's
-// registers, so this kernel co-sorts ONE payload, the element's index
-// pair (ia, ib) packed in an int (it also yields the weight
-// w2[ia*NG+ib]). It sorts in registers with the earlier primal design: one warp per row,
-// the NG*NG pair sums padded to E = next pow2 (>= 32) with keys at the
-// type's largest finite value, lane l holding elements l*K .. l*K+K-1
-// (K = E/32), a bitonic network whose strides below K stay inside a
-// thread and whose larger strides exchange with lane ^ (stride/K) through
-// __shfl_xor_sync, a serial-then-warp prefix scan, and a rebin of every
-// element against every bin with a warp butterfly per bin. Equal keys may
-// keep either payload; pad keys are the largest finite value, not inf:
-// their overlap is exactly 0, and 0 * inf would be NaN. (The template's
-// TAN = false branches, which carry the weight instead, are that earlier
-// primal; only TAN = true is instantiated.) While it rebins the primal it
-// scatters every positive overlap into the row's two NG x NG matrices in
-// shared memory,
-//   MA[i][j] = sum_{e: ia(e)=i} inter[e, j],  MB[i][j] likewise for ib,
-// with shared-memory atomic adds (at most n + NG overlaps a row, two adds
-// each; their order varies from run to run, so dout is reproducible to
-// rounding only). Then it loops over the T tangents, four at a time,
-// reading da[t, r, :] and db[t, r, :] once each (lane j holds element j,
-// broadcast by shuffles) and applying the matrices: lane j accumulates
-// sum_i MA[i][j] da[i] + MB[i][j] db[i], scales by 1/den_j and stores
-// dout[t, r, j]. The applying product is part of this kernel, not a
-// library call.
-// What bounds the tangent variant: bytes. At T = 81, R = 39,689, NG = 20
-// the three (T, R, NG) arrays are 0.77 GB in float32, 0.23 ms at the HBM
-// rate, against 0.06 ms for the 1,258 operations per row and tangent at the
-// float32 peak (chip_smoke.py:fused_bound_ms). The kernel runs about ten
-// times above that bound (PERF.md has the times): beyond the primal's sort
-// it pays for the scatter of the matrices (shared-memory atomics) and for
-// applying them with 20 of 32 lanes busy and 2 * NG shuffles per tangent,
-// reading 8 rows' worth (640 B) of each tangent at a time. A faster design
-// keeps the matrices in registers, stages the tangents through shared
-// memory instead of shuffling them, and reads longer contiguous runs.
+// The fused kernel (combine_tan_kernel) replaces the TPU kernel's tangent
+// co-sort (_combine_pallas with tangents, overlap_pallas.py:270-329, body
+// _make_kernel :101-249): the same combine and, in the same launch, T
+// tangent pairs da, db (T, R, NG) pushed through the primal's permutation
+// and rebinned with its overlaps and denominators,
+//   dout[t, r, j] = sum_e inter[e, j] * (da[t, r, ia(e)] + db[t, r, ib(e)])
+//                   / den_j
+//                 = (sum_i MA[i][j] da[t, r, i] + MB[i][j] db[t, r, i])
+//                   / den_j,
+// with the row's overlap matrices MA[i][j] = sum_{e: ia(e) = i} inter[e, j]
+// and MB[i][j] likewise over ib. A block holds W consecutive rows, one warp
+// each, and works in two phases:
+//   A. each warp runs steps 1-6 above on its row (combine_row, the same
+//      code and arithmetic: out is the primal kernel's result bit for bit).
+//      In step 5 lane j, which alone walks bin j, also adds each element's
+//      overlap into column j of its row's MA and MB in shared memory
+//      (zeroed first), at the rows given by the element's packed (ia, ib).
+//      No other lane writes column j, so the adds are plain and in element
+//      order, and two launches give the same bits for dout too; slack
+//      elements add exactly 0. Lane j keeps 1 / den_j beside the matrices.
+//   B. unit u of the block's U = W * H units (H = ceil(NG / 2)) takes bins
+//      q and q + H of row u / H (q = u % H): one thread loads the unit's
+//      two columns of MA and MB (4*NG values, instantiated for NG up to 8,
+//      16, 20 and 32; one column in float64 above NG = 20) and 1 / den of
+//      both bins into registers once. The tangents stream through shared
+//      memory in tiles of TT tangents, double-buffered: tangent t's part of
+//      the block, da[t, r0:r0+W, :], is W*NG contiguous values, copied with
+//      16-byte cp.async; a slab that does not start or end on 16 bytes has
+//      its head and tail copied by element-sized cp.async, into a slot
+//      offset so that the source's 16-byte words land on 16-byte words.
+//      Thread p works for unit p % U on tangents g, g + G, .. of each tile
+//      (group g = p / U of G = 32 W / U), so that all warps are busy: it
+//      reads its row of the staged da and db with broadcast loads of VEC
+//      values (16 bytes where NG and the pointers allow it), each value
+//      serving both bins, sums the 4*NG products in four chains, scales by
+//      1 / den_j and stores. The staging reuses the primal's element
+//      buffers, so a block issues its first tile after phase A.
+// Why the matrices sit in registers, two bins a thread, counted in
+// shared-memory wavefronts (128 bytes delivered to a warp's lanes, one a
+// clock per SM) at NG = 20 against the HBM bound per output: an output
+// moves 3 values through HBM, 12 bytes in float32 (24 in float64), which
+// take 0.94 (1.88) SM clocks at 3.35 TB/s over 132 SMs at 1.98 GHz. A
+// thread needs the 2*NG staged values of its row for every tangent; a
+// 16-byte load delivers 16 bytes to each lane, broadcast or not, so that
+// is 160 (320) bytes a tangent, 80 (160) per output with two bins a
+// thread: 0.63 (1.25) wavefronts; the staging's writes add 8 (16) bytes
+// per output, 0.06 (0.13). Reading the matrix column from shared memory
+// for every output instead would add 2*NG values per output, 1.25 (2.5)
+// wavefronts, above the HBM bound on its own, and phase A's merge, which
+// shares the pipe, is bound by it already. One bin a thread (1.25 (2.5)
+// wavefronts) was slower on the card in both types, and so were four bins
+// a pair of threads, each holding half the matrix rows and trading partial
+// sums by shuffles (half the loads, more instructions and registers).
+// No tensor cores: the product does 2*NG multiply-adds per 3 values of HBM
+// traffic, far below the ~300 operations per byte at which tensor cores
+// would set the time; TF32 keeps 10 mantissa bits, which would break the
+// float32 tangent bound (2e-5 of the peak, chip_smoke.py:tangent_f32_tol),
+// and in float64 DMMA would speed up the product, which shares the time
+// with the merge and the stream (PERF.md has the breakdown).
+// What bounds it: bytes. At T = 81, R = 39,689, NG = 20 the three
+// (T, R, NG) arrays are 0.77 GB in float32, 0.23 ms at the HBM rate,
+// against 0.06 ms for the 1,258 operations per row and tangent at the
+// float32 peak (chip_smoke.py:fused_bound_ms). What it costs beyond: phase
+// A, the primal kernel's shared-memory-bound merge at the few rows per SM
+// that the matrices and registers leave resident (a launch with no
+// tangents takes about half the time of one with 81; chip_smoke.py phase 5
+// times both beside the primal kernel), and phase B's product, bound by
+// instruction issue and the shared-memory pipe, which phase A also needs
+// (PERF.md has the times).
 
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kPadIndex = 1 << 10;  // payload of a pad element (TAN)
-constexpr int kTanBatch = 4;  // tangents applied per pass over a row's matrices
 
 template <typename T> struct Limits;
 template <> struct Limits<float> {
@@ -133,289 +157,13 @@ template <> struct Limits<double> {
   __device__ static double eps() { return DBL_EPSILON; }
 };
 
-// K elements per lane, LOG_E = log2(32 * K). TAN: also push n_tan tangent
-// pairs da, db (n_tan, rows, ng) through the sort into dout; the sort then
-// carries each element's index instead of its weight.
-template <typename T, int K, int LOG_E, bool TAN>
-__global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
-combine_kernel(const T* __restrict__ a, const T* __restrict__ b,
-               const T* __restrict__ w2, const T* __restrict__ edges,
-               T* __restrict__ out, int rows, int ng,
-               const T* __restrict__ da, const T* __restrict__ db,
-               T* __restrict__ dout, int n_tan) {
-  using Payload = std::conditional_t<TAN, int, T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
-  if (row >= rows) return;  // warp-uniform: the whole warp leaves together
-  const int n = ng * ng;
-  const size_t base = static_cast<size_t>(row) * ng;
-
-  // this warp's two NG x NG overlap matrices, zeroed
-  T* mat = nullptr;
-  if constexpr (TAN) {
-    mat = reinterpret_cast<T*>(smem_raw) +
-          static_cast<size_t>(threadIdx.x / kWarp) * 2 * n;
-    for (int x = lane; x < 2 * n; x += kWarp) mat[x] = T(0);
-    __syncwarp();
-  }
-
-  const T a_l = lane < ng ? a[base + lane] : T(0);
-  const T b_l = lane < ng ? b[base + lane] : T(0);
-
-  T key[K];
-  Payload pay[K];  // the weight, or with TAN the element's index
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    const int e = lane * K + i;
-    const int ia = e / ng;
-    const int ib = e - ia * ng;
-    const T s = __shfl_sync(kFull, a_l, ia & (kWarp - 1)) +
-                __shfl_sync(kFull, b_l, ib & (kWarp - 1));
-    key[i] = e < n ? s : Limits<T>::max();
-    if constexpr (TAN) {
-      // (ia, ib) packed in 5 bits each (NG <= 32); pads carry kPadIndex
-      pay[i] = e < n ? ((ia << 5) | ib) : kPadIndex;
-    } else {
-      pay[i] = w2[e];  // zero beyond n
-    }
-  }
-
-  // bitonic sort, ascending, of E = 32*K keys with their payloads
-#pragma unroll
-  for (int ls = 1; ls <= LOG_E; ++ls) {
-    const int size = 1 << ls;
-#pragma unroll
-    for (int lt = ls - 1; lt >= 0; --lt) {
-      const int stride = 1 << lt;
-      if (stride >= K) {
-        const int lstride = stride / K;
-        const bool upper = (lane & lstride) != 0;
-#pragma unroll
-        for (int i = 0; i < K; ++i) {
-          const bool asc = ((lane * K + i) & size) == 0;
-          const T pk = __shfl_xor_sync(kFull, key[i], lstride);
-          const Payload pw = __shfl_xor_sync(kFull, pay[i], lstride);
-          // the lower index of an ascending pair keeps the min, the upper
-          // one the max; reversed in descending blocks
-          const bool keep_min = asc != upper;
-          const bool take = keep_min ? (pk < key[i]) : (pk > key[i]);
-          if (take) {
-            key[i] = pk;
-            pay[i] = pw;
-          }
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < K; ++i) {
-          if ((i & stride) == 0) {
-            const int j = i | stride;
-            const bool asc = ((lane * K + i) & size) == 0;
-            const bool swap = asc ? (key[i] > key[j]) : (key[i] < key[j]);
-            if (swap) {
-              const T t = key[i];
-              key[i] = key[j];
-              key[j] = t;
-              const Payload u = pay[i];
-              pay[i] = pay[j];
-              pay[j] = u;
-            }
-          }
-        }
-      }
-    }
-  }
-
-  // the sorted weights: carried by the sort, or looked up by index
-  T w[K];
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    if constexpr (TAN) {
-      w[i] = pay[i] == kPadIndex
-                 ? T(0)
-                 : w2[(pay[i] >> 5) * ng + (pay[i] & 31)];
-    } else {
-      w[i] = pay[i];
-    }
-  }
-
-  // inclusive prefix sum of the sorted weights
-  T ghi[K];
-  T run = T(0);
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    run += w[i];
-    ghi[i] = run;
-  }
-  T incl = run;
-#pragma unroll
-  for (int d = 1; d < kWarp; d <<= 1) {
-    const T up = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += up;
-  }
-  T offset = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) offset = T(0);
-#pragma unroll
-  for (int i = 0; i < K; ++i) ghi[i] += offset;
-
-  // interval-overlap rebin into the NG output bins
-  T my_num = T(0), my_den = T(0);
-  for (int j = 0; j < ng; ++j) {
-    const T lo = edges[j];
-    const T hi = edges[j + 1];
-    T num = T(0), den = T(0);
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const T glo = ghi[i] - w[i];
-      T inter = (ghi[i] < hi ? ghi[i] : hi) - (glo > lo ? glo : lo);
-      inter = inter > T(0) ? inter : T(0);
-      num += key[i] * inter;
-      den += inter;
-    }
-#pragma unroll
-    for (int d = kWarp / 2; d > 0; d >>= 1) {
-      num += __shfl_xor_sync(kFull, num, d);
-      den += __shfl_xor_sync(kFull, den, d);
-    }
-    if (lane == j) {
-      my_num = num;
-      my_den = den;
-    }
-  }
-  const T tiny = Limits<T>::tiny();
-  if (lane < ng) {
-    out[base + lane] = my_num / (my_den > tiny ? my_den : tiny);
-  }
-
-  if constexpr (TAN) {
-    // scatter every element's overlaps (the same arithmetic as above) into
-    // the two matrices. Walking each element's own bins, from the one that
-    // holds its lower end, keeps all lanes busy in each atomic instruction;
-    // testing every element against every bin would issue ten times as
-    // many, one or two lanes each.
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      if (pay[i] == kPadIndex) continue;
-      const T glo = ghi[i] - w[i];
-      int j = 0;  // the last bin whose lower edge is <= glo (NG <= 32)
-#pragma unroll
-      for (int step = 16; step > 0; step >>= 1) {
-        const int c = j + step;
-        if (c < ng && edges[c] <= glo) j = c;
-      }
-      T* ma = mat + (pay[i] >> 5) * ng;
-      T* mb = mat + n + (pay[i] & 31) * ng;
-      for (; j < ng; ++j) {
-        const T lo = edges[j];
-        if (lo >= ghi[i]) break;
-        const T hi = edges[j + 1];
-        const T inter = (ghi[i] < hi ? ghi[i] : hi) - (glo > lo ? glo : lo);
-        if (inter > T(0)) {
-          atomicAdd(&ma[j], inter);
-          atomicAdd(&mb[j], inter);
-        }
-      }
-    }
-    __syncwarp();  // every lane's overlaps are in the matrices
-    const T inv_den = T(1) / (my_den > tiny ? my_den : tiny);
-    const size_t t_stride = static_cast<size_t>(rows) * ng;
-    const int col = lane < ng ? lane : 0;
-    // kTanBatch tangents at a time: their loads are in flight together,
-    // their sums are independent chains, and each matrix entry is read
-    // once for all of them
-    for (int t0 = 0; t0 < n_tan; t0 += kTanBatch) {
-      T da_l[kTanBatch], db_l[kTanBatch], acc[kTanBatch];
-#pragma unroll
-      for (int k = 0; k < kTanBatch; ++k) {
-        const bool live = t0 + k < n_tan && lane < ng;
-        const size_t off = static_cast<size_t>(t0 + k) * t_stride + base;
-        da_l[k] = live ? da[off + lane] : T(0);
-        db_l[k] = live ? db[off + lane] : T(0);
-        acc[k] = T(0);
-      }
-      for (int i = 0; i < ng; ++i) {
-        const T ma = mat[i * ng + col];
-        const T mb = mat[n + i * ng + col];
-#pragma unroll
-        for (int k = 0; k < kTanBatch; ++k) {
-          acc[k] += ma * __shfl_sync(kFull, da_l[k], i) +
-                    mb * __shfl_sync(kFull, db_l[k], i);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kTanBatch; ++k) {
-        if (t0 + k < n_tan && lane < ng) {
-          const size_t off = static_cast<size_t>(t0 + k) * t_stride + base;
-          dout[off + lane] = acc[k] * inv_den;
-        }
-      }
-    }
-  }
+// a * b + c rounded once, in both kernels alike
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
 }
-
-template <typename T, int K, int LOG_E, bool TAN>
-cudaError_t launch_one(dim3 grid, dim3 block, cudaStream_t s, const T* a,
-                       const T* b, const T* w2, const T* edges, T* out,
-                       int rows, int ng, const T* da, const T* db, T* dout,
-                       int n_tan) {
-  size_t smem = 0;
-  if (TAN) {
-    smem = static_cast<size_t>(kWarpsPerBlock) * 2 * ng * ng * sizeof(T);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          combine_kernel<T, K, LOG_E, TAN>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return err;
-    }
-  }
-  combine_kernel<T, K, LOG_E, TAN><<<grid, block, smem, s>>>(
-      a, b, w2, edges, out, rows, ng, da, db, dout, n_tan);
-  return cudaGetLastError();
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
 }
-
-// TAN = true launches the tangent variant (the primal has its own kernel
-// and launch below; TAN = false is not instantiated).
-template <typename T, bool TAN>
-int launch(const void* a, const void* b, const void* da, const void* db,
-           const void* w2, const void* edges, void* out, void* dout,
-           int rows, int ng, int e_pad, int n_tan, int device,
-           void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows <= 0) return 0;
-  const dim3 block(kWarpsPerBlock * kWarp);
-  const dim3 grid((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* pa = static_cast<const T*>(a);
-  const T* pb = static_cast<const T*>(b);
-  const T* pda = static_cast<const T*>(da);
-  const T* pdb = static_cast<const T*>(db);
-  const T* pw = static_cast<const T*>(w2);
-  const T* pe = static_cast<const T*>(edges);
-  T* po = static_cast<T*>(out);
-  T* pdo = static_cast<T*>(dout);
-#define LAUNCH_CASE(E, K, LOG_E)                                            \
-  case E:                                                                   \
-    err = launch_one<T, K, LOG_E, TAN>(grid, block, s, pa, pb, pw, pe, po,  \
-                                       rows, ng, pda, pdb, pdo, n_tan);     \
-    break;
-  switch (e_pad) {
-    LAUNCH_CASE(32, 1, 5)
-    LAUNCH_CASE(64, 2, 6)
-    LAUNCH_CASE(128, 4, 7)
-    LAUNCH_CASE(256, 8, 8)
-    LAUNCH_CASE(512, 16, 9)
-    LAUNCH_CASE(1024, 32, 10)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef LAUNCH_CASE
-  return static_cast<int>(err);
-}
-
-// ---------------------------------------------------------------------------
-// The primal kernel: one warp per row, `warps` rows per block.
 
 constexpr int kMaxWarps = 16;              // rows per block, at most
 constexpr int kPairSlots = kWarp * kWarp;  // w2 by packed index (ia << 5) | ib
@@ -455,20 +203,11 @@ __host__ __device__ size_t primal_warp_bytes(int n) {
          2 * kWarp * sizeof(T) + 2 * kWarp;
 }
 
+// The block's weight table (w2s[(ia << 5) | ib] = w2[ia * NG + ib], the
+// same bits) and bin edges, loaded by every thread; ends in a barrier.
 template <typename T>
-__global__ void __launch_bounds__(kMaxWarps * kWarp)
-combine_primal_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                      const T* __restrict__ w2, const T* __restrict__ edges,
-                      T* __restrict__ out, int rows, int ng) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n = ng * ng;
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int warp = threadIdx.x / kWarp;
-
-  // the block's weight table (w2s[(ia << 5) | ib] = w2[ia * NG + ib], the
-  // same bits) and bin edges
-  T* w2s = reinterpret_cast<T*>(smem_raw);
-  T* edge_s = w2s + kPairSlots;
+__device__ void load_tables(T* w2s, T* edge_s, const T* __restrict__ w2,
+                            const T* __restrict__ edges, int ng) {
   for (int x = threadIdx.x; x < kPairSlots; x += blockDim.x) {
     const int ia = x / kWarp;
     const int ib = x - ia * kWarp;
@@ -476,13 +215,21 @@ combine_primal_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
   for (int x = threadIdx.x; x <= ng; x += blockDim.x) edge_s[x] = edges[x];
   __syncthreads();
+}
 
-  const int row = blockIdx.x * (blockDim.x / kWarp) + warp;
-  if (row >= rows) return;  // warp-uniform: the whole warp leaves together
-
+// Steps 1-6 of one row, run by its whole warp; `smem` is the warp's
+// primal_warp_bytes. Lane j < NG writes out[row, j] and returns the
+// floored denominator of bin j. MATS: lane j also adds each overlap of its
+// walk into column j of the NG x NG matrices mat (MA, by ia) and mat + NG*NG
+// (MB, by ib), row-major.
+template <typename T, bool MATS>
+__device__ T combine_row(const T* __restrict__ a, const T* __restrict__ b,
+                         const T* w2s, const T* edge_s, unsigned char* smem,
+                         T* __restrict__ out, int row, int ng, T* mat) {
+  const int n = ng * ng;
+  const int lane = threadIdx.x & (kWarp - 1);
   const int cap = round_up4(n);
-  Elem<T>* buf = reinterpret_cast<Elem<T>*>(
-      smem_raw + primal_block_bytes<T>() + warp * primal_warp_bytes<T>(n));
+  Elem<T>* buf = reinterpret_cast<Elem<T>*>(smem);
   Elem<T>* other = buf + cap;
   T* sorted_a = reinterpret_cast<T*>(other + cap);
   T* sorted_b = sorted_a + kWarp;
@@ -633,7 +380,7 @@ combine_primal_kernel(const T* __restrict__ a, const T* __restrict__ b,
   // 5. lane j rebins bin j: from the first element whose upper end lies
   // above the bin's lower edge (less the slack) to the first whose upper
   // end lies above its upper edge (plus the slack)
-  if (!live) return;
+  if (!live) return T(0);
   const T lo_j = edge_s[lane];
   const T hi_j = edge_s[lane + 1];
   const T slack = T(kSlackEps) * Limits<T>::eps();
@@ -654,16 +401,41 @@ combine_primal_kernel(const T* __restrict__ a, const T* __restrict__ b,
   T num = T(0), den = T(0);
   for (; e < n; ++e) {
     const Span<T> sp = span[e];
+    const Elem<T> el = buf[e];
     const T g_lo = sp.ghi - sp.w;
     T inter = (sp.ghi < hi_j ? sp.ghi : hi_j) - (g_lo > lo_j ? g_lo : lo_j);
     inter = inter > T(0) ? inter : T(0);
-    num += buf[e].key * inter;
+    num = fma_t(el.key, inter, num);
     den += inter;
+    if constexpr (MATS) {
+      mat[(el.pay >> 5) * ng + lane] += inter;
+      mat[n + (el.pay & 31) * ng + lane] += inter;
+    }
     if (sp.ghi >= last) break;
   }
   // 6. the overlap-weighted mean
   const T tiny = Limits<T>::tiny();
-  out[base + lane] = num / (den > tiny ? den : tiny);
+  den = den > tiny ? den : tiny;
+  out[base + lane] = num / den;
+  return den;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxWarps * kWarp)
+combine_primal_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                      const T* __restrict__ w2, const T* __restrict__ edges,
+                      T* __restrict__ out, int rows, int ng) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* w2s = reinterpret_cast<T*>(smem_raw);
+  T* edge_s = w2s + kPairSlots;
+  load_tables(w2s, edge_s, w2, edges, ng);
+  const int warp = threadIdx.x / kWarp;
+  const int row = blockIdx.x * (blockDim.x / kWarp) + warp;
+  if (row >= rows) return;  // warp-uniform: the whole warp leaves together
+  combine_row<T, false>(a, b, w2s, edge_s,
+                        smem_raw + primal_block_bytes<T>() +
+                            warp * primal_warp_bytes<T>(ng * ng),
+                        out, row, ng, nullptr);
 }
 
 // `warps` rows per block, 1 .. 16; 0 takes the count of 16, 8, 4, 2, 1
@@ -716,6 +488,335 @@ int launch_primal(const void* a, const void* b, const void* w2,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The fused primal + tangent kernel: one warp per row in phase A, two bins
+// of a row per thread in phase B.
+
+constexpr int kMaxTanWarps = 8;  // rows per block, at most
+
+// Per row: MA and MB (NG x NG each) and 1 / den (NG), rounded up to 16
+// bytes.
+__host__ __device__ constexpr int mat_row_elems(int ng) {
+  return round_up4(2 * ng * ng + ng);
+}
+// Elements of one staged slab slot: W*NG values and up to 16 bytes of
+// offset that puts the source's 16-byte words on the slot's.
+template <typename T>
+__host__ __device__ int tan_slot_elems(int warps, int ng) {
+  constexpr int v = 16 / sizeof(T);
+  return (warps * ng + 2 * v - 2) / v * v;
+}
+template <typename T>
+__host__ __device__ size_t tan_block_bytes(int warps, int ng) {
+  return primal_block_bytes<T>() +
+         warps * (primal_warp_bytes<T>(ng * ng) +
+                  mat_row_elems(ng) * sizeof(T));
+}
+
+// Offset in elements of p from the 16-byte word that holds it.
+template <typename T>
+__device__ __forceinline__ int word_offset(const T* p) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(p) / sizeof(T)) &
+         (16 / static_cast<int>(sizeof(T)) - 1);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+template <int BYTES>
+__device__ __forceinline__ void cp_async_elem(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One warp copies src[0, len) into the slot at dst + word_offset(src): the
+// elements before src's first 16-byte boundary and after its last one
+// element by element, the rest in 16-byte words.
+template <typename T>
+__device__ void stage_slab(T* dst, const T* src, int len, int lane) {
+  constexpr int v = 16 / sizeof(T);
+  const int off = word_offset(src);
+  dst += off;
+  const int head = min(len, (v - off) & (v - 1));
+  const int words = (len - head) / v;
+  for (int k = lane; k < words; k += kWarp) {
+    cp_async16(dst + head + k * v, src + head + k * v);
+  }
+  const int rest = len - words * v;  // head and tail elements
+  for (int q = lane; q < rest; q += kWarp) {
+    const int x = q < head ? q : q + words * v;
+    cp_async_elem<sizeof(T)>(dst + x, src + x);
+  }
+}
+
+// Outputs (bins of one row) a thread of phase B computes: two, so that each
+// staged value it loads serves two bins, unless their 4 * NGC matrix
+// values would pass 160 registers (float64 above NG = 20).
+template <typename T>
+__host__ __device__ constexpr int outputs_per_thread(int ngc) {
+  return 2 * ngc * static_cast<int>(sizeof(T)) <= 320 ? 2 : 1;
+}
+
+template <typename T, int VEC>
+struct alignas(VEC * sizeof(T)) Pack {
+  T v[VEC];
+};
+
+// NGC: a ceiling of NG (the register columns); VEC: values per shared
+// load of a staged row (NG % VEC == 0, da and db aligned to VEC values).
+// `tile` tangents per staged tile, two tiles in the primal's buffers.
+template <typename T, int NGC, int VEC>
+__global__ void __launch_bounds__(kMaxTanWarps * kWarp)
+combine_tan_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                   const T* __restrict__ da, const T* __restrict__ db,
+                   const T* __restrict__ w2, const T* __restrict__ edges,
+                   T* __restrict__ out, T* __restrict__ dout, int rows,
+                   int ng, int n_tan, int tile) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = ng * ng;
+  const int warps = blockDim.x / kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x & (kWarp - 1);
+  T* w2s = reinterpret_cast<T*>(smem_raw);
+  T* edge_s = w2s + kPairSlots;
+  unsigned char* row_smem = smem_raw + primal_block_bytes<T>();
+  const size_t warp_bytes = primal_warp_bytes<T>(n);
+  const int mat_elems = mat_row_elems(ng);
+  T* mats = reinterpret_cast<T*>(row_smem + warps * warp_bytes);
+  for (int x = threadIdx.x; x < warps * mat_elems; x += blockDim.x) {
+    mats[x] = T(0);
+  }
+  load_tables(w2s, edge_s, w2, edges, ng);
+
+  // A. the primal, its matrices and 1 / den. Warps of rows past `rows`
+  // skip it and meet the others at the barriers below.
+  const int r0 = blockIdx.x * warps;
+  if (r0 + warp < rows) {
+    T* mat = mats + warp * mat_elems;
+    const T den = combine_row<T, true>(a, b, w2s, edge_s,
+                                       row_smem + warp * warp_bytes, out,
+                                       r0 + warp, ng, mat);
+    if (lane < ng) mat[2 * n + lane] = T(1) / den;
+  }
+  __syncthreads();
+
+  // B. the tangents. Unit u = p % U of the U = W * H units (H = ceil(NG /
+  // K)) takes bins q, q + H, .. (K of them) of row u / H, q = u % H; group
+  // p / U of the G = 32 W / U groups takes tangents g, g + G, .. of each
+  // tile. The K bins of a unit share each staged value it loads.
+  constexpr int K = outputs_per_thread<T>(NGC);
+  const int h = (ng + K - 1) / K;
+  const int units = warps * h;
+  const int groups = blockDim.x / units;  // >= 1: W * H <= 32 W
+  const int p = threadIdx.x;
+  const int g = p / units;
+  const int rr = (p - g * units) / h;
+  const int q = p - g * units - rr * h;
+  const bool active = g < groups && r0 + rr < rows;
+  const int len = min(warps, rows - r0) * ng;  // the block's slab
+  const int slot = tan_slot_elems<T>(warps, ng);
+  T* stage = reinterpret_cast<T*>(row_smem);
+  const size_t t_stride = static_cast<size_t>(rows) * ng;
+  const size_t block_off = static_cast<size_t>(r0) * ng;
+  const int n_tiles = (n_tan + tile - 1) / tile;
+
+  // warp w stages slabs w, w + W, ... of the tile: slab 2k is da of its
+  // k-th tangent, 2k + 1 db
+  auto issue = [&](int k) {
+    const int t0 = k * tile;
+    const int count = min(tile, n_tan - t0);
+    T* buf = stage + static_cast<size_t>(k & 1) * 2 * tile * slot;
+    for (int s = warp; s < 2 * count; s += warps) {
+      const T* src = ((s & 1) ? db : da) +
+                     static_cast<size_t>(t0 + (s >> 1)) * t_stride + block_off;
+      stage_slab(buf + static_cast<size_t>(s) * slot, src, len, lane);
+    }
+  };
+  if (n_tiles > 0) issue(0);
+  cp_async_commit();
+
+  // the unit's columns of MA and MB and its 1 / den (zero past NG)
+  T ma[K][NGC], mb[K][NGC], inv_den[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = q + k * h;
+    const bool live = active && j < ng;
+    const T* col = mats + rr * mat_elems + (live ? j : 0);
+#pragma unroll
+    for (int i = 0; i < NGC; ++i) {
+      ma[k][i] = live && i < ng ? col[i * ng] : T(0);
+      mb[k][i] = live && i < ng ? col[n + i * ng] : T(0);
+    }
+    inv_den[k] = live ? col[2 * n] : T(0);
+  }
+
+  for (int k = 0; k < n_tiles; ++k) {
+    if (k + 1 < n_tiles) issue(k + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile k is in
+    __syncthreads();
+    if (active) {
+      const int t0 = k * tile;
+      const int count = min(tile, n_tan - t0);
+      const T* buf = stage + static_cast<size_t>(k & 1) * 2 * tile * slot;
+      for (int tt = g; tt < count; tt += groups) {
+        const size_t off =
+            static_cast<size_t>(t0 + tt) * t_stride + block_off;
+        const T* xa = buf + static_cast<size_t>(2 * tt) * slot +
+                      word_offset(da + off) + rr * ng;
+        const T* xb = buf + static_cast<size_t>(2 * tt + 1) * slot +
+                      word_offset(db + off) + rr * ng;
+        T acc_a[K], acc_b[K];
+#pragma unroll
+        for (int o = 0; o < K; ++o) {
+          acc_a[o] = T(0);
+          acc_b[o] = T(0);
+        }
+#pragma unroll
+        for (int c = 0; c < NGC / VEC; ++c) {
+          if (c * VEC < ng) {
+            const Pack<T, VEC> va =
+                *reinterpret_cast<const Pack<T, VEC>*>(xa + c * VEC);
+            const Pack<T, VEC> vb =
+                *reinterpret_cast<const Pack<T, VEC>*>(xb + c * VEC);
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) {
+#pragma unroll
+              for (int o = 0; o < K; ++o) {
+                acc_a[o] = fma_t(ma[o][c * VEC + v], va.v[v], acc_a[o]);
+                acc_b[o] = fma_t(mb[o][c * VEC + v], vb.v[v], acc_b[o]);
+              }
+            }
+          }
+        }
+        T* row_out = dout + off + rr * ng + q;
+#pragma unroll
+        for (int o = 0; o < K; ++o) {
+          if (q + o * h < ng) {
+            row_out[o * h] = (acc_a[o] + acc_b[o]) * inv_den[o];
+          }
+        }
+      }
+    }
+    __syncthreads();  // tile k's buffer is free for tile k + 2
+  }
+}
+
+template <typename T, int NGC, int VEC>
+int launch_tan_instance(const T* a, const T* b, const T* da, const T* db,
+                        const T* w2, const T* edges, T* out, T* dout,
+                        int rows, int ng, int warps, int n_tan, int device,
+                        cudaStream_t stream) {
+  const auto kernel = combine_tan_kernel<T, NGC, VEC>;
+  // the attribute is set once per device, so that a launch captured in a
+  // CUDA graph makes no call but the launch itself
+  static uint64_t configured = 0;
+  const uint64_t bit = device < 64 ? uint64_t(1) << device : 0;
+  cudaError_t err;
+  if (!(configured & bit)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kMaxSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured |= bit;
+  }
+  if (warps == 0) {
+    // the count of 8, 4, 2, 1 rows per block that keeps the most rows
+    // resident on an SM, the larger block on a tie (longer slabs, fewer
+    // idle lanes in phase B)
+    int best = 0;
+    for (int w = kMaxTanWarps; w >= 1; w /= 2) {
+      const size_t smem = tan_block_bytes<T>(w, ng);
+      if (smem > kMaxSmem) continue;
+      int blocks = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, w * kWarp, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (blocks * w > best) {
+        best = blocks * w;
+        warps = w;
+      }
+    }
+    if (warps == 0) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = tan_block_bytes<T>(warps, ng);
+  // two tiles of 2 * tile slots in the primal's element buffers
+  const size_t slot_bytes = tan_slot_elems<T>(warps, ng) * sizeof(T);
+  const size_t room = warps * primal_warp_bytes<T>(ng * ng);
+  const int max_tile = static_cast<int>(room / (4 * slot_bytes));
+  if (smem > kMaxSmem || max_tile < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // tiles of equal size, as far as n_tan allows
+  const int n_tiles = (n_tan + max_tile - 1) / max_tile;
+  const int tile = n_tiles > 0 ? (n_tan + n_tiles - 1) / n_tiles : 1;
+  const dim3 block(warps * kWarp);
+  const dim3 grid((rows + warps - 1) / warps);
+  kernel<<<grid, block, smem, stream>>>(a, b, da, db, w2, edges, out, dout,
+                                        rows, ng, n_tan, tile);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `warps` rows per block, 1 .. 8, or 0: launch_tan_instance's choice.
+template <typename T>
+int launch_tan(const void* a, const void* b, const void* da, const void* db,
+               const void* w2, const void* edges, void* out, void* dout,
+               int rows, int ng, int warps, int n_tan, int device,
+               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows <= 0) return 0;
+  if (ng < 1 || ng > kWarp || warps < 0 || warps > kMaxTanWarps ||
+      n_tan < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the widest shared load of a staged row: NG a multiple of it and both
+  // tangent arrays aligned to it, so that every row of every slab is
+  int vec = 16 / sizeof(T);
+  while (vec > 1 &&
+         (ng % vec != 0 ||
+          reinterpret_cast<uintptr_t>(da) % (vec * sizeof(T)) != 0 ||
+          reinterpret_cast<uintptr_t>(db) % (vec * sizeof(T)) != 0)) {
+    vec /= 2;
+  }
+  const int ngc = ng <= 8 ? 8 : ng <= 16 ? 16 : ng <= 20 ? 20 : 32;
+  const auto s = static_cast<cudaStream_t>(stream);
+#define TAN_CASE(NGC, VEC)                                                  \
+  if (ngc == NGC && vec == VEC) {                                           \
+    return launch_tan_instance<T, NGC, VEC>(                                \
+        static_cast<const T*>(a), static_cast<const T*>(b),                 \
+        static_cast<const T*>(da), static_cast<const T*>(db),               \
+        static_cast<const T*>(w2), static_cast<const T*>(edges),            \
+        static_cast<T*>(out), static_cast<T*>(dout), rows, ng, warps,       \
+        n_tan, device, s);                                                  \
+  }
+#define TAN_CASES(VEC) \
+  TAN_CASE(8, VEC) TAN_CASE(16, VEC) TAN_CASE(20, VEC) TAN_CASE(32, VEC)
+  TAN_CASES(1)
+  TAN_CASES(2)
+  if constexpr (sizeof(T) == 4) {
+    TAN_CASES(4)
+  }
+#undef TAN_CASES
+#undef TAN_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each launches on `stream`,
@@ -739,14 +840,17 @@ extern "C" int overlap_combine_f64(const void* a, const void* b,
 }
 
 // Fused primal + tangent combine: da, db and dout are (n_tan, rows, ng).
+// e_pad (the padded length of the pair-weight table) is not read: the
+// kernel reads w2[ia * ng + ib] only.
 extern "C" int overlap_combine_tan_f32(const void* a, const void* b,
                                        const void* da, const void* db,
                                        const void* w2, const void* edges,
                                        void* out, void* dout, int rows,
                                        int ng, int e_pad, int n_tan,
                                        int device, void* stream) {
-  return launch<float, true>(a, b, da, db, w2, edges, out, dout, rows, ng,
-                             e_pad, n_tan, device, stream);
+  (void)e_pad;
+  return launch_tan<float>(a, b, da, db, w2, edges, out, dout, rows, ng, 0,
+                           n_tan, device, stream);
 }
 
 extern "C" int overlap_combine_tan_f64(const void* a, const void* b,
@@ -755,6 +859,25 @@ extern "C" int overlap_combine_tan_f64(const void* a, const void* b,
                                        void* out, void* dout, int rows,
                                        int ng, int e_pad, int n_tan,
                                        int device, void* stream) {
-  return launch<double, true>(a, b, da, db, w2, edges, out, dout, rows, ng,
-                              e_pad, n_tan, device, stream);
+  (void)e_pad;
+  return launch_tan<double>(a, b, da, db, w2, edges, out, dout, rows, ng, 0,
+                            n_tan, device, stream);
+}
+
+// The same with `warps` rows per block (1 .. 8, or 0 as above) in place of
+// e_pad, for timing the choices.
+extern "C" int overlap_combine_tan_warps_f32(
+    const void* a, const void* b, const void* da, const void* db,
+    const void* w2, const void* edges, void* out, void* dout, int rows,
+    int ng, int warps, int n_tan, int device, void* stream) {
+  return launch_tan<float>(a, b, da, db, w2, edges, out, dout, rows, ng,
+                           warps, n_tan, device, stream);
+}
+
+extern "C" int overlap_combine_tan_warps_f64(
+    const void* a, const void* b, const void* da, const void* db,
+    const void* w2, const void* edges, void* out, void* dout, int rows,
+    int ng, int warps, int n_tan, int device, void* stream) {
+  return launch_tan<double>(a, b, da, db, w2, edges, out, dout, rows, ng,
+                            warps, n_tan, device, stream);
 }

@@ -8,14 +8,15 @@ raises. It never falls back from the card to the plain version.
 ``combine_pair`` is differentiable in forward mode only, as the TPU kernel
 is (``custom_jvp``): its ``jvp`` calls ``combine_pair_with_tangents``, the
 fused primal + tangent combine, which dispatches the same way (plain version
-``combine_pair_with_tangents_plain`` on the CPU, the tangent variant of the
-kernel on the card). Under ``torch.func.jacfwd`` the fused combine's
-``vmap`` rule stacks all tangents and makes ONE call, so a Jacobian costs
-one sort pass per combine, not one per state element.
+``combine_pair_with_tangents_plain`` on the CPU, the fused kernel on the
+card, whose primal is the primal kernel's result bit for bit). Under
+``torch.func.jacfwd`` the fused combine's ``vmap`` rule stacks all tangents
+and makes ONE call, so a Jacobian costs one sort pass per combine, not one
+per state element.
 
 The kernels replace the TPU kernels ``combine_pair_pallas``
 (``archnemesis_tpu/ops/overlap_pallas.py:398``) and its tangent co-sort
-(``_combine_pallas`` with tangents, ``:292-329``). They are built with
+(``_combine_pallas`` with tangents, ``:270-329``). They are built with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface at
 first use (``ops/cuda_build.py``, under ``build/`` at the repository root),
 and bound with ``ctypes``.
@@ -37,14 +38,14 @@ from archnemesis_tpu_torch.ops.overlap import (
     pair_weights,
 )
 
-MAX_NG = 32  # NG lanes of one warp; the tangent kernel's e_pad <= 1024
+MAX_NG = 32  # NG lanes of one warp
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def e_pad(ng: int) -> int:
-    """Padded element count of one row in the tangent kernel: next power of
-    two of NG*NG, at least one per lane of a warp."""
+    """Length of the padded pair-weight table (``_tables``): next power of
+    two of NG*NG, at least 32. The kernels read its first NG*NG values."""
     return max(32, 1 << (ng * ng - 1).bit_length())
 
 
@@ -62,10 +63,11 @@ def _library():
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        fn = getattr(lib, f"overlap_combine_tan_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for entry in ("tan", "tan_warps"):
+            fn = getattr(lib, f"overlap_combine_{entry}_{suffix}")
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -113,7 +115,7 @@ def _check_cuda_inputs(tau_a, tau_b, ng, tangents=()):
     if tau_a.shape[1] != ng:
         raise ValueError(f"rows have {tau_a.shape[1]} g-ordinates, del_g {ng}")
     if not 1 <= ng <= MAX_NG:
-        raise ValueError(f"NG={ng} outside 1..{MAX_NG} (e_pad <= 1024)")
+        raise ValueError(f"NG={ng} outside 1..{MAX_NG}")
     if tau_a.shape[0] * ng >= 2**31:
         raise ValueError("too many rows for 32-bit row indexing")
     for name, t in tangents:
@@ -154,8 +156,11 @@ def _combine_primal(tau_a, tau_b, del_g: tuple, warps: int = 0):
     return out
 
 
-def _combine_fused(tau_a, tau_b, dta, dtb, del_g: tuple):
-    """The fused combine on plain tensors; dta, dtb are (T, R, NG)."""
+def _combine_fused(tau_a, tau_b, dta, dtb, del_g: tuple, warps: int = 0):
+    """The fused combine on plain tensors; dta, dtb are (T, R, NG). On the
+    card ``warps`` rows per block (1 .. 8), or with 0 the count that keeps
+    the most rows resident on an SM (``csrc/overlap_combine.cu:
+    launch_tan_instance``)."""
     combine_pair_with_tangents.calls += 1
     if tau_a.device.type == "cpu":
         return combine_pair_with_tangents_plain(tau_a, tau_b, dta, dtb, del_g)
@@ -167,11 +172,15 @@ def _combine_fused(tau_a, tau_b, dta, dtb, del_g: tuple):
     out = torch.empty_like(tau_a)
     dout = torch.empty_like(dta)
     rows = tau_a.shape[0]
-    fn = getattr(_library(), f"overlap_combine_tan_{_DTYPES[tau_a.dtype]}")
+    # the "tan_warps" entry takes the rows per block where the other takes
+    # e_pad, which the kernel does not read
+    entry = "tan_warps" if warps else "tan"
+    fn = getattr(_library(),
+                 f"overlap_combine_{entry}_{_DTYPES[tau_a.dtype]}")
     stream = torch.cuda.current_stream(tau_a.device).cuda_stream
     err = fn(tau_a.data_ptr(), tau_b.data_ptr(), dta.data_ptr(),
              dtb.data_ptr(), w2.data_ptr(), edges.data_ptr(), out.data_ptr(),
-             dout.data_ptr(), rows, ng, e_pad(ng), dta.shape[0],
+             dout.data_ptr(), rows, ng, warps or e_pad(ng), dta.shape[0],
              tau_a.device.index or 0, stream)
     if err != 0:
         raise RuntimeError(
@@ -279,7 +288,7 @@ def combine_pair_with_tangents(tau_a, tau_b, dta, dtb, del_g):
     """Fused primal + tangent combine: (R, NG) x2 and stacked tangents
     (T, R, NG) x2 -> (out (R, NG), dout (T, R, NG)), all T tangents through
     one sort pass. CPU tensors go to the plain version; CUDA tensors launch
-    the tangent kernel and add one to ``.launches``. ``.calls`` counts
+    the fused kernel and add one to ``.launches``. ``.calls`` counts
     every fused call on either device."""
     return _combine_fused(tau_a, tau_b, dta, dtb, _del_g_key(del_g))
 

@@ -13,9 +13,8 @@ of ``ops/overlap_variants.py:combine_lean`` at 256 rows per block) and
 ``lean8`` .. ``lean128`` (the full mode at 8 .. 128 rows per block). The
 full mode (``lean``) is the combine kernel's earlier design, a bitonic
 network in registers with every element tested against every bin, in its
-lean form; it gives the tangent kernel's primal bit for bit. So one call
-times the current kernel beside the earlier design and beside the
-earlier design's sort and data movement alone.
+lean form. So one call times the current kernel beside the earlier design
+and beside the earlier design's sort and data movement alone.
 Prints ms per pair combine, the median of CUDA-event times, with the
 card's name and power limit. Default: every name.
 """

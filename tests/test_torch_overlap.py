@@ -83,8 +83,10 @@ def test_combine_cases_are_what_they_say():
     pairs = (a[half:, :, None] + b[half:, None, :]).reshape(half + 1, -1)
     assert all(len(np.unique(p)) < ng * ng // 2 for p in pairs)
     assert not cases["zeros"][0].any() and not cases["zeros"][1].any()
-    # no rows-per-block choice of the primal kernel divides the row count
-    assert all(chip_smoke.HARD_ROWS % w for w in chip_smoke.PRIMAL_WARP_CHOICES)
+    # no rows-per-block choice of the primal or the fused kernel divides
+    # the row count
+    assert all(chip_smoke.HARD_ROWS % w for w in
+               chip_smoke.PRIMAL_WARP_CHOICES + chip_smoke.TAN_WARP_CHOICES)
 
 
 @pytest.mark.parametrize("ng", [10, 20])
@@ -447,10 +449,9 @@ def test_kernel_launches_give_equal_bits(cuda, warps):
 @pytest.mark.parametrize("ng", [10, 20, 32])
 def test_tangent_kernel_matches_plain_on_card(cuda, ng, n_tan, dtype):
     """The fused kernel on tie-free rows (pair sums on an integer lattice,
-    so float32 and float64 sort them alike): its primal within twice phase
-    2's bound of the primal kernel's (the two sum in different orders and
-    are each held to the float64 plain result at that bound), its tangents
-    the plain version's."""
+    so float32 and float64 sort them alike): its primal the primal kernel's
+    bit for bit (the two share its code), its tangents the plain version's,
+    and a second launch the first one's bits (no atomics)."""
     del_g = gauss_del_g(ng)
     ta, tb = tiefree_overlap_inputs(500, ng, seed=9)
     rng = np.random.default_rng(9)
@@ -466,7 +467,10 @@ def test_tangent_kernel_matches_plain_on_card(cuda, ng, n_tan, dtype):
     torch.cuda.synchronize()
     assert fused.launches == before + 1
     torch.testing.assert_close(out, overlap_cuda.combine_pair(a, b, del_g),
-                               **chip_smoke.primal_pair_tols(dtype))
+                               rtol=0, atol=0)
+    out2, dout2 = fused(a, b, da, db, del_g)
+    torch.testing.assert_close(out2, out, rtol=0, atol=0)
+    torch.testing.assert_close(dout2, dout, rtol=0, atol=0)
     _, want = overlap_cuda.combine_pair_with_tangents_plain(
         a.double(), b.double(), da.double(), db.double(), del_g)
     peak = float(want.abs().max())
