@@ -9,8 +9,8 @@ builds the port's counterpart, with its arrays as tensors on ``device``
 then compute on the same numbers.
 
 A field the port's structure lacks is accepted only when it is ``None``:
-a set field that belongs to a later slice (e.g. the Hapke surface block)
-raises instead of being dropped.
+a set field that belongs to a later slice raises instead of being
+dropped.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 from archnemesis_tpu_torch.core.spectra import (
     AerosolOptics,
     CIATables,
+    HapkeParams,
     KTables,
     StellarSpec,
     SurfaceSpec,
@@ -53,7 +54,9 @@ def _kwargs(cls, fields: dict, device=None) -> dict:
         if name not in fields:
             continue
         v = fields[name]
-        if name in tensors and v is not None:
+        if name in tensors and dataclasses.is_dataclass(v):
+            v = v.to(device)  # a nested structure of the port
+        elif name in tensors and v is not None:
             v = torch.as_tensor(np.asarray(v), device=device)
         elif isinstance(f.default, enum.Enum) and v is not None:
             v = type(f.default)(int(v))
@@ -86,13 +89,18 @@ def aerosol_optics(fields: dict, device=None) -> AerosolOptics:
 
 
 def surface_spec(fields: dict, device=None) -> SurfaceSpec:
+    """SurfaceSpec of the port; its Hapke block (a JAX ``HapkeParams`` or a
+    dict of its fields) is carried across with it."""
+    fields = dict(fields)
+    if fields.get("hapke") is not None:
+        fields["hapke"] = _build(HapkeParams, _fields_of(fields["hapke"]),
+                                 device)
     return _build(SurfaceSpec, fields, device)
 
 
 def forward_config(fields: dict) -> ForwardConfig:
-    """ForwardConfig of the port from the JAX one's fields; fields that only
-    other slices read (the scattering wave tile) and the XLA combine's
-    straddle count, which the port's combines do not need, are not
+    """ForwardConfig of the port from the JAX one's fields; the XLA
+    combine's straddle count, which the port's combines do not need, is not
     carried."""
     names = [f.name for f in dataclasses.fields(ForwardConfig)]
     kw = {n: fields[n] for n in names if n in fields}

@@ -154,15 +154,38 @@ class AerosolOptics:
 
 
 @tensor_dataclass
+class HapkeParams:
+    """Hapke (2012) BRDF parameter spectra on their own wave grid
+    (reference ``Surface_0.read_hap:1004``: the .hap file carries NEM rows
+    of 11 columns)."""
+
+    vem: Any  # (NEM_HAP,)
+    sglalb: Any  # single-scattering albedo w
+    k: Any  # porosity coefficient
+    bs0: Any  # shadow-hiding opposition amplitude
+    hs: Any  # shadow-hiding opposition width
+    bc0: Any  # coherent-backscatter amplitude
+    hc: Any  # coherent-backscatter width
+    roughness: Any  # macroscopic roughness [deg]
+    g1: Any  # HG phase asymmetry 1
+    g2: Any  # HG phase asymmetry 2
+    f: Any  # HG mixing fraction
+
+
+@tensor_dataclass
 class SurfaceSpec:
-    """Surface state (reference ``Surface_0``) used by thermal emission:
-    emissivity spectrum, temperature, ground albedo, lower-boundary
-    condition. The anisotropic-BRDF blocks belong to the scattering slice."""
+    """Surface state (reference ``Surface_0``): emissivity spectrum,
+    temperature, ground albedo, lower-boundary condition, and the optional
+    anisotropic-BRDF parameter blocks (Hapke .hap spectra, Oren-Nayar
+    albedo/roughness)."""
 
     tsurf: Any  # scalar [K] (<=0 means gas giant / no surface)
     vem: Any  # (NEM,) wave grid of emissivity
     emissivity: Any  # (NEM,)
     galb: Any  # scalar ground albedo (<0: use 1-emissivity)
+    hapke: Any = None  # Optional[HapkeParams] (lowbc=2)
+    on_albedo: Any = None  # Optional (NEM,) Oren-Nayar albedo (lowbc=3)
+    on_roughness: Any = None  # Optional (NEM,) Oren-Nayar sigma [deg]
 
     lowbc: LowerBoundaryCondition = static_field(
         default=LowerBoundaryCondition.THERMAL
@@ -204,4 +227,6 @@ def cast_deck(obj, dtype=torch.float32):
         x = getattr(obj, name)
         if isinstance(x, torch.Tensor) and x.is_floating_point():
             cast[name] = x.to(dtype)
+        elif dataclasses.is_dataclass(x):  # a nested block (HapkeParams)
+            cast[name] = cast_deck(x, dtype)
     return dataclasses.replace(obj, **cast)

@@ -14,12 +14,14 @@ import logging
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from archnemesis_tpu_torch.core.spectra import (
     AerosolOptics,
     CIATables,
     KTables,
+    StellarSpec,
     SurfaceSpec,
 )
 from archnemesis_tpu_torch.core.types import Atmosphere, LayerConfig
@@ -45,7 +47,7 @@ from archnemesis_tpu_torch.rt.emission import (
 from archnemesis_tpu_torch.rt.layer import build_layers
 from archnemesis_tpu_torch.rt.path import Paths, nadir_path
 from archnemesis_tpu_torch.utils.device import resolve_device
-from archnemesis_tpu_torch.utils.interp import interp1d_extrap
+from archnemesis_tpu_torch.utils.interp import interp, interp1d_extrap
 
 ATM_TO_PA = 101325.0
 SQ_CM_TO_SQ_M = 1.0e-4
@@ -73,6 +75,12 @@ class ForwardConfig:
     ico2: int = -1
     in2: int = -1
     ih2: int = -1
+    # multiple-scattering wave tile: the adding-doubling core runs over
+    # tiles of this many waves (live memory bounded by the tile; the
+    # reference's analog is its per-wave loop, Multiple_Scattering_Core.py:
+    # 790). 128 is the JAX package's default; grids <= the tile run
+    # untiled.
+    scat_wave_tile: int = 128
 
 
 def _locate_gas(gas_id, iso_id, atm_ids, atm_isos):
@@ -468,3 +476,230 @@ def forward_nadir(
     if return_diagnostics:
         return spec, {"layers": layers, "path": path, **taus}
     return spec
+
+
+def solar_flux(stellar: Optional[StellarSpec], wave):
+    """Stellar flux at the planet's distance interpolated to the calc grid
+    (reference Stellar_0.calc_solar_flux:429 + ForwardModel_0.py:4353-4358).
+    """
+    if stellar is None or not stellar.solexist:
+        return torch.zeros_like(wave)
+    au_cm = 1.49598e11 * 100.0
+    area = 4.0 * np.pi * (stellar.dist * au_cm) ** 2
+    flux = stellar.solspec / area
+    return interp(wave, stellar.wave, flux)
+
+
+def _hg_mode_params(hgphase, wave64):
+    """Per-mode (f, g1, g2) of the deck's double Henyey-Greenstein table
+    (host arrays (wave, f, g1, g2)), interpolated in float64 to the calc
+    grid."""
+    hg_wave, hg_f, hg_g1, hg_g2 = (np.asarray(a, dtype=np.float64)
+                                   for a in hgphase)
+    xp = wave64.new_tensor(hg_wave)
+    out = []
+    for j in range(hg_f.shape[1]):
+        out.append(tuple(interp(wave64, xp, wave64.new_tensor(col[:, j]))
+                         for col in (hg_f, hg_g1, hg_g2)))
+    return out
+
+
+def _to_device(device, *objs):
+    return tuple(None if o is None else o.to(device) for o in objs)
+
+
+def _ground(surf, cfg: ForwardConfig):
+    """Whether the lower boundary is a surface with its own temperature."""
+    return surf is not None and not cfg.gasgiant and float(surf.tsurf) > 0.0
+
+
+def forward_scattering_nadir(
+    atm: Atmosphere,
+    laycfg: LayerConfig,
+    ktab: KTables,
+    cia: Optional[CIATables],
+    aero: Optional[AerosolOptics],
+    surf: Optional[SurfaceSpec],
+    stellar: Optional[StellarSpec],
+    cfg: ForwardConfig,
+    quad,                # rt.scattering.ScatterQuadrature
+    hgphase,             # host (wave, f, g1, g2) per-mode HG params
+    emiss_ang, sol_ang, azi_ang,
+    iray_phase: bool,
+    return_diagnostics: bool = False,
+    device=None,
+):
+    """Nadir multiple-scattering forward evaluation (reference
+    calculate_multiple_scattering_spectrum ForwardModel_0.py:4343 +
+    scloud11wave wrapper :5018): vertical layer opacities feed the
+    adding-doubling core directly (no LOS scaling). Returns (NWAVE, NPATH)
+    with one path per (sol, emiss, azi) angle; the structures are moved to
+    ``device`` first (None = CUDA; raises without a card unless
+    ``device="cpu"``)."""
+    from archnemesis_tpu_torch.ops.planck import planck
+    from archnemesis_tpu_torch.rt.scattering import (
+        brdf_fourier_matrix,
+        henyey_greenstein2,
+        scloud11wave_tiled,
+    )
+    from archnemesis_tpu_torch.rt.surface import surface_brdf_fn
+
+    device = resolve_device(device)
+    atm, ktab, cia, aero, surf, stellar = _to_device(
+        device, atm, ktab, cia, aero, surf, stellar)
+
+    layers = apply_dust_renorm(build_layers(atm, laycfg, layang=0.0), atm)
+    wave = ktab.wave
+    taus = layer_optical_depths(cfg, layers, wave, ktab, cia, aero)
+
+    bnu = planck(wave[:, None], layers.temp[None, :], ispace=int(cfg.ispace))
+    nmu = quad.nmu
+    if _ground(surf, cfg):
+        emiss = interp1d_extrap(surf.vem, surf.emissivity, wave)
+        radg = (planck(wave, surf.tsurf, ispace=int(cfg.ispace))
+                * emiss)[:, None] * wave.new_ones((1, nmu))
+    else:
+        radg = bnu[:, 0:1] * wave.new_ones((1, nmu))
+    # reflective lower boundary: BRDF Fourier matrix enters the doubling
+    # ladder as the bottom layer (reference scloud11wave:5099-5103
+    # calc_brdf_matrix for LOWBC != THERMAL; Lambert AND Hapke/Oren-Nayar)
+    brdf_matrix = None
+    if surf is not None and not cfg.gasgiant and int(surf.lowbc) != 0:
+        brdf_matrix = brdf_fourier_matrix(
+            surface_brdf_fn(surf, wave), quad, wave.shape[0]
+        )
+
+    sol = solar_flux(stellar, wave)
+
+    phase_fns = [
+        (lambda c, f=f, g1=g1, g2=g2: henyey_greenstein2(
+            c[None], f[:, None, None, None], g1[:, None, None, None],
+            g2[:, None, None, None]))
+        for f, g1, g2 in _hg_mode_params(hgphase, wave.double())
+    ]
+
+    # per-mode scattering fraction (reference wrapper FRAC :5109-5118)
+    tauscat = taus["tauscat"]
+    tauclscat = taus["tauclscat"]  # (NWAVE, NLAY, NDUST)
+    safe = torch.where(tauscat > 0.0, tauscat, 1.0)
+    lfrac = torch.where(
+        (tauscat > 0.0)[:, :, None], tauclscat / safe[:, :, None], 0.0
+    )
+    lfrac = lfrac.permute(0, 2, 1)  # (NWAVE, NCONT, NLAY)
+
+    rad = scloud11wave_tiled(
+        quad, phase_fns,
+        radg=radg,
+        brdf_matrix=brdf_matrix,
+        sol_ang=sol_ang,
+        emiss_ang=emiss_ang,
+        azi_ang=azi_ang,
+        solar=sol,
+        bnu=bnu,
+        taus=taus["tautot"],
+        tauray=taus["tauray"],
+        tauscat=tauscat,
+        lfrac=lfrac,
+        iray=iray_phase,
+        wave_tile=cfg.scat_wave_tile,
+    )  # (NWAVE, NG, NPATH)
+    spec = torch.einsum("wgp,g->wp", rad, ktab.del_g)
+    if return_diagnostics:
+        return spec, {"layers": layers, **taus, "rad_g": rad}
+    return spec
+
+
+def forward_singlescat_nadir(
+    atm: Atmosphere,
+    laycfg: LayerConfig,
+    ktab: KTables,
+    cia: Optional[CIATables],
+    aero: Optional[AerosolOptics],
+    surf: Optional[SurfaceSpec],
+    stellar: Optional[StellarSpec],
+    cfg: ForwardConfig,
+    hgphase,            # host (wave, f, g1, g2) per-mode HG params
+    emiss_ang, sol_ang, azi_ang,
+    iray_phase: bool,
+    return_diagnostics: bool = False,
+    device=None,
+):
+    """Nadir single-scattering forward evaluation (reference
+    calculate_single_scattering_plane_parallel_spectrum
+    ForwardModel_0.py:4251; the path angle is reset to 0 for scattering
+    calculations, calc_path :2972-2975, so LOS taus equal vertical taus
+    ordered top->bottom). Returns (NWAVE, 1); ``device`` as in
+    ``forward_scattering_nadir``."""
+    from archnemesis_tpu_torch.rt.singlescat import (
+        layer_mean_phase,
+        scattering_cos_angle,
+        single_scatter_plane_spectrum,
+    )
+    from archnemesis_tpu_torch.rt.surface import hg_phase2, surface_brdf_fn
+
+    device = resolve_device(device)
+    atm, ktab, cia, aero, surf, stellar = _to_device(
+        device, atm, ktab, cia, aero, surf, stellar)
+
+    layers = apply_dust_renorm(build_layers(atm, laycfg, layang=0.0), atm)
+    wave = ktab.wave
+    taus = layer_optical_depths(cfg, layers, wave, ktab, cia, aero)
+
+    def ang(x):
+        return wave.new_tensor(float(np.asarray(x).reshape(-1)[0]))
+
+    sol_a, emi_a, azi_a = ang(sol_ang), ang(emiss_ang), ang(azi_ang)
+    calpha = scattering_cos_angle(sol_a, emi_a, azi_a)
+    theta = torch.rad2deg(torch.arccos(torch.clamp(calpha, -1.0, 1.0)))
+
+    pm = [hg_phase2(theta, g1.to(wave.dtype), g2.to(wave.dtype),
+                    f.to(wave.dtype)) / (4.0 * np.pi)
+          for f, g1, g2 in _hg_mode_params(hgphase, wave.double())]
+    phase_modes = (torch.stack(pm, dim=1) if pm
+                   else wave.new_zeros((wave.shape[0], 0)))
+    phase_ray = (
+        0.75 * (1.0 + calpha**2) / (4.0 * np.pi) * torch.ones_like(wave)
+        if iray_phase
+        else torch.zeros_like(wave)
+    )
+
+    phase_lay = layer_mean_phase(
+        phase_modes, phase_ray, taus["tauclscat"], taus["tauray"],
+        taus["tauscat"],
+    )  # (NWAVE, NLAY)
+
+    tautot = taus["tautot"]
+    safe_tau = torch.where(tautot > 0.0, tautot, 1.0)
+    omega = torch.where(
+        tautot > 0.0,
+        (taus["tauray"] + taus["tauscat"])[:, None, :] / safe_tau,
+        0.0,
+    )  # (NWAVE, NG, NLAY)
+
+    sol = solar_flux(stellar, wave)
+
+    if _ground(surf, cfg):
+        emissivity = interp1d_extrap(surf.vem, surf.emissivity, wave)
+        tsurf = surf.tsurf
+    else:
+        emissivity = torch.zeros_like(wave)
+        tsurf = -1.0
+
+    if surf is not None and not cfg.gasgiant and int(surf.lowbc) != 0:
+        # reference calc_BRDF at the single path geometry (Lambert/Hapke/
+        # Oren-Nayar dispatch, Surface_0.py:916)
+        brdf = surface_brdf_fn(surf, wave)(sol_a, emi_a, azi_a)[:, 0]
+    else:
+        brdf = torch.zeros_like(wave)
+
+    # path: vertical taus top->bottom (angle reset to 0)
+    spec = single_scatter_plane_spectrum(
+        wave, torch.flip(tautot, dims=(2,)), torch.flip(layers.temp, (0,)),
+        torch.flip(omega, dims=(2,)), torch.flip(phase_lay, dims=(1,)),
+        np.ones(layers.nlay), tsurf, emissivity, brdf, sol,
+        float(sol_a), float(emi_a), ispace=int(cfg.ispace),
+    )  # (NWAVE, NG)
+    out = torch.einsum("wg,g->w", spec, ktab.del_g)[:, None]
+    if return_diagnostics:
+        return out, {"layers": layers, **taus, "phase_lay": phase_lay}
+    return out

@@ -1,5 +1,5 @@
 """Legacy NEMESIS deck loader (.inp/.set/.fla/.spx/.ref/aerosol.ref/
-parah2.ref/.xsc/.kls/.lls/.cia/.sol/.apr).
+parah2.ref/.xsc/.kls/.lls/.cia/.sol/.hap/.apr).
 
 Port of the JAX package's ``io/legacy.py``: host-side numpy parsing (formats
 re-implemented from observation of the reference readers, Files.py:404
@@ -9,9 +9,8 @@ read_spx; Scatter_0.py:559 read_xsc; CIA_0.py:323 read_cia). The loader is
 host-only: the structures it returns hold float64 CPU tensors (a runtime
 line-by-line deck's ``RuntimeLBL``, float64 numpy), and the entry points
 that compute (``retrievals.make_retrieval_setup``) move them to the card.
-The ``.lta`` line-by-line table ``.lls`` branch and the Hapke ``.hap``
-surface raise until their slices are ported; ``read_drv``/``write_drv``
-wait.
+The ``.lta`` line-by-line table ``.lls`` branch raises until its slice is
+ported; ``read_drv``/``write_drv`` wait.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ import torch
 from archnemesis_tpu_torch.core.spectra import (
     AerosolOptics,
     CIATables,
+    HapkeParams,
     KTables,
     StellarSpec,
     SurfaceSpec,
@@ -406,9 +406,26 @@ def read_cia_file(path, inormal) -> CIATables:
     table = find_table(name, "cia", os.path.dirname(os.path.abspath(path)))
     if name.endswith(".h5"):
         raise NotImplementedError(
-            "HDF5 CIA tables come with io/hdf5.py (ROADMAP Queue 1 item 13)")
+            "HDF5 CIA tables come with io/hdf5.py (ROADMAP Queue 1 item 4)")
     return read_cia_tab(table, dnu=dnu, npara=npara, inormal=inormal,
                         device="cpu")
+
+
+def read_hap(path) -> HapkeParams:
+    """.hap Hapke-parameter file (reference Surface_0.read_hap:1004): NEM
+    then NEM rows of [vem, sglalb, k, bs0, hs, bc0, hc, roughness, g1, g2,
+    f], as float64 CPU tensors."""
+    toks = open(path).read().split()
+    nem = int(toks[0])
+    rows = np.array([float(x) for x in toks[1 : 1 + 11 * nem]]).reshape(
+        nem, 11
+    )
+    return HapkeParams(
+        vem=_t(rows[:, 0]), sglalb=_t(rows[:, 1]), k=_t(rows[:, 2]),
+        bs0=_t(rows[:, 3]), hs=_t(rows[:, 4]), bc0=_t(rows[:, 5]),
+        hc=_t(rows[:, 6]), roughness=_t(rows[:, 7]), g1=_t(rows[:, 8]),
+        g2=_t(rows[:, 9]), f=_t(rows[:, 10]),
+    )
 
 
 def read_sol(path, dist, ispace) -> StellarSpec:
@@ -468,7 +485,7 @@ def load_deck(deck_dir: str, runname: str) -> Deck:
         ):
             raise NotImplementedError(
                 "line-by-line .lta tables (.lls): not ported yet (ROADMAP "
-                "Queue 1 item 2)")
+                "Queue 1 item 4)")
         elif ilbl == SpectralCalculationMode.LINE_BY_LINE_RUNTIME and os.path.exists(
             runname + ".lls"
         ):
@@ -507,17 +524,17 @@ def load_deck(deck_dir: str, runname: str) -> Deck:
                 nem, 2
             )
             vem, emissivity = rows[:, 0], rows[:, 1]
+        hapke = None
         lowbc = LowerBoundaryCondition(0 if gasgiant else setd["lowbc"])
         if lowbc == LowerBoundaryCondition.HAPKE and os.path.exists(
                 runname + ".hap"):
-            raise NotImplementedError(
-                "Hapke surfaces (.hap) come with the scattering slice "
-                "(ROADMAP Queue 1 item 11)")
+            hapke = read_hap(runname + ".hap")
         surf = SurfaceSpec(
             tsurf=_t(0.0 if gasgiant else setd["tsurf"]),
             vem=_t(vem),
             emissivity=_t(emissivity),
             galb=_t(0.0 if gasgiant else setd["galb"]),
+            hapke=hapke,
             lowbc=lowbc,
             gasgiant=gasgiant,
         )

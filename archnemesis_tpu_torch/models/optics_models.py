@@ -1,0 +1,179 @@
+"""Aerosol optical-property parameterisations: the retrieved particle size
+and refractive index of model 444 (reference
+Models/PreRTModels/model_444.py).
+
+Port of model 444 of the JAX package's optics-model module. It acts
+on the "scatter" domain (``AerosolOptics``): Kramers-Kronig and the Mie
+chain run inside the forward, so Jacobians come from ``torch.func.jacfwd``
+instead of the reference's finite differences.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from archnemesis_tpu_torch.models.base import (
+    AprParseResult,
+    ModelEntry,
+    ProfileTarget,
+    register_model,
+)
+from archnemesis_tpu_torch.ops.mie import kk_new_sub, makephase, radius_grid
+from archnemesis_tpu_torch.rt.atmosphere import set_column
+from archnemesis_tpu_torch.utils.interp import interp
+
+
+def _entry(varident, model_id, ix, nx, extra=()):
+    return ModelEntry(
+        varident=tuple(int(v) for v in varident),
+        model_id=model_id,
+        ix=ix,
+        nx=nx,
+        target=ProfileTarget.NOT_ATMOSPHERIC,
+        target_idx=None,
+        extra=extra,
+    )
+
+
+@register_model
+class Model444:
+    """Retrieved particle-size distribution + imaginary refractive-index
+    spectrum (reference model_444.py): state = [log a, log b,
+    log k_im(haze waves)]. Per evaluation: Kramers-Kronig for the real
+    index anchored at (WAVE_REF, NREAL), Mie makephase over the aerosol
+    wave grid, extinction normalised at WAVE_NORM. As in the JAX package the
+    phase-function refit (reference class makephase IMIE=0 double-HG fit)
+    is not applied: KEXT/KSCA update only.
+    """
+
+    id = 444
+    domain = "scatter"
+
+    @staticmethod
+    def from_apr(f, varident, ix, ctx) -> AprParseResult:
+        s = f.readline().split()
+        with open(s[0]) as hf:
+            x0l, varl = [], []
+            for _ in range(2):  # a, b
+                t = hf.readline().split()
+                x0l.append(np.log(float(t[0])))
+                varl.append((float(t[1]) / float(t[0])) ** 2)
+            nwave_s, clen_s = hf.readline().split("!")[0].split()
+            vref_s, nreal_s = hf.readline().split("!")[0].split()
+            vnorm_s = hf.readline().split("!")[0]
+            nwave, clen = int(nwave_s), float(clen_s)
+            haze_waves = []
+            for _ in range(nwave):
+                t = hf.readline().split()
+                x0l.append(np.log(float(t[1])))
+                varl.append((float(t[2]) / float(t[1])) ** 2)
+                haze_waves.append(float(t[0]))
+                if clen < 0:
+                    break
+        nx = len(x0l)
+        var = np.asarray(varl)
+        sx = np.diag(var).copy()
+        if clen > 0:
+            # spectral correlation between the k_im entries; the reference
+            # indexes this block off the END of the variable
+            # (model_444.py:236-244, writing into the next model's rows);
+            # the JAX package applies it to the k_im block itself, and so
+            # does the port
+            for j in range(len(haze_waves)):
+                for k in range(len(haze_waves)):
+                    xfac = np.exp(-abs((haze_waves[k] - haze_waves[j]) / clen))
+                    if xfac >= 0.001 and j != k:
+                        sx[2 + j, 2 + k] = (
+                            np.sqrt(var[2 + j] * var[2 + k]) * xfac
+                        )
+        return AprParseResult(
+            entry=_entry(
+                varident, 444, ix, nx,
+                extra=(
+                    int(varident[1]) - 1,  # aerosol species index
+                    1,  # iscat (reference hard-codes gamma, model_444.py:246)
+                    tuple(haze_waves),
+                    float(vref_s),
+                    float(nreal_s),
+                    float(vnorm_s),
+                ),
+            ),
+            x0=np.asarray(x0l),
+            sx_diag=var,
+            lx=np.ones(nx, dtype=int),
+            inum=np.zeros(nx, dtype=int),
+            corr=sx,
+        )
+
+    @staticmethod
+    def apply_scatter(entry, aero, x, ispace=0, rs_cap=1024, wave_host=None,
+                      **_kw):
+        """``wave_host``: the aerosol wave grid as host numpy (a tensor's
+        values cannot be read inside ``torch.func`` transforms); read from
+        ``aero.wave`` when None."""
+        idust, iscat, haze_waves, vref, nreal_ref, vnorm = entry.extra
+        # Kramers-Kronig and Mie run in float64 whatever the run's type: in
+        # float32 the series' |a_n|^2+|b_n|^2 can stall just above its
+        # 1e-14 cutoff (the upward Riccati-Bessel recurrence loses psi_n
+        # past n ~ x) until chi_n overflows and the cross sections turn NaN
+        x = x.to(torch.float64)
+        haze_np = np.asarray(haze_waves, dtype=np.float64)
+        haze_w = x.new_tensor(haze_np)
+        a, b = x[0], x[1]
+        k_im = x[2:]
+        if k_im.shape[0] == 1:
+            k_im = k_im.expand(haze_np.shape[0])
+        n_real = kk_new_sub(haze_np, k_im, vref, nreal_ref)
+
+        # calculation wavelengths in microns, ascending
+        # (reference class makephase Scatter_0.py:1294-1300); the aerosol
+        # grid is static deck data
+        wave = (aero.wave.detach().cpu().double().numpy()
+                if wave_host is None else np.asarray(wave_host, np.float64))
+        if ispace == 0:
+            wavel = np.sort(1.0e4 / wave)
+            iord = np.argsort(1.0e4 / wave)
+        else:
+            wavel = wave
+            iord = np.arange(wave.size)
+        wavel_t = x.new_tensor(wavel)
+        re_w = interp(wavel_t, haze_w, n_real)
+        im_w = interp(wavel_t, haze_w, k_im)
+        refindx = torch.stack([re_w, im_w], dim=1)
+
+        if iscat == 1:
+            pars = torch.stack([a, b, (1.0 - 3.0 * b) / b])
+        elif iscat == 2:
+            pars = torch.stack([a, b, torch.zeros_like(a)])
+        else:
+            raise NotImplementedError(f"model 444 iscat={iscat}")
+
+        r0 = 0.015 * float(wavel.min())
+        rs = (r0, 0.0, r0)  # reference auto mode (Scatter_0.py:1319-1323)
+        # static Mie series caps: the retrieved refractive index is
+        # differentiated, so the data-dependent caps inside makephase
+        # (Scatter_0.py:1458 analog) are not read from it: |m| is bounded by
+        # 3 (real planetary aerosols stay well under this) and the caps come
+        # from the static radius/wavelength grid
+        radii_np, _, _ = radius_grid(rs, cap=rs_cap)
+        xmax = float(2.0 * np.pi * np.max(radii_np) / wavel.min())
+        n_start = max(150, int(1.2 * 3.0 * xmax) + 20)
+        nmax = min(n_start,
+                   max(60, int(xmax + 4.05 * xmax ** (1.0 / 3.0)) + 20))
+        xscat, xext, _, _ = makephase(
+            wavel_t, iscat, pars, rs, refindx,
+            np.array([0.0, 90.0]), rs_cap=rs_cap,
+            nmax=nmax, n_start=n_start,
+        )
+        # back to the aerosol wave ordering, normalise at vnorm
+        inv = torch.as_tensor(np.argsort(iord), device=x.device)
+        kextx = xext[inv]
+        kscax = xscat[inv]
+        norm = interp(x.new_tensor(vnorm), aero.wave.to(x.dtype), kextx)
+        kextx = kextx / norm
+        kscax = kscax / norm
+        return aero.replace(
+            kext=set_column(aero.kext, idust, kextx.to(aero.kext.dtype)),
+            ksca=set_column(aero.ksca, idust, kscax.to(aero.ksca.dtype)),
+        )

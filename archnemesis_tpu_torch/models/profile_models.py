@@ -1,8 +1,8 @@
 """Atmospheric profile parameterisations (the common PreRT models).
 
-Port of the three simplest models of the JAX package's
-``models/profile_models.py``: 0 (continuous profile), 2 (scaling) and 3 (log
-scaling). Each model provides:
+Port of models of the JAX package's ``models/profile_models.py``: 0
+(continuous profile), 2 (scaling), 3 (log scaling) and 47 (Gaussian cloud
+of given optical depth). Each model provides:
 - ``from_apr(f, varident, ix, ctx)`` (host): parse its .apr block ->
   AprParseResult (reference Models/PreRTModels/model_*.py
   from_apr_to_state_vector); and
@@ -16,7 +16,9 @@ Any other model id in an ``.apr`` raises ``NotImplementedError`` in
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from archnemesis_tpu_torch.constants import R_GAS
 from archnemesis_tpu_torch.models.base import (
     AprParseResult,
     ModelEntry,
@@ -24,7 +26,7 @@ from archnemesis_tpu_torch.models.base import (
     classify_target,
     register_model,
 )
-from archnemesis_tpu_torch.rt.atmosphere import set_column
+from archnemesis_tpu_torch.rt.atmosphere import calc_grav, set_column
 
 
 def _read_profile_file(path):
@@ -199,3 +201,97 @@ class Model3:
     def apply(entry: ModelEntry, atm, x):
         prof = _get_profile(atm, entry)
         return _set_profile(atm, entry, prof * x[0])
+
+
+def _atm_scale_height(atm):
+    """Pressure scale height per level (m): R T / (molwt g) (reference
+    models use atm.GRAV from calc_grav)."""
+    grav, _ = calc_grav(atm.h, atm.latitude, atm.planet,
+                        getattr(atm, "planet_radius", None))
+    return R_GAS * atm.t / (atm.molwt * grav)
+
+
+def _atm_rho(atm):
+    """Mass density (kg/m3) (reference Atmosphere_0.calc_rho:809, which
+    returns P*MOLWT/(R*T), then models multiply by 1e-3)."""
+    return atm.p * atm.molwt / (R_GAS * atm.t) * 1.0e-3
+
+
+def _vals_block(f):
+    return [float(v) for v in f.readline().rsplit("!", 1)[0].split()[:2]]
+
+
+def _mk_entry(varident, model_id, ix, nx, ctx, extra=()):
+    target, tidx = classify_target(
+        varident, ctx["gas_id"], ctx["iso_id"], ctx["ndust"]
+    )
+    return ModelEntry(
+        varident=tuple(int(v) for v in varident),
+        model_id=model_id,
+        ix=ix,
+        nx=nx,
+        target=target,
+        target_idx=tidx,
+        extra=extra,
+    )
+
+
+def _nan_floor(x):
+    """max(nan_to_num(x, nan=1e-36), 1e-36)."""
+    return torch.clamp(torch.nan_to_num(x, nan=1.0e-36), min=1.0e-36)
+
+
+@register_model
+class Model47:
+    """Gaussian cloud in log-pressure with integrated optical depth
+    (reference model_47.py). State: [tau, pref, fwhm], all logged unless
+    the target is the temperature. Sets the dust renormalisation flag so the
+    layered column integrates to tau."""
+
+    id = 47
+
+    @staticmethod
+    def from_apr(f, varident, ix, ctx) -> AprParseResult:
+        xdeep, edeep = _vals_block(f)
+        pknee, eknee = _vals_block(f)
+        xwid, ewid = _vals_block(f)
+        if varident[0] == 0:
+            x0d, vard, lxd = xdeep, edeep**2, 0
+        else:
+            x0d, vard, lxd = np.log(xdeep), (edeep / xdeep) ** 2, 1
+        entry = _mk_entry(varident, 47, ix, 3, ctx)
+        return AprParseResult(
+            entry=entry,
+            x0=np.array([x0d, np.log(pknee), np.log(xwid)]),
+            sx_diag=np.array(
+                [vard, (eknee / pknee) ** 2, (ewid / xwid) ** 2]
+            ),
+            lx=np.array([lxd, 1, 1]),
+            inum=np.zeros(3, dtype=int),
+        )
+
+    @staticmethod
+    def apply(entry: ModelEntry, atm, x):
+        tau, pref, fwhm = x[0], x[1], x[2]
+        scale = _atm_scale_height(atm)
+        rho = _atm_rho(atm)
+        p_atm = atm.p / 101325.0
+        y0 = torch.log(pref)
+        q = (
+            1.0 / (fwhm * np.sqrt(np.pi))
+            * torch.exp(-(((torch.log(p_atm) - y0) / fwhm) ** 2))
+        )
+        nd = q * (rho / 1.0e3)
+        od = _nan_floor(nd * scale * 1.0e5)
+        q = _nan_floor(q)
+        xod = torch.sum(od) * 0.25
+        x1 = torch.clamp(q * tau / xod, min=1.0e-36)
+        atm = _set_profile(atm, entry, x1)
+        renorm = (
+            atm.p.new_zeros(atm.ndust)
+            if atm.dust_renorm is None
+            else torch.as_tensor(atm.dust_renorm, dtype=atm.p.dtype,
+                                 device=atm.p.device)
+        )
+        hit = torch.arange(atm.ndust, device=atm.p.device) == entry.target_idx
+        return atm.replace(dust_renorm=torch.where(hit, tau, renorm))

@@ -146,7 +146,7 @@ def double_gauss_ils_weights(wave, vconv, offset, fwhm, amp, xdist=5.0):
     """Differentiable double-Gaussian ILS weights of models 228/229/230."""
     raise NotImplementedError(
         "the double-Gaussian ILS comes with models 228-230 "
-        "(ROADMAP Queue 1 item 12)")
+        "(ROADMAP Queue 1 item 3)")
 
 
 def _trapz_weights(x: np.ndarray) -> np.ndarray:
@@ -251,4 +251,4 @@ def integrate_filter_apply(wave, spec, nfil, vfil, afil,
     velocity (model 447)."""
     raise NotImplementedError(
         "filter integration with a retrieved Doppler shift comes with "
-        "model 447 (ROADMAP Queue 1 item 12)")
+        "model 447 (ROADMAP Queue 1 item 3)")

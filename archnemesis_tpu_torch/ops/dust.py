@@ -14,19 +14,22 @@ from archnemesis_tpu_torch.utils.interp import interp1d_extrap
 
 def _cubic_spline_eval(xs, ys, xq):
     """Not-a-knot cubic spline (scipy.interpolate.CubicSpline defaults),
-    solved densely on the (n x n) system for c (second derivatives / 2);
-    NWAVE_XSC is tiny. ys may have trailing dims."""
+    solved densely on the (n x n) system for c (second derivatives / 2).
+    The system is assembled in a fixed number of tensor operations, however
+    many points the table has. ys may have trailing dims."""
     n = xs.shape[0]
     h = xs[1:] - xs[:-1]
     a = torch.zeros((n, n), dtype=xs.dtype, device=xs.device)
-    rhs = torch.zeros((n,) + ys.shape[1:], dtype=ys.dtype, device=ys.device)
-    for i in range(1, n - 1):
-        a[i, i - 1] = h[i - 1]
-        a[i, i] = 2.0 * (h[i - 1] + h[i])
-        a[i, i + 1] = h[i]
-        rhs[i] = 3.0 * (
-            (ys[i + 1] - ys[i]) / h[i] - (ys[i] - ys[i - 1]) / h[i - 1]
-        )
+    rows = torch.arange(1, n - 1, device=xs.device)
+    a[rows, rows - 1] = h[:-1]
+    a[rows, rows] = 2.0 * (h[:-1] + h[1:])
+    a[rows, rows + 1] = h[1:]
+    hr = h.reshape((-1,) + (1,) * (ys.ndim - 1))
+    inner = 3.0 * (
+        (ys[2:] - ys[1:-1]) / hr[1:] - (ys[1:-1] - ys[:-2]) / hr[:-1]
+    )
+    edge = torch.zeros_like(ys[:1])
+    rhs = torch.cat([edge, inner, edge])
     # not-a-knot end conditions
     a[0, 0] = h[1]
     a[0, 1] = -(h[0] + h[1])

@@ -9,10 +9,11 @@ with ``torch.func.jacfwd`` Jacobians. Every entry point takes ``device``
 ``dtype`` (float64, as the goldens are; ``torch.float32`` is the
 counterpart of the JAX package's ``cast_dtype``).
 
-Ported: ISCAT = thermal emission with nadir FOV points, LIN 0-3 chaining,
-resume. The scattering modes, limb FOV points, telluric transmission, the
-other set-ups (SO, limb, transit, disc, combined) and nested sampling raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
+Ported: ISCAT = thermal emission, multiple scattering and plane-parallel
+single scattering with nadir FOV points, LIN 0-3 chaining, resume. Limb FOV
+points, telluric transmission, the other set-ups (SO, limb, transit, disc,
+combined) and nested sampling raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that brings them.
 """
 
 from __future__ import annotations
@@ -31,7 +32,12 @@ from archnemesis_tpu_torch.enums import (
     SpectralCalculationMode,
     SpectraUnit,
 )
-from archnemesis_tpu_torch.forward import forward_nadir, make_forward_config
+from archnemesis_tpu_torch.forward import (
+    forward_nadir,
+    forward_scattering_nadir,
+    forward_singlescat_nadir,
+    make_forward_config,
+)
 from archnemesis_tpu_torch.io.legacy import Deck, load_deck
 from archnemesis_tpu_torch.io.linedata import RuntimeLBL
 from archnemesis_tpu_torch.ops.convolution import (
@@ -47,6 +53,7 @@ from archnemesis_tpu_torch.ops.convolution import (
 from archnemesis_tpu_torch.ops.ktab import host_log_ktable
 from archnemesis_tpu_torch.retrieval import output as out_mod
 from archnemesis_tpu_torch.retrieval.oe import OEResult, coreret_oe
+from archnemesis_tpu_torch.rt.scattering import ScatterQuadrature
 from archnemesis_tpu_torch.retrieval.statevector import (
     StateVector,
     apply_domain,
@@ -170,12 +177,34 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what}: not ported yet ({item})")
 
 
+def _iform_xfac(iform, atm, stellar, wave):
+    """Spectral unit conversion of disc-averaged outputs (reference
+    ForwardModel_0.py:4359-4367) on the host grid ``wave``: FluxRatio
+    divides the 4*pi*pi*R^2-scaled radiance by the stellar power spectrum;
+    Integrated_spectral_power just scales. Returns a float64 array
+    (NWAVE,) or a float."""
+    radius_cm = float(atm.radius) * 1.0e2
+    xfac = np.pi * 4.0 * np.pi * radius_cm**2
+    if iform == SpectraUnit.FluxRatio:
+        if stellar is None:
+            raise ValueError("IFORM=FluxRatio requires a stellar spectrum")
+        solpspec = np.interp(
+            wave, stellar.wave.detach().cpu().double().numpy(),
+            stellar.solspec.detach().cpu().double().numpy())
+        return xfac / solpspec
+    if iform == SpectraUnit.Integrated_spectral_power:
+        return xfac
+    return 1.0
+
+
 def make_retrieval_setup(
     deck_dir: str, runname: str, atm_override=None, sv_override=None,
     wave_pad_multiple: int = 1, ktab_transform=None,
     device=None, dtype=torch.float64,
 ) -> RetrievalSetup:
-    """Build the retrieval setup for a nadir thermal-emission deck.
+    """Build the retrieval setup for a nadir deck: thermal emission
+    (ISCAT=0), multiple scattering (1) or plane-parallel single scattering
+    (3).
 
     ``atm_override`` replaces the deck's reference atmosphere (LIN=1/3
     chaining bakes the previous retrieval's state into the base profiles,
@@ -204,29 +233,35 @@ def make_retrieval_setup(
     deck = cast_deck_components(deck, dtype)
     st = deck.settings
     iscat = ScatteringCalculationMode(deck.settings.iscat)
-    if iscat in (
-        ScatteringCalculationMode.MULTIPLE_SCATTERING,
-        ScatteringCalculationMode.SINGLE_SCATTERING_PLANE_PARALLEL,
-    ):
-        _not_ported(f"ISCAT={iscat!r}",
-                    "the scattering slice, ROADMAP Queue 1 item 11")
-    if iscat != ScatteringCalculationMode.THERMAL_EMISSION:
+    multiple = iscat == ScatteringCalculationMode.MULTIPLE_SCATTERING
+    single = (iscat
+              == ScatteringCalculationMode.SINGLE_SCATTERING_PLANE_PARALLEL)
+    if iscat != ScatteringCalculationMode.THERMAL_EMISSION and not (
+            multiple or single):
         raise NotImplementedError(
             f"ISCAT={iscat!r}: only thermal emission, multiple scattering "
             "and plane-parallel single scattering are retrieval modes "
             "(the reference's other modes are diagnostic flux "
             "calculations, ForwardModel_0.py:4338-4341)")
+    flux_units = (SpectraUnit.FluxRatio,
+                  SpectraUnit.Integrated_spectral_power)
     if deck.settings.iform not in (
         SpectraUnit.Radiance,
         SpectraUnit.Normalised_radiance,
         SpectraUnit.Integrated_radiance,
-    ):
-        # FluxRatio / Integrated_spectral_power belong to multiple
-        # scattering and the disc set-up; TransitDepth to the transit
-        # set-up; Atmospheric_transmission to the SO set-up
+    ) and not (multiple and deck.settings.iform in flux_units):
+        # FluxRatio / Integrated_spectral_power of multiple scattering:
+        # DELIBERATE DEVIATION (PARITY.md), as in the JAX package: the
+        # reference's calculate_multiple_scattering_spectrum computes the
+        # 4*pi^2*R^2 (/ stellar power) xfac but never multiplies SPECOUT by
+        # it (dead code, ForwardModel_0.py:4360-4373); the physically
+        # intended scaling is applied below on the calc grid. The units of
+        # the disc set-up, TransitDepth (transit set-up) and
+        # Atmospheric_transmission (SO set-up) come with the other
+        # geometries
         raise NotImplementedError(
-            f"IFORM={deck.settings.iform!r} is not a nadir thermal-emission "
-            "radiance unit (other set-ups: ROADMAP Queue 1 items 10-11)"
+            f"IFORM={deck.settings.iform!r} is not a nadir radiance unit "
+            "(other set-ups: ROADMAP Queue 1 item 5)"
         )
     if (deck.settings.iform == SpectraUnit.Normalised_radiance
             and deck.settings.vnorm is None):
@@ -234,7 +269,7 @@ def make_retrieval_setup(
                          "(reference Measurement_0.assess:344)")
     if deck.telluric is not None:
         _not_ported("telluric transmission",
-                    "rt/telluric.py, ROADMAP Queue 1 item 13")
+                    "rt/telluric.py, ROADMAP Queue 1 item 9")
 
     sv = (
         sv_override
@@ -243,8 +278,10 @@ def make_retrieval_setup(
     )
     geom = deck.geometry
     if float(np.min(geom.emiss_ang)) < 0.0:
+        # limb points with scattering raise in the JAX package too (the
+        # reference computes limb paths in thermal emission only)
         _not_ported("limb FOV points (EMISS_ANG < 0)",
-                    "forward_limb, ROADMAP Queue 1 item 10")
+                    "forward_limb, ROADMAP Queue 1 item 5")
 
     # measurement vector (reference calc_MeasurementVector Measurement_0.py:1423)
     y_parts, se_parts = [], []
@@ -263,7 +300,7 @@ def make_retrieval_setup(
     # per-geometry static setup
     if any(e.model_id == 447 for e in sv.entries):
         _not_ported("model 447 (retrieved Doppler)",
-                    "ROADMAP Queue 1 item 12")
+                    "ROADMAP Queue 1 item 3")
     geoms = []
     for ig in range(geom.ngeom):
         nc = geom.nconv[ig]
@@ -298,7 +335,7 @@ def make_retrieval_setup(
             # (reference calc_wave_range Measurement_0.py:2090-2105)
             if ils_models_present(sv):
                 _not_ported("ILS models 228/229/230",
-                            "ROADMAP Queue 1 item 12")
+                            "ROADMAP Queue 1 item 3")
             elif geom.nfil is not None:
                 wavemin = geom.vfil[0, :].min()
                 wavemax = max(
@@ -354,10 +391,16 @@ def make_retrieval_setup(
                 wavecorr, np.asarray(vconv),
                 geom.nfil, geom.vfil, geom.afil,
             ))
+        # multiple scattering's FluxRatio / Integrated_spectral_power unit
+        # conversion on the calc grid (ForwardModel_0.py:4360-4373)
+        xfac_g = (dev(_iform_xfac(st.iform, deck.atmosphere, deck.stellar,
+                                  wave_host))
+                  if st.iform in flux_units else 1.0)
         # the observer-frame calc grid and the channel centres, on the
         # device once (the state does not move them: model 447 is not
         # ported)
-        geoms.append((ig, vconv, dev(vconv), ktw, dev(wavecorr), ils_w))
+        geoms.append((ig, vconv, dev(vconv), ktw, dev(wavecorr), ils_w,
+                      xfac_g))
 
     cfg = make_forward_config(
         deck.atmosphere,
@@ -368,6 +411,31 @@ def make_retrieval_setup(
         gasgiant=deck.surface.gasgiant,
     )
 
+    quad = (ScatterQuadrature(mu=st.mu, wtmu=st.wtmu, nf=st.nf,
+                              nphi=st.nphi) if multiple else None)
+
+    def nadir_spectrum(atm, ktw, cia_x, aero, surf, ig, iav):
+        angles = dict(emiss_ang=geom.emiss_ang[ig, iav],
+                      sol_ang=geom.sol_ang[ig, iav],
+                      azi_ang=geom.azi_ang[ig, iav])
+        if multiple:
+            spec = forward_scattering_nadir(
+                atm, deck.layer_config, ktw, cia_x, aero, surf,
+                deck.stellar, cfg, quad, deck.hgphase,
+                iray_phase=st.iray > 0, device=device, **angles)
+        elif single:
+            spec = forward_singlescat_nadir(
+                atm, deck.layer_config, ktw, cia_x, aero, surf,
+                deck.stellar, cfg, deck.hgphase,
+                iray_phase=st.iray > 0, device=device, **angles)
+        else:
+            spec = forward_nadir(atm, deck.layer_config, ktw, cia_x, aero,
+                                 surf, cfg, device=device, **angles)
+        return spec[:, 0]
+
+    # the aerosol grid on the host, for the scatter-domain models
+    aero_wave = (None if deck.aerosol is None
+                 else deck.aerosol.wave.detach().cpu().double().numpy())
     cia = deck.cia
     cia_range = None
     if cia is not None:
@@ -387,33 +455,22 @@ def make_retrieval_setup(
         surf = apply_domain(sv, xn, "surface", deck.surface)
         aero = (
             apply_domain(sv, xn, "scatter", deck.aerosol,
-                         ispace=int(st.ispace))
+                         ispace=int(st.ispace), wave_host=aero_wave)
             if deck.aerosol is not None
             else None
         )
         cia_x = (apply_domain(sv, xn, "cia", cia, wave_range=cia_range)
                  if cia is not None else None)
         out = []
-        for ig, vconv, vconv_dev, ktw, wave_obs, ils_w in geoms:
+        for ig, vconv, vconv_dev, ktw, wave_obs, ils_w, xfac_g in geoms:
             spec_sum = 0.0
             for iav in range(geom.nav[ig]):
-                spec = forward_nadir(
-                    atm,
-                    deck.layer_config,
-                    ktw,
-                    cia_x,
-                    aero,
-                    surf,
-                    cfg,
-                    emiss_ang=geom.emiss_ang[ig, iav],
-                    sol_ang=geom.sol_ang[ig, iav],
-                    azi_ang=geom.azi_ang[ig, iav],
-                    device=device,
-                )[:, 0]
+                spec = nadir_spectrum(atm, ktw, cia_x, aero, surf, ig, iav)
                 spec_sum = spec_sum + geom.wgeom[ig, iav] * spec
             # NOTE: the reference accumulates WGEOM-weighted spectra
             # WITHOUT dividing by the weight total (nemesisfm
             # ForwardModel_0.py:530-535; FOV weights are pre-normalised)
+            spec_sum = spec_sum * xfac_g
             if ils_w is None:
                 conv = conv_channel_interp(wave_obs, spec_sum, vconv_dev)
             else:
@@ -567,10 +624,10 @@ def retrieval_nemesis(
                        (nemesis_c, "nemesis_c")):
         if flag:
             _not_ported(f"{name}=True",
-                        "the other geometries, ROADMAP Queue 1 item 10")
+                        "the other geometries, ROADMAP Queue 1 item 5")
     if retrieval_method == 1:
         _not_ported("retrieval_method=1 (nested sampling)",
-                    "retrieval/nested.py, ROADMAP Queue 1 item 13")
+                    "retrieval/nested.py, ROADMAP Queue 1 item 6")
     if retrieval_method != 0:
         raise ValueError(f"unknown retrieval_method {retrieval_method}")
 
@@ -658,5 +715,5 @@ def retrieval_nemesis(
             out_mod.write_itr(base + ".itr", setup, res.itr_records)
         if os.path.exists(base + ".h5"):
             _not_ported("the /Retrieval group of an HDF5 run",
-                        "io/hdf5.py, ROADMAP Queue 1 item 13")
+                        "io/hdf5.py, ROADMAP Queue 1 item 9")
     return res

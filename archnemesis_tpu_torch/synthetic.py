@@ -8,6 +8,11 @@ temperatures, made from a seed. ``headline_arrays`` returns the numbers as
 float64 numpy (so another implementation can be fed the same inputs);
 ``headline_deck`` builds the port's structures from them.
 
+The multiple-scattering configuration (``bench.py:167-236``, its scattering
+case, ``scattering_headline``): the first 2048 waves and 10 g-ordinates of
+the 7-gas table, 39 layers, a two-mode double Henyey-Greenstein aerosol,
+Rayleigh and a solar source, NMU=5, NF=2, NPHI=100.
+
 The runtime line-by-line configuration (``bench.py:68-137``, its LBL case):
 the CO line list of ``tests/fixtures/linedata`` tiled 60 times with jittered
 centres, synthesised on 80,000 waves at 0.001 cm-1 through a 41-level
@@ -22,12 +27,18 @@ import os
 import numpy as np
 import torch
 
-from archnemesis_tpu_torch.core.spectra import KTables, SurfaceSpec
+from archnemesis_tpu_torch.core.spectra import (
+    AerosolOptics,
+    KTables,
+    StellarSpec,
+    SurfaceSpec,
+)
 from archnemesis_tpu_torch.core.types import Atmosphere, LayerConfig
 from archnemesis_tpu_torch.enums import RayleighScatteringMode, WaveUnit
 from archnemesis_tpu_torch.forward import make_forward_config
 from archnemesis_tpu_torch.io.linedata import RuntimeLBL, read_ans_linedata
 from archnemesis_tpu_torch.ops.ktab import host_log_ktable
+from archnemesis_tpu_torch.rt.scattering import ScatterQuadrature
 from archnemesis_tpu_torch.utils.device import resolve_device
 
 NWAVE, NG, NLAY, NPRO = 8192, 20, 71, 81
@@ -57,23 +68,29 @@ def headline_arrays(nwave: int = NWAVE, seed: int = 0) -> dict:
     press_grid = np.logspace(-8, np.log10(20.0), 15)
     temp_grid = np.linspace(70.0, 400.0, 12)
     centres = rng.uniform(100, 1400, 8)
-    band = 1e-4 + np.exp(
-        -0.5 * ((wave[:, None] - centres[None, :]) / 80.0) ** 2
-    ).sum(1)
-    k = (
-        2e-22
-        * band[None, :, None, None, None]
-        * np.exp(2.5 * (g_ord - 0.7))[None, None, :, None, None]
-        * (press_grid / press_grid.max())[None, None, None, :, None] ** 0.15
-        * (temp_grid / 150.0)[None, None, None, None, :] ** -0.5
-        * np.ones((len(GAS_IDS), 1, 1, 1, 1))
-    )
+    k = _k_table(wave, g_ord, press_grid, temp_grid, centres)
     return dict(
         h=h, p=p, t=t, vmr=vmr, dust=np.zeros((NPRO, 0)),
         parah2=np.zeros(NPRO), molwt=np.full(NPRO, 2.3e-3),
         radius=np.asarray(7.1492e7), latitude=np.asarray(0.0),
         wave=wave, g_ord=g_ord, del_g=del_g, press=press_grid,
         temp=temp_grid, k=k,
+    )
+
+
+def _k_table(wave, g_ord, press_grid, temp_grid, centres):
+    """(NGAS, NWAVE, NG, NPRESS, NTEMP) k-table of the configuration: eight
+    Gaussian bands at ``centres`` over a floor, the same for every gas."""
+    band = 1e-4 + np.exp(
+        -0.5 * ((wave[:, None] - centres[None, :]) / 80.0) ** 2
+    ).sum(1)
+    return (
+        2e-22
+        * band[None, :, None, None, None]
+        * np.exp(2.5 * (g_ord - 0.7))[None, None, :, None, None]
+        * (press_grid / press_grid.max())[None, None, None, :, None] ** 0.15
+        * (temp_grid / 150.0)[None, None, None, None, :] ** -0.5
+        * np.ones((len(GAS_IDS), 1, 1, 1, 1))
     )
 
 
@@ -113,6 +130,88 @@ def headline_deck(nwave: int = NWAVE, dtype=torch.float32, device=None,
         ispace=WaveUnit.Wavenumber_cm, gasgiant=True,
     )
     return atm, laycfg, ktab, surf, cfg
+
+
+SCAT_NWAVE, SCAT_NG, SCAT_NLAY = 2048, 10, 39
+
+
+def scattering_headline(dtype=torch.float32, device=None, nmu: int = 5,
+                        nwave: int = SCAT_NWAVE, seed: int = 0) -> dict:
+    """The arguments of ``forward.forward_scattering_nadir`` for the
+    multiple-scattering configuration of ``bench.py:167-236``, on
+    ``device`` (None = CUDA) in ``dtype``.
+
+    The 7-gas profiles of ``headline_arrays`` (same seed) with two aerosol
+    modes (a Gaussian in level index at 0.4 of the column, width 0.15, and
+    half of it), cut into 39 layers; k-tables on the first 2048 waves of
+    the 8192-wave grid and the first 10 of the 20 g-ordinates' k values,
+    with 10-point Gauss-Legendre g weights (``bench.py:346-358``); aerosol
+    cross sections as power laws of wave, HG parameters f = 0.7, g1 = 0.6,
+    g2 = -0.3 for both modes, a flat 1e15 solar spectrum at 5.2 AU; a zenith
+    quadrature of the ``nmu`` positive nodes of ``leggauss(2*nmu)``, NF=2,
+    NPHI=100; emission 30, solar 45, azimuth 60 degrees; Rayleigh of a gas
+    giant atmosphere. Nothing is cut at the default ``nwave``; a smaller
+    one takes the first ``nwave`` waves.
+    """
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(100, 1400, 8)
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    a = headline_arrays(nwave=2, seed=seed)  # the profiles; k is rebuilt
+    x20, _ = np.polynomial.legendre.leggauss(NG)
+    g20 = 0.5 * (x20 + 1)
+    wave = np.linspace(5.0, 1500.0, NWAVE)[:nwave]
+    k = _k_table(wave, g20[:SCAT_NG], a["press"], a["temp"], centres)
+    xs, ws = np.polynomial.legendre.leggauss(SCAT_NG)
+    narrow = torch.finfo(dtype).bits < 64
+    ktab = KTables(
+        wave=dev(wave), g_ord=dev(0.5 * (xs + 1)), del_g=dev(0.5 * ws),
+        press=dev(a["press"]), temp=dev(a["temp"]), k=dev(k),
+        logk=(torch.as_tensor(host_log_ktable(k), device=device)
+              if narrow else None),
+        gas_id=GAS_IDS, iso_id=ISO_IDS,
+    )
+    dust = np.exp(-0.5 * ((np.linspace(0, 1, NPRO) - 0.4) / 0.15) ** 2)
+    atm = Atmosphere(
+        h=dev(a["h"]), p=dev(a["p"]), t=dev(a["t"]), vmr=dev(a["vmr"]),
+        dust=dev(np.stack([dust, 0.5 * dust], axis=1)),
+        parah2=dev(a["parah2"]), molwt=dev(a["molwt"]),
+        radius=dev(a["radius"]), latitude=dev(a["latitude"]),
+        gas_id=GAS_IDS, iso_id=ISO_IDS, planet=5,
+    )
+    laycfg = LayerConfig(nlay=SCAT_NLAY, laytyp=1, layint=1,
+                         layht=float(a["h"][0]))
+    rel = wave / wave[0]
+    aero = AerosolOptics(
+        wave=dev(wave),
+        kext=dev(np.stack([1e-4 * rel**-0.5, 2e-4 * rel**-1.0], axis=1)),
+        ksca=dev(np.stack([0.9e-4 * rel**-0.5, 1.2e-4 * rel**-1.0], axis=1)),
+    )
+    hgphase = (wave, np.full((nwave, 2), 0.7), np.full((nwave, 2), 0.6),
+               np.full((nwave, 2), -0.3))
+    stellar = StellarSpec(
+        wave=dev(wave), solspec=dev(np.full(nwave, 1.0e15)),
+        dist=dev(5.2), radius=dev(6.96e8), solexist=True, ispace=0,
+    )
+    surf = SurfaceSpec(
+        tsurf=dev(0.0), vem=dev([0.0, 1e5]), emissivity=dev(np.zeros(2)),
+        galb=dev(0.0), gasgiant=True,
+    )
+    mu, wt = np.polynomial.legendre.leggauss(2 * nmu)
+    sel = mu > 0
+    quad = ScatterQuadrature(mu=tuple(mu[sel]), wtmu=tuple(wt[sel]), nf=2,
+                             nphi=100)
+    cfg = make_forward_config(
+        atm, ktab, None, iray=RayleighScatteringMode.GAS_GIANT_ATM,
+        ispace=WaveUnit.Wavenumber_cm, gasgiant=True,
+    )
+    return dict(atm=atm, laycfg=laycfg, ktab=ktab, cia=None, aero=aero,
+                surf=surf, stellar=stellar, cfg=cfg, quad=quad,
+                hgphase=hgphase, emiss_ang=30.0, sol_ang=45.0, azi_ang=60.0,
+                iray_phase=True)
 
 
 # the CO line list and partition function of

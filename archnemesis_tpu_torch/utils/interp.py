@@ -44,9 +44,12 @@ def interp1d_extrap_with_weights(xp, x):
     return j, f
 
 
-def interp(x, xp, fp, left, right):
+def interp(x, xp, fp, left=None, right=None):
     """``numpy.interp`` with constant ``left``/``right`` fill values (the
-    arithmetic of ``jnp.interp``)."""
+    arithmetic of ``jnp.interp``); as there, they default to the end
+    values of ``fp``."""
+    left = fp[0] if left is None else left
+    right = fp[-1] if right is None else right
     i, x = _search(xp, x, right=True)
     i = i.clamp(1, xp.shape[0] - 1)
     df = fp[i] - fp[i - 1]

@@ -4,7 +4,7 @@ Counterpart of the JAX package's pytree dataclasses: fields that hold
 arrays are ``torch.Tensor`` (or ``None``); fields declared with
 ``static_field()`` are host metadata (counts, enums, gas ids). ``.to(device)``
 moves every tensor field (and makes a tensor of every numpy field) on one
-device and returns a new instance.
+device, nested structures included, and returns a new instance.
 """
 
 import dataclasses
@@ -40,7 +40,10 @@ def tensor_dataclass(cls):
             x = getattr(self, n)
             if isinstance(x, np.ndarray):
                 x = torch.as_tensor(x, device=device)
-            moved[n] = x.to(device) if isinstance(x, torch.Tensor) else x
+            if isinstance(x, torch.Tensor) or (
+                    dataclasses.is_dataclass(x) and hasattr(x, "to")):
+                x = x.to(device)
+            moved[n] = x
         return dataclasses.replace(self, **moved)
 
     cls.replace = replace

@@ -129,12 +129,42 @@ without them. Phases, each of which fails the run on its own:
     unsharded, and the ``co_runtime`` retrieval set-up with its runtime
     deck sharded over 4 shards against unsharded (forward and Jacobian),
     every spectrum gathered through the group;
+15. the scattering goldens on the card in float64: the adding-doubling
+    core (``rt/scattering.py:scloud11wave``) on ``scatter_core.npz``
+    (thermal, solar, Lambert surface) at rtol 1e-10, the Hapke, Oren-Nayar
+    and Lambert BRDFs and the single-scattering kernel on
+    ``surface_singlescat.npz`` at rtol 1e-10, the ``jupiter_scatter`` deck's
+    multiple-scattering forward (layer optical depths at rtol 1e-5, SPECONV
+    at 1e-6 of ``jupiter_scatter_fm.npz``), its single-scattering forward
+    (``jupiter_singlescat_fm.npz``, 1e-6) and the four surfaces of
+    ``jupiter_brdf_fm.npz`` (1e-5); float32 within ``SCAT_F32_BOUND`` (5e-4
+    of the peak) of float64 on the core and on both deck forwards;
+16. the scattering headline (``synthetic.scattering_headline``:
+    ``bench.py``'s scattering workload at full width, 2048 waves x 10 g x
+    39 layers x 7 gases, NMU=5, NF=2, NPHI=100, float32): 6 launches of the
+    primal kernel per forward, the host reads of the data-dependent loops,
+    float32 within 5e-4 of the float64 forward of the same inputs; median
+    of 12 forwards, waves/s and peak memory at the 128-wave tile and in one
+    2048-wave tile (the two within 5e-4); then NMU=15 (``leggauss(30)``) at
+    the 128-wave tile in float32 and float64: finite, within 5e-4, time and
+    memory of one forward;
+17. the scattering retrieval on the card (``jupiter_scatter``: models 0,
+    47 and 444, 92 state elements), float64: ``forward_fn(xa)`` equal to
+    the port's CPU result at rtol 1e-9; one ``forward_and_jacobian``:
+    every column finite, each model's columns nonzero, the column of the
+    second haze index equal to its JVP at rtol 1e-10, exactly 6 launches
+    of the fused kernel, the host reads; median time and peak memory of an
+    evaluation in float64 and float32 (``SCAT_JACOBIAN_RUNS``), float32
+    within 5e-4 of float64; the wall-clock of
+    ``retrieval_nemesis(niter=3)`` on a copy of the deck;
 
 then a JSON line of the kernels (launches on the main paths, error, times,
 bound, library time) and, last, ``{"ok": true, "device": {...}}``. ``--profile`` adds
 ``torch.profiler`` traces of three headline forwards, of one
-forward-plus-Jacobian evaluation and of three LBL headline forwards: device
-time by kernel, the device's busy share, and Chrome traces in ``build/``.
+forward-plus-Jacobian evaluation, of three LBL headline forwards, of one
+scattering headline forward and of one scattering forward-plus-Jacobian
+evaluation: device time by kernel, the device's busy share, and Chrome
+traces in ``build/``.
 
 TF32 is switched off for matmuls and cuDNN: the g-quadrature and emission
 ``einsum``s must run in full float32, as the JAX package computes them.
@@ -630,6 +660,12 @@ def profile_forward(forward, runs: int = 3, what: str = "headline forward",
     for e in kernels[:15]:
         _print(f"  {e.self_device_time_total / runs / 1e3:9.4f} ms/call "
                f"{e.count // runs:5d} launches/call  {e.key[:100]}")
+    combine = [e for e in kernels if "combine_" in e.key]
+    if combine:
+        _print(f"  random-overlap kernels (1, 1t): "
+               f"{sum(e.self_device_time_total for e in combine) / runs / 1e3:.4f}"
+               f" ms/call, {sum(e.count for e in combine) // runs} "
+               "launches/call")
     os.makedirs("build", exist_ok=True)
     prof.export_chrome_trace(trace)
 
@@ -2095,6 +2131,472 @@ def phase_distributed():
     return launches
 
 
+# ---- the scattering slice ---------------------------------------------------
+
+SCAT_CORE_GOLDEN = "tests/goldens/scatter_core.npz"
+SURF_GOLDEN = "tests/goldens/surface_singlescat.npz"
+SCAT_DECK = "tests/fixtures/jupiter_scatter"
+SCAT_FM_GOLDEN = "tests/goldens/jupiter_scatter_fm.npz"
+SINGLE_FM_GOLDEN = "tests/goldens/jupiter_singlescat_fm.npz"
+BRDF_FM_GOLDEN = "tests/goldens/jupiter_brdf_fm.npz"
+SCAT_CORE_CASES = (("RAD_thermal", False, False), ("RAD_sun", True, False),
+                   ("RAD_surface_sun", True, True))
+BRDF_CASES = (("ms_lambert", 1, False), ("ms_hapke", 2, False),
+              ("ss_hapke", 2, True), ("ss_orennayar", 3, True))
+# float32 against float64 of the scattering paths: the JAX package's float32
+# scattering bound (tests/test_scattering.py:117-121), relative to the peak
+SCAT_F32_BOUND = 5.0e-4
+# forward-plus-Jacobian runs of the scattering retrieval (~5 s each on the
+# card, host-bound)
+SCAT_JACOBIAN_RUNS = 3
+
+
+def peak_rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def scatter_core_case(d, solar_on: bool, surface: bool, dtype, device):
+    """``rt.scattering.scloud11wave`` on one case of the scatter_core golden
+    (one HG mode + Rayleigh, NF=2; a Lambert 0.3 surface when asked)."""
+    import torch
+
+    from archnemesis_tpu_torch.rt import scattering as sc
+
+    quad = sc.ScatterQuadrature(mu=tuple(d["MU"]), wtmu=tuple(d["WTMU"]),
+                                nf=int(d["NF"]), nphi=int(d["NPHI"]))
+    nwave = d["vwaves"].shape[0]
+
+    def t(x, dt=dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=device)
+
+    f, g1, g2 = (t(d[k], torch.float64)[:, None, None, None]
+                 for k in ("f", "g1", "g2"))
+    brdf = None
+    if surface:
+        brdf = np.zeros((nwave, quad.nmu, quad.nmu, quad.nf + 1))
+        brdf[..., 0] = 0.3 / np.pi
+        brdf = t(brdf)
+    return sc.scloud11wave(
+        quad, [lambda c: sc.henyey_greenstein2(c[None], f, g1, g2)],
+        radg=t(d["radg"]), sol_ang=d["SOL_ANGS"], emiss_ang=d["EMISS_ANGS"],
+        azi_ang=d["APHIS"],
+        solar=t(d["solar"] if solar_on else np.zeros(nwave)),
+        bnu=t(d["bnu"]), taus=t(d["taus"]), tauray=t(d["tauray"]),
+        tauscat=t(d["tauscat_aero"]), lfrac=t(d["lfrac"]), iray=True,
+        brdf_matrix=brdf)
+
+
+def scatter_deck(device, dtype):
+    """The Jupiter scattering deck read with the port's readers, its
+    k-tables cut to the goldens' 60 waves, cast to ``dtype`` on
+    ``device``."""
+    import dataclasses
+
+    import torch
+
+    from archnemesis_tpu_torch.io.legacy import load_deck
+    from archnemesis_tpu_torch.retrievals import (
+        _attach_logk,
+        _deck_to,
+        cast_deck_components,
+    )
+
+    wave = np.load(SCAT_FM_GOLDEN)["WAVE"]
+    deck = load_deck(SCAT_DECK, "cirstest")
+    kt = deck.ktables
+    kw = kt.wave.numpy()
+    sel = torch.as_tensor(np.where((kw >= wave.min()) & (kw <= wave.max()))[0])
+    deck = dataclasses.replace(deck, ktables=kt.replace(wave=kt.wave[sel],
+                                                        k=kt.k[:, sel]))
+    deck = cast_deck_components(_attach_logk(deck, dtype), dtype)
+    return _deck_to(deck, device)
+
+
+def scatter_deck_forward(deck, single: bool, device, surf=None,
+                         gasgiant=None):
+    """(spectrum (NWAVE, 1), diagnostics) of the deck's first FOV point by
+    multiple or single scattering."""
+    from archnemesis_tpu_torch.forward import (
+        forward_scattering_nadir,
+        forward_singlescat_nadir,
+        make_forward_config,
+    )
+    from archnemesis_tpu_torch.rt.scattering import ScatterQuadrature
+
+    st, g = deck.settings, deck.geometry
+    surf = deck.surface if surf is None else surf
+    cfg = make_forward_config(
+        deck.atmosphere, deck.ktables, deck.cia, iray=st.iray,
+        ispace=st.ispace,
+        gasgiant=deck.surface.gasgiant if gasgiant is None else gasgiant)
+    args = (deck.atmosphere, deck.layer_config, deck.ktables, deck.cia,
+            deck.aerosol, surf, deck.stellar, cfg)
+    kw = dict(emiss_ang=g.emiss_ang[0, 0], sol_ang=g.sol_ang[0, 0],
+              azi_ang=g.azi_ang[0, 0], iray_phase=st.iray > 0,
+              return_diagnostics=True, device=device)
+    if single:
+        return forward_singlescat_nadir(*args, deck.hgphase, **kw)
+    quad = ScatterQuadrature(mu=st.mu, wtmu=st.wtmu, nf=st.nf, nphi=st.nphi)
+    return forward_scattering_nadir(*args, quad, deck.hgphase, **kw)
+
+
+def speconv_of(golden, spec):
+    """The spectrum interpolated to the golden's channels."""
+    from archnemesis_tpu_torch.ops.convolution import conv_channel_interp
+
+    nconv = int(golden["NCONV"][0])
+    vconv = spec.new_tensor(golden["VCONV"][:nconv, 0])
+    wave = spec.new_tensor(golden["WAVE"])
+    out = conv_channel_interp(wave, spec[:, 0], vconv)
+    return out.double().cpu().numpy(), golden, nconv
+
+
+def brdf_surface(deck, d, lowbc: int):
+    """The synthetic surface of ``jupiter_brdf_fm`` (Lambert, Hapke or
+    Oren-Nayar) on the deck's device and type."""
+    from archnemesis_tpu_torch.core.spectra import HapkeParams
+    from archnemesis_tpu_torch.enums import LowerBoundaryCondition
+
+    like = deck.surface.vem
+
+    def t(x):
+        return like.new_tensor(np.asarray(x, dtype=np.float64))
+
+    names = dict(sglalb="SGLALB", k="K", bs0="BS0", hs="hs", bc0="BC0",
+                 hc="hc", roughness="ROUGHNESS", g1="G1", g2="G2", f="F")
+    hapke = HapkeParams(vem=t(d["VEM"]), **{
+        n: t(np.full(2, float(d["HAPKE_" + k]))) for n, k in names.items()})
+    return deck.surface.replace(
+        tsurf=t(float(d["TSURF"])), vem=t(d["VEM"]),
+        emissivity=t(np.full(2, float(d["EMISS"]))),
+        galb=t(float(d["GALB"])),
+        hapke=hapke if lowbc == 2 else None,
+        on_albedo=t(np.full(2, float(d["ON_ALB"]))) if lowbc == 3 else None,
+        on_roughness=(t(np.full(2, float(d["ON_ROUGH"]))) if lowbc == 3
+                      else None),
+        lowbc=LowerBoundaryCondition(lowbc), gasgiant=False)
+
+
+def phase_scattering_goldens():
+    """The scattering goldens on the card in float64 at the JAX tests'
+    bounds; float32 within ``SCAT_F32_BOUND`` of float64."""
+    import torch
+
+    from archnemesis_tpu_torch.rt import surface as surf_mod
+    from archnemesis_tpu_torch.rt.singlescat import (
+        single_scatter_plane_spectrum,
+    )
+
+    dev = "cuda"
+    d = np.load(SCAT_CORE_GOLDEN)
+    for key, solar_on, surface in SCAT_CORE_CASES:
+        got = scatter_core_case(d, solar_on, surface, torch.float64, dev)
+        got = got.cpu().numpy()
+        np.testing.assert_allclose(got, d[key], rtol=1e-10, atol=0)
+        got32 = scatter_core_case(d, solar_on, surface, torch.float32, dev)
+        e32 = peak_rel(got32.cpu().numpy(), got)
+        _print(f"scatter_core {key}: float64 max rel err vs golden "
+               f"{np.abs(got / d[key] - 1).max():.3e} (bound 1e-10); "
+               f"float32 vs float64 {e32:.3e} of peak")
+        if not e32 < SCAT_F32_BOUND:
+            raise AssertionError(f"float32 scatter_core {key} {e32:.3e}")
+
+    ds = np.load(SURF_GOLDEN)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64), device=dev)
+
+    hap = surf_mod.hapke_brdf(*(t(ds[k]) for k in (
+        "W", "K", "BS0", "HS", "BC0", "HC", "ROUGH", "G1", "G2", "F", "SOL",
+        "EMI", "AZI"))).cpu().numpy()
+    np.testing.assert_allclose(hap, ds["HAPKE"], rtol=1e-10, atol=1e-14)
+    oren = surf_mod.oren_nayar_brdf(*(t(ds[k]) for k in (
+        "ALB", "ON_ROUGH", "SOL", "EMI", "AZI"))).cpu().numpy()
+    np.testing.assert_allclose(oren, ds["OREN"], rtol=1e-10, atol=1e-14)
+    lam = surf_mod.lambert_brdf(t(ds["ALB"]), 4).cpu().numpy()
+    np.testing.assert_allclose(lam[:, 0], ds["ALB"] / np.pi, rtol=1e-12)
+    ss_err = []
+    for key, tsurf in (("SS_nosurf", -1.0), ("SS_surf", 290.0)):
+        got = single_scatter_plane_spectrum(
+            t(ds["WAVE"]), t(ds["TAU"]), t(ds["EMTEMP"]), t(ds["OMEGA"]),
+            t(ds["PHASE"]), np.ones(ds["EMTEMP"].shape[0]), tsurf,
+            t(ds["EMISSIVITY"]), t(ds["BRDF_PATH"]), t(ds["SOLAR"]), 35.0,
+            20.0, ispace=0).cpu().numpy()
+        np.testing.assert_allclose(got, ds[key], rtol=1e-10, atol=0)
+        ss_err.append(np.abs(got / ds[key] - 1).max())
+    _print(f"surface_singlescat float64: Hapke {peak_rel(hap, ds['HAPKE']):.3e}"
+           f", Oren-Nayar {peak_rel(oren, ds['OREN']):.3e} of peak, single "
+           f"scattering {max(ss_err):.3e} max rel (bounds 1e-10)")
+
+    deck64 = scatter_deck(dev, torch.float64)
+    spec, diag = scatter_deck_forward(deck64, False, dev)
+    fm = np.load(SCAT_FM_GOLDEN)
+    for name in ("taugas", "taucia", "tauray", "taudust", "tauscat",
+                 "tautot"):
+        want = fm[name.upper()]
+        np.testing.assert_allclose(
+            diag[name].cpu().numpy(), want, rtol=1e-5,
+            atol=1e-12 * max(np.abs(want).max(), 1e-30), err_msg=name)
+    got, _, nconv = speconv_of(fm, spec)
+    want = fm["SPECONV"][:nconv, 0]
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    ms_err = np.abs(got / want - 1).max()
+    sspec, _ = scatter_deck_forward(deck64, True, dev)
+    ss = np.load(SINGLE_FM_GOLDEN)
+    sgot, _, nconv = speconv_of(ss, sspec)
+    np.testing.assert_allclose(sgot, ss["SPECONV"][:nconv, 0], rtol=1e-6,
+                               atol=0)
+    _print(f"jupiter_scatter_fm float64: layer taus within rtol 1e-5, "
+           f"SPECONV max rel {ms_err:.3e} (bound 1e-6); "
+           f"jupiter_singlescat_fm SPECONV max rel "
+           f"{np.abs(sgot / ss['SPECONV'][:nconv, 0] - 1).max():.3e}")
+
+    bd = np.load(BRDF_FM_GOLDEN)
+    for key, lowbc, single in BRDF_CASES:
+        bspec, _ = scatter_deck_forward(deck64, single, dev,
+                                        surf=brdf_surface(deck64, bd, lowbc),
+                                        gasgiant=False)
+        bgot, _, nconv = speconv_of(bd, bspec)
+        want = bd[key][:nconv, 0]
+        np.testing.assert_allclose(bgot, want, rtol=1e-5,
+                                   atol=np.abs(want).max() * 1e-8)
+        _print(f"jupiter_brdf_fm {key} float64: max rel "
+               f"{np.abs(bgot / want - 1).max():.3e} (bound 1e-5)")
+
+    deck32 = scatter_deck(dev, torch.float32)
+    for single, ref in ((False, spec), (True, sspec)):
+        s32, _ = scatter_deck_forward(deck32, single, dev)
+        e32 = peak_rel(s32.cpu().numpy(), ref.cpu().numpy())
+        _print(f"jupiter_scatter {'single' if single else 'multiple'} "
+               f"scattering float32 vs float64: {e32:.3e} of peak")
+        if not e32 < SCAT_F32_BOUND:
+            raise AssertionError("float32 scattering deck outside 5e-4")
+
+
+def _scattering_forward(case, tile=None):
+    import dataclasses
+
+    from archnemesis_tpu_torch.forward import forward_scattering_nadir
+
+    cfg = case["cfg"]
+    if tile is not None:
+        cfg = dataclasses.replace(cfg, scat_wave_tile=tile)
+    return forward_scattering_nadir(**{**case, "cfg": cfg}, device="cuda")
+
+
+def _time_forward(forward, runs: int) -> tuple:
+    """(median ms over ``runs`` calls after two warm-ups, min, max, peak
+    GiB); CUDA events around each call."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(runs + 2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        forward()
+        end.record()
+        end.synchronize()
+        if i >= 2:
+            times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return float(np.median(times)), min(times), max(times), peak
+
+
+def phase_scattering_headline(profile: bool = False):
+    """bench.py's scattering workload at full width through the port's
+    forward; returns the primal kernel's launches in one forward."""
+    import torch
+
+    from archnemesis_tpu_torch.ops.overlap_cuda import combine_pair
+    from archnemesis_tpu_torch.rt import scattering as sc
+    from archnemesis_tpu_torch.synthetic import (
+        SCAT_NWAVE,
+        scattering_headline,
+    )
+
+    case = scattering_headline(torch.float32, "cuda")
+    # the main path, counted on its own
+    combine_pair.launches = 0
+    sc.host_reads.update(hansen=0, ladder=0)
+    spec = _scattering_forward(case)
+    torch.cuda.synchronize()
+    launches = combine_pair.launches
+    reads = dict(sc.host_reads)
+    if launches != 6:
+        raise AssertionError(f"{launches} kernel launches, expected 6")
+    if spec.shape != (SCAT_NWAVE, 1) or not torch.isfinite(spec).all():
+        raise AssertionError("scattering headline spectrum not finite")
+    spec64 = _scattering_forward(scattering_headline(torch.float64, "cuda"))
+    e32 = peak_rel(spec.cpu().numpy(), spec64.cpu().numpy())
+    r = rel_err(spec.double().cpu().numpy(), spec64.cpu().numpy())
+    _print(f"scattering headline (2048 waves x 10 g x 39 layers x 7 gases, "
+           f"NMU=5, NF=2, NPHI=100, 2 HG modes, Rayleigh, solar): "
+           f"{launches} launches of kernel 1; host reads per forward: "
+           f"{reads['hansen']} Hansen sweeps, {reads['ladder']} ladder "
+           f"bounds; float32 vs float64 {e32:.3e} of peak, max rel "
+           f"{r.max():.3e}")
+    if not e32 < SCAT_F32_BOUND:
+        raise AssertionError("float32 scattering headline outside 5e-4")
+    del spec64
+
+    out = {}
+    for tile in (case["cfg"].scat_wave_tile, SCAT_NWAVE):
+        before = combine_pair.launches
+        ms, lo, hi, peak = _time_forward(
+            lambda: _scattering_forward(case, tile), HEADLINE_RUNS)
+        if combine_pair.launches - before != 6 * (HEADLINE_RUNS + 2):
+            raise AssertionError("launches did not rise by 6 per forward")
+        out[tile] = _scattering_forward(case, tile)
+        _print(f"scattering headline float32, wave tile {tile}: median "
+               f"{ms:.3f} ms over {HEADLINE_RUNS} runs (min {lo:.3f}, max "
+               f"{hi:.3f}); {SCAT_NWAVE / ms * 1e3:.1f} waves/s; peak memory "
+               f"{peak:.3f} GiB")
+    a, b = out.values()
+    e_tile = peak_rel(a.cpu().numpy(), b.cpu().numpy())
+    _print(f"wave tile 128 vs one 2048-wave tile: {e_tile:.3e} of peak")
+    if not e_tile < SCAT_F32_BOUND:
+        raise AssertionError("the two tile sizes disagree")
+    del out, a, b
+
+    # a real deck's quadrature order (NMU 10-21 in the reference's decks)
+    c15 = scattering_headline(torch.float32, "cuda", nmu=15)
+    s15 = {}
+    for name, cc in (("float32", c15),
+                     ("float64", scattering_headline(torch.float64, "cuda",
+                                                     nmu=15))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        s15[name] = _scattering_forward(cc)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not torch.isfinite(s15[name]).all():
+            raise AssertionError(f"NMU=15 {name} not finite")
+        _print(f"scattering headline NMU=15 {name}, wave tile 128: one "
+               f"forward {wall:.3f} ms wall; peak memory {peak:.3f} GiB")
+    e15 = peak_rel(s15["float32"].cpu().numpy(), s15["float64"].cpu().numpy())
+    _print(f"NMU=15 float32 vs float64: {e15:.3e} of peak")
+    if not e15 < SCAT_F32_BOUND:
+        raise AssertionError("NMU=15 float32 outside 5e-4 of float64")
+    del s15, c15
+    if profile:
+        for tile in (case["cfg"].scat_wave_tile, SCAT_NWAVE):
+            profile_forward(lambda: _scattering_forward(case, tile), runs=1,
+                            what=f"scattering headline forward (float32, "
+                                 f"tile {tile})",
+                            trace=f"build/scattering{tile}_trace.json")
+    return launches, e32
+
+
+def phase_scattering_retrieval(profile: bool = False):
+    """The scattering retrieval (jupiter_scatter: models 0, 47, 444) through
+    the port's entry points on the card; returns the fused kernel's
+    launches in one forward-plus-Jacobian evaluation."""
+    import torch
+
+    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
+    from archnemesis_tpu_torch.retrievals import (
+        make_retrieval_setup,
+        retrieval_nemesis,
+    )
+    from archnemesis_tpu_torch.rt import scattering as sc
+
+    s64 = make_retrieval_setup(SCAT_DECK, "cirstest", device="cuda")
+    cpu = make_retrieval_setup(SCAT_DECK, "cirstest", device="cpu")
+    xa = torch.as_tensor(s64.sv.xa, device="cuda")
+    y_card = s64.forward_fn(xa).cpu().numpy()
+    y_cpu = cpu.forward_fn(cpu.sv.xa).numpy()
+    np.testing.assert_allclose(y_card, y_cpu, rtol=1e-9, atol=0)
+    nx, ny = s64.sv.nx, s64.y.shape[0]
+    e444 = next(e for e in s64.sv.entries if e.model_id == 444)
+    j = e444.ix + 2
+    tangent = torch.zeros(nx, dtype=torch.float64, device="cuda")
+    tangent[j] = 1.0
+    _, dy = torch.func.jvp(s64.forward_fn, (xa,), (tangent,))
+
+    # the main path of this phase, counted on its own: one
+    # forward-plus-Jacobian evaluation, all tangents in one pass
+    sc.host_reads.update(hansen=0, ladder=0)
+    (yn, kk), launches = _fused_launches(
+        lambda: forward_and_jacobian(s64.forward_fn, xa))
+    reads = dict(sc.host_reads)
+    if launches != 6:
+        raise AssertionError(f"{launches} fused launches, expected 6")
+    if kk.shape != (ny, nx) or not torch.isfinite(kk).all():
+        raise AssertionError(f"Jacobian not finite ({ny}, {nx})")
+    for e in s64.sv.entries:
+        if not kk[:, e.ix:e.ix + e.nx].abs().max() > 0.0:
+            raise AssertionError(f"model {e.model_id}'s columns are zero")
+    np.testing.assert_allclose(
+        kk[:, j].cpu().numpy(), dy.cpu().numpy(), rtol=1e-10,
+        atol=1e-12 * dy.abs().max().item())
+    _print(f"jupiter_scatter float64 on the card (NX={nx}, NY={ny}; models "
+           f"0, 47, 444): forward_fn(xa) within rtol 1e-9 of the CPU (max "
+           f"rel {np.abs(y_card / y_cpu - 1).max():.3e}); every Jacobian "
+           "column finite, each model's columns nonzero, column "
+           f"{j} equal to its JVP; {launches} fused launches per evaluation; "
+           f"host reads per evaluation: {reads['hansen']} Hansen sweeps, "
+           f"{reads['ladder']} ladder bounds")
+
+    s32 = make_retrieval_setup(SCAT_DECK, "cirstest", device="cuda",
+                               dtype=torch.float32)
+    results = {}
+    for name, setup, x in (("float64", s64, xa), ("float32", s32, xa.float())):
+        forward_and_jacobian(setup.forward_fn, x)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(SCAT_JACOBIAN_RUNS):
+            t0 = time.perf_counter()
+            res, launched = _fused_launches(
+                lambda: forward_and_jacobian(setup.forward_fn, x))
+            times.append((time.perf_counter() - t0) * 1e3)
+            if launched != 6:
+                raise AssertionError(f"{launched} fused launches ({name})")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        results[name] = res
+        _print(f"forward-plus-Jacobian on jupiter_scatter ({nx} tangents, "
+               f"{name}): median {np.median(times):.3f} ms over {len(times)} "
+               f"runs (min {min(times):.3f}, max {max(times):.3f}); peak "
+               f"memory {peak:.3f} GiB")
+    (y64, k64), (y32, k32) = results["float64"], results["float32"]
+    e_y = peak_rel(y32.cpu().numpy(), y64.cpu().numpy())
+    col_peak = k64.abs().max(dim=0).values
+    e_k = ((k32.double() - k64).abs().max(dim=0).values / col_peak).max()
+    _print(f"scattering retrieval float32 vs float64: spectrum {e_y:.3e} of "
+           f"peak; Jacobian max error over column peak {e_k.item():.3e}")
+    if not e_y < SCAT_F32_BOUND:
+        raise AssertionError("float32 scattering retrieval outside 5e-4")
+    results.clear()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        deck = copy_deck(SCAT_DECK, tmp)
+        t0 = time.perf_counter()
+        res3, launched = _fused_launches(lambda: retrieval_nemesis(
+            deck, "cirstest", niter=3, write_outputs=False, device="cuda"))
+        wall = time.perf_counter() - t0
+    hist = res3.phi_history
+    if not (np.isfinite(res3.xn).all() and np.isfinite(hist).all()
+            and hist[-1] <= hist[0]):
+        raise AssertionError("scattering retrieval did not keep phi finite "
+                             "and non-increasing")
+    _print(f"retrieval_nemesis(jupiter_scatter, niter=3, float64): "
+           f"{wall:.3f} s wall, {res3.n_iter} iterations accepted, "
+           f"{launched} fused launches, phi {['%.6e' % p for p in hist]}")
+    if profile:
+        profile_forward(
+            lambda: forward_and_jacobian(s64.forward_fn, xa), runs=1,
+            what=f"scattering forward-plus-Jacobian (float64, {nx} tangents)",
+            trace="build/scattering_jacobian_trace.json")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2120,13 +2622,16 @@ def main() -> int:
     variant_records = phase_overlap_variants()
     packed_record = phase_sharded_lbl(profile=profile)
     phase_distributed()
+    phase_scattering_goldens()
+    scat_launches, _ = phase_scattering_headline(profile=profile)
+    scat_tan_launches = phase_scattering_retrieval(profile=profile)
 
     kernels = [dict(
         name="overlap_combine",
         route="cuda",
         source="archnemesis_tpu_torch/csrc/overlap_combine.cu",
         replaces="archnemesis_tpu/ops/overlap_pallas.py:398",
-        launches=launches,
+        launches=launches + scat_launches,
         max_abs_err=record["max_abs_err"],
         ms=record["ms"],
         plain_ms=record["plain_ms"],
@@ -2138,7 +2643,7 @@ def main() -> int:
         route="cuda",
         source="archnemesis_tpu_torch/csrc/overlap_combine.cu",
         replaces="archnemesis_tpu/ops/overlap_pallas.py:292",
-        launches=tan_launches,
+        launches=tan_launches + scat_tan_launches,
         max_abs_err=tan_record["max_abs_err"],
         ms=tan_record["ms"],
         plain_ms=tan_record["plain_ms"],

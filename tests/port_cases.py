@@ -26,10 +26,20 @@ from archnemesis_tpu.enums import (
     RayleighScatteringMode,
     WaveUnit,
 )
+from archnemesis_tpu import forward as jfwd
+from archnemesis_tpu.core.spectra import HapkeParams as JHapke
 from archnemesis_tpu.forward import make_forward_config
 from archnemesis_tpu.io.cia import read_cia_tab
 from archnemesis_tpu.io.ktables import read_kls
+from archnemesis_tpu.io.legacy import load_deck as jax_load_deck
+from archnemesis_tpu.rt.scattering import ScatterQuadrature as JQuad
 from archnemesis_tpu_torch import convert
+from archnemesis_tpu_torch import forward as tfwd
+from archnemesis_tpu_torch.core.spectra import HapkeParams
+from archnemesis_tpu_torch.enums import LowerBoundaryCondition
+from archnemesis_tpu_torch.io.legacy import load_deck as port_load_deck
+from archnemesis_tpu_torch.ops.convolution import conv_channel_interp
+from archnemesis_tpu_torch.rt.scattering import ScatterQuadrature
 
 LAYER_GOLDEN = "tests/goldens/jupiter_layering.npz"
 FM_GOLDEN = "tests/goldens/jupiter_nadir_fm.npz"
@@ -236,3 +246,119 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+# --- the scattering slice: the Jupiter scattering deck in both packages
+
+SCAT_DECK = "tests/fixtures/jupiter_scatter"
+SCAT_FM_GOLDEN = "tests/goldens/jupiter_scatter_fm.npz"
+
+
+def _scatter_window(kt_wave, wave):
+    kw = np.asarray(kt_wave)
+    return np.where((kw >= wave.min()) & (kw <= wave.max()))[0]
+
+
+def scatter_decks():
+    """(port deck, JAX deck), each with its k-tables cut to the golden's
+    60 waves (the two goldens share the grid)."""
+    wave = np.load(SCAT_FM_GOLDEN)["WAVE"]
+    tdeck = port_load_deck(SCAT_DECK, "cirstest")
+    jdeck = jax_load_deck(SCAT_DECK, "cirstest")
+    sel = _scatter_window(jdeck.ktables.wave, wave)
+    jkt = jdeck.ktables
+    jdeck = dataclasses.replace(jdeck, ktables=jkt.replace(
+        wave=np.asarray(jkt.wave)[sel], k=np.asarray(jkt.k)[:, sel]))
+    tkt = tdeck.ktables
+    tsel = torch.as_tensor(sel)
+    tdeck = dataclasses.replace(tdeck, ktables=tkt.replace(
+        wave=tkt.wave[tsel], k=tkt.k[:, tsel]))
+    np.testing.assert_allclose(tdeck.ktables.wave.numpy(), wave, atol=2e-4)
+    return tdeck, jdeck
+
+
+def _scatter_cfgs(decks, gasgiant=None):
+    tdeck, jdeck = decks
+    st = jdeck.settings
+    gg = jdeck.surface.gasgiant if gasgiant is None else gasgiant
+    jcfg = jfwd.make_forward_config(
+        jdeck.atmosphere, jdeck.ktables, jdeck.cia, iray=st.iray,
+        ispace=st.ispace, gasgiant=gg)
+    tcfg = tfwd.make_forward_config(
+        tdeck.atmosphere, tdeck.ktables, tdeck.cia, iray=st.iray,
+        ispace=st.ispace, gasgiant=gg)
+    return tcfg, jcfg
+
+
+def _scatter_angles(deck):
+    g = deck.geometry
+    return dict(emiss_ang=g.emiss_ang[0, 0], sol_ang=g.sol_ang[0, 0],
+                azi_ang=g.azi_ang[0, 0], iray_phase=deck.settings.iray > 0)
+
+
+def _scatter_quad(cls, st):
+    return cls(mu=st.mu, wtmu=st.wtmu, nf=st.nf, nphi=st.nphi)
+
+
+def scatter_forwards(decks, single, tsurf=None, jsurf=None, gasgiant=None):
+    """(port spectrum, port diagnostics, JAX spectrum) of one forward."""
+    tdeck, jdeck = decks
+    tcfg, jcfg = _scatter_cfgs(decks, gasgiant)
+    ts = tdeck.surface if tsurf is None else tsurf
+    js = jdeck.surface if jsurf is None else jsurf
+    targs = (tdeck.atmosphere, tdeck.layer_config, tdeck.ktables, tdeck.cia,
+             tdeck.aerosol, ts, tdeck.stellar, tcfg)
+    jargs = (jdeck.atmosphere, jdeck.layer_config, jdeck.ktables, jdeck.cia,
+             jdeck.aerosol, js, jdeck.stellar, jcfg)
+    if single:
+        tspec, tdiag = tfwd.forward_singlescat_nadir(
+            *targs, tdeck.hgphase, **_scatter_angles(tdeck),
+            return_diagnostics=True, device="cpu")
+        jspec = jfwd.forward_singlescat_nadir(*jargs, jdeck.hgphase,
+                                              **_scatter_angles(jdeck))
+    else:
+        tspec, tdiag = tfwd.forward_scattering_nadir(
+            *targs, _scatter_quad(ScatterQuadrature, tdeck.settings),
+            tdeck.hgphase, **_scatter_angles(tdeck), return_diagnostics=True,
+            device="cpu")
+        jspec = jfwd.forward_scattering_nadir(
+            *jargs, _scatter_quad(JQuad, jdeck.settings), jdeck.hgphase,
+            **_scatter_angles(jdeck))
+    return tspec, tdiag, np.asarray(jspec)
+
+
+def speconv(golden, spec):
+    """(the spectrum at the golden's channels, NCONV)."""
+    nconv = int(golden["NCONV"][0])
+    vconv = torch.as_tensor(golden["VCONV"][:nconv, 0])
+    wave = torch.as_tensor(golden["WAVE"])
+    return conv_channel_interp(wave, spec[:, 0], vconv).numpy(), nconv
+
+
+def brdf_surfaces(decks, d, lowbc):
+    """The golden's synthetic surface (``tests/test_forward_brdf.py``) on
+    both packages' surface structures."""
+    tdeck, jdeck = decks
+    vem = d["VEM"]
+    names = dict(sglalb="SGLALB", k="K", bs0="BS0", hs="hs", bc0="BC0",
+                 hc="hc", roughness="ROUGHNESS", g1="G1", g2="G2", f="F")
+    hap = {n: np.full(2, float(d["HAPKE_" + k])) for n, k in names.items()}
+    common = dict(vem=vem, emissivity=np.full(2, float(d["EMISS"])),
+                  tsurf=np.asarray(float(d["TSURF"])),
+                  galb=np.asarray(float(d["GALB"])))
+    on = (dict(on_albedo=np.full(2, float(d["ON_ALB"])),
+               on_roughness=np.full(2, float(d["ON_ROUGH"])))
+          if lowbc == 3 else dict(on_albedo=None, on_roughness=None))
+    jsurf = jdeck.surface.replace(
+        **common, **on, hapke=JHapke(vem=vem, **hap) if lowbc == 2 else None,
+        lowbc=lowbc, gasgiant=False)
+
+    def t(x):
+        return None if x is None else torch.as_tensor(x)
+
+    tsurf = tdeck.surface.replace(
+        **{k: t(v) for k, v in {**common, **on}.items()},
+        hapke=(HapkeParams(vem=t(vem), **{k: t(v) for k, v in hap.items()})
+               if lowbc == 2 else None),
+        lowbc=LowerBoundaryCondition(lowbc), gasgiant=False)
+    return tsurf, jsurf

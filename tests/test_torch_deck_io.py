@@ -145,7 +145,7 @@ def test_unported_branches_raise(tmp_path_factory):
     lines = open(inp).read().splitlines()
     first = lines[0].split()
     for ilbl, error, match in ((1, ValueError, "must define WAVE"),
-                               (2, NotImplementedError, "Queue 1 item 2")):
+                               (2, NotImplementedError, "Queue 1 item 4")):
         first[2] = str(ilbl)
         lines[0] = " ".join(first)
         open(inp, "w").write("\n".join(lines) + "\n")

@@ -315,3 +315,34 @@ def test_sharding_and_tools_need_a_card(no_cuda):
     with pytest.raises(TypeError, match="device"):
         RetrievalSetup(deck=None, sv=None, forward_fn=None, y=None, se=None,
                        vconv_list=[])
+
+
+def test_scattering_entry_points_raise_without_cuda(no_cuda):
+    """The scattering forwards, the scattering headline, the ISCAT=1 set-up
+    and Mie on host inputs run on the card unless asked for the CPU."""
+    from archnemesis_tpu_torch.forward import (
+        forward_scattering_nadir,
+        forward_singlescat_nadir,
+    )
+    from archnemesis_tpu_torch.ops import mie
+    from archnemesis_tpu_torch.retrievals import make_retrieval_setup
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synthetic.scattering_headline(nwave=4)
+    case = synthetic.scattering_headline(torch.float64, "cpu", nwave=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        forward_scattering_nadir(**case)
+    single = {k: v for k, v in case.items() if k != "quad"}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        forward_singlescat_nadir(**single)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_retrieval_setup("tests/fixtures/jupiter_scatter", "cirstest")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mie.makephase([1.0], 6, [0.5, 0.6, -0.3], (0.1, 1.0, 0.1),
+                      [[1.3, 0.01]], [0.0, 90.0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mie.kk_new_sub([1.0, 2.0], [0.1, 0.1], 1.5, 1.3)
+    spec = forward_scattering_nadir(**case, device="cpu")
+    assert spec.shape == (4, 1) and spec.device.type == "cpu"
+    assert torch.isfinite(forward_singlescat_nadir(**single,
+                                                   device="cpu")).all()

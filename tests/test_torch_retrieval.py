@@ -174,13 +174,12 @@ def test_unported_branches_raise(tmp_path_factory):
 
     from port_cases import copy_deck
 
-    d = copy_deck(tmp_path_factory, "scatdeck")
+    d = copy_deck(tmp_path_factory, "transitdeck")
     inp = os.path.join(d, "cirstest.inp")
     lines = open(inp).read().splitlines()
-    first = lines[0].split()
-    first[1] = "1"  # ISCAT = multiple scattering
-    open(inp, "w").write("\n".join([" ".join(first)] + lines[1:]) + "\n")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    lines[7] = "2"  # IFORM = TransitDepth, a unit of the transit set-up
+    open(inp, "w").write("\n".join(lines) + "\n")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         make_retrieval_setup(d, "cirstest", device="cpu")
     d = copy_deck(tmp_path_factory, "limbdeck")
     spx = os.path.join(d, "cirstest.spx")
@@ -189,5 +188,5 @@ def test_unported_branches_raise(tmp_path_factory):
     geo[3] = "-1.0"  # EMISS_ANG < 0: a limb FOV point
     toks[3] = " ".join(geo)
     open(spx, "w").write("\n".join(toks))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         make_retrieval_setup(d, "cirstest", device="cpu")

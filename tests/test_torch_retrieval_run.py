@@ -156,9 +156,9 @@ def test_run_retrieval(result):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(nemesis_so=True), "item 10"), (dict(nemesis_l=True), "item 10"),
-    (dict(nemesis_pt=True), "item 10"), (dict(nemesis_disc=True), "item 10"),
-    (dict(nemesis_c=True), "item 10"), (dict(retrieval_method=1), "item 13"),
+    (dict(nemesis_so=True), "item 5"), (dict(nemesis_l=True), "item 5"),
+    (dict(nemesis_pt=True), "item 5"), (dict(nemesis_disc=True), "item 5"),
+    (dict(nemesis_c=True), "item 5"), (dict(retrieval_method=1), "item 6"),
 ])
 def test_unported_setups_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
