@@ -236,14 +236,29 @@ def deck(fields: dict, device=None) -> Deck:
     return Deck(**kw)
 
 
+def _host_extra(v):
+    """A model entry's static extra as the port holds it: a tuple for a
+    sequence (model 230's window limits, 231's (ngeom, ndeg)), a host numpy
+    copy for an array (model 446's lookup table), a Python number for a
+    numpy scalar, anything else as it is."""
+    if isinstance(v, (list, tuple)):
+        return tuple(_host_extra(x) for x in v)
+    if isinstance(v, np.generic):
+        return v.item()
+    if hasattr(v, "__array__") and not isinstance(v, (str, bytes)):
+        return np.array(v)
+    return v
+
+
 def state_vector(fields: dict, nvmr: int) -> StateVector:
     """StateVector of the port from the JAX one's fields; ``entries`` is a
     sequence of dicts of the ModelEntry fields with ``target`` given by its
-    value (a string). ``nvmr`` sizes the VMR-rescaling mask."""
+    value (a string), and each entry's ``extra`` is carried by
+    ``_host_extra``. ``nvmr`` sizes the VMR-rescaling mask."""
     entries = tuple(
         ModelEntry(**{**e, "varident": tuple(e["varident"]),
                       "target": ProfileTarget(e["target"]),
-                      "extra": tuple(e.get("extra", ()))})
+                      "extra": _host_extra(tuple(e.get("extra", ())))})
         for e in fields["entries"]
     )
     kw = {k: v for k, v in fields.items() if k != "entries"}

@@ -24,6 +24,7 @@ from enum import Enum
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 class ProfileTarget(Enum):
@@ -59,6 +60,16 @@ class AprParseResult:
 
 
 MODEL_REGISTRY: Dict[int, "type"] = {}
+
+
+def host_array(x) -> np.ndarray:
+    """Host float64 numpy values of a static grid given as a tensor or an
+    array: what a model reads as an index set. It works inside
+    ``torch.func`` transforms too, where ``.numpy()`` of any tensor
+    raises."""
+    if isinstance(x, torch.Tensor):
+        return np.asarray(x.detach().cpu().tolist(), dtype=np.float64)
+    return np.asarray(x, dtype=np.float64)
 
 
 def register_model(cls):

@@ -1,11 +1,13 @@
-"""Aerosol optical-property parameterisations: the retrieved particle size
-and refractive index of model 444 (reference
-Models/PreRTModels/model_444.py).
+"""Aerosol/CIA optical-property parameterisations: retrieved particle sizes
+and refractive indices (reference Models/PreRTModels/model_444.py,
+model_446.py) and the gaussian-basis CIA opacity (model_500.py).
 
-Port of model 444 of the JAX package's optics-model module. It acts
-on the "scatter" domain (``AerosolOptics``): Kramers-Kronig and the Mie
-chain run inside the forward, so Jacobians come from ``torch.func.jacfwd``
-instead of the reference's finite differences.
+Port of the JAX package's optics-model module. These act on the "scatter"
+(``AerosolOptics``) and "cia" (``CIATables``) domains. For model 444,
+Kramers-Kronig and the Mie chain run inside the forward, so Jacobians come
+from ``torch.func.jacfwd`` instead of the reference's finite differences.
+Model 202 (telluric profile scaling) comes with the telluric structure
+(``ROADMAP.md`` Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -15,25 +17,161 @@ import torch
 
 from archnemesis_tpu_torch.models.base import (
     AprParseResult,
-    ModelEntry,
-    ProfileTarget,
+    host_array,
     register_model,
 )
+from archnemesis_tpu_torch.models.domain_models import _entry
 from archnemesis_tpu_torch.ops.mie import kk_new_sub, makephase, radius_grid
 from archnemesis_tpu_torch.rt.atmosphere import set_column
 from archnemesis_tpu_torch.utils.interp import interp
 
 
-def _entry(varident, model_id, ix, nx, extra=()):
-    return ModelEntry(
-        varident=tuple(int(v) for v in varident),
-        model_id=model_id,
-        ix=ix,
-        nx=nx,
-        target=ProfileTarget.NOT_ATMOSPHERIC,
-        target_idx=None,
-        extra=extra,
-    )
+@register_model
+class Model446:
+    """Aerosol extinction/albedo from a particle-size lookup table
+    (reference model_446.py): the state holds one particle size; KEXT and
+    SGLALB are bilinearly interpolated from an HDF5 lookup (WAVE, REFF)
+    onto the aerosol wave grid, with optional normalisation at a given
+    wavelength."""
+
+    id = 446
+    domain = "scatter"
+
+    @staticmethod
+    def from_apr(f, varident, ix, ctx) -> AprParseResult:
+        import h5py
+
+        s = f.readline().split()
+        idust, wavenorm = int(s[0]), int(s[1])
+        xwave = float(s[2]) if wavenorm == 1 else 0.0
+        fname = f.readline().split()[0]
+        s = f.readline().split()
+        r0, err = float(s[0]), float(s[1])
+
+        with h5py.File(fname, "r") as h:
+            wave_lu = np.asarray(h["WAVE"])
+            reff = np.asarray(h["REFF"])
+            kext_lu = np.asarray(h["KEXT"])  # (NWAVE, NSIZE)
+            sglalb_lu = np.asarray(h["SGLALB"])
+
+        return AprParseResult(
+            entry=_entry(
+                varident, 446, ix, 1,
+                extra=(idust, wavenorm, xwave, wave_lu, reff, kext_lu,
+                       sglalb_lu),
+            ),
+            x0=np.array([r0]),
+            sx_diag=np.array([err**2]),
+            lx=np.zeros(1, dtype=int),
+            inum=np.ones(1, dtype=int),
+        )
+
+    @staticmethod
+    def apply_scatter(entry, aero, x, **_kw):
+        idust, wavenorm, xwave, wave_lu, reff, kext_lu, sglalb_lu = (
+            entry.extra
+        )
+        wave = aero.wave.to(x.dtype)
+
+        def table(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float64),
+                                   dtype=x.dtype, device=x.device)
+
+        # axis-0 interpolation of the lookup onto the aerosol wave grid,
+        # as (NSIZE, NWAVE_AERO)
+        wave_lu_t = table(wave_lu)
+        kext1 = _interp_columns(wave, wave_lu_t, table(kext_lu))
+        alb1 = _interp_columns(wave, wave_lu_t, table(sglalb_lu))
+        # size interpolation at the (clamped) retrieved radius
+        rsize = torch.minimum(
+            torch.maximum(x[0], x.new_full((), float(np.min(reff)))),
+            x.new_full((), float(np.max(reff))))
+        reff_t = table(reff)
+        kextx = interp(rsize, reff_t, kext1)
+        albx = interp(rsize, reff_t, alb1)
+        if wavenorm == 1:
+            kextx = kextx / interp(x.new_tensor(xwave), wave, kextx)
+        kscax = albx * kextx
+        return aero.replace(
+            kext=set_column(aero.kext, idust, kextx.to(aero.kext.dtype)),
+            ksca=set_column(aero.ksca, idust, kscax.to(aero.ksca.dtype)),
+        )
+
+
+def _interp_columns(x, xp, fp):
+    """``jnp.interp(x, xp, fp[:, k])`` for every column k of ``fp``
+    (NXP, K), as rows of a (K, NX) result."""
+    return torch.stack([interp(x, xp, fp[:, k]) for k in range(fp.shape[1])])
+
+
+@register_model
+class Model500:
+    """CIA opacity as a gaussian basis with constant P/T dependence
+    (reference model_500.py): the whole K_CIA table is replaced by the
+    basis expansion on pair VARIDENT[1] over the spectroscopy wave range;
+    amplitudes are retrieved in log space and scaled by 1e-40."""
+
+    id = 500
+    domain = "cia"
+
+    @staticmethod
+    def from_apr(f, varident, ix, ctx) -> AprParseResult:
+        fname = f.readline().split()[0]
+        with open(fname) as af:
+            toks = af.read().split()
+        nbasis = int(float(toks[0]))
+        clen = float(toks[1])
+        amp = np.array([float(toks[2 + 2 * j]) for j in range(nbasis)])
+        eamp = np.array([float(toks[3 + 2 * j]) for j in range(nbasis)])
+        var = (eamp / amp) ** 2
+        sx = np.diag(var).copy()
+        for j in range(nbasis):
+            for k in range(nbasis):
+                xfac = np.exp(-abs((j - k) / clen))
+                if xfac >= 0.001 and j != k:
+                    sx[j, k] = np.sqrt(var[j] * var[k]) * xfac
+        return AprParseResult(
+            entry=_entry(varident, 500, ix, nbasis,
+                         extra=(int(varident[1]),)),
+            x0=np.log(amp),
+            sx_diag=var,
+            lx=np.ones(nbasis, dtype=int),
+            inum=np.zeros(nbasis, dtype=int),
+            corr=sx,
+        )
+
+    @staticmethod
+    def apply_cia(entry, cia, x, wave_range=None, waven_host=None, **_kw):
+        """wave_range = (vlo, vhi) in cm-1, the spectroscopy table range
+        (reference hook, model_500.py:185-196); ``waven_host``: the CIA
+        grid as host numpy (static deck data), read from ``cia.waven``
+        when None."""
+        icia = entry.extra[0]
+        waven = host_array(cia.waven if waven_host is None else waven_host)
+        vlo, vhi = wave_range
+        ilo = int(np.argmin(np.abs(waven - vlo)))
+        ihi = int(np.argmin(np.abs(waven - vhi)))
+        nbasis = entry.nx
+        width = (ihi - ilo) / nbasis
+        centers = np.linspace(ilo, ihi, nbasis)
+        idx = np.arange(ilo, ihi + 1)
+        g_mat = np.exp(
+            -((idx[:, None] - centers[None, :]) ** 2) / (2.0 * width**2)
+        )
+        # amplitudes are in raw 1e-40 cm^5 units; fold in any balance
+        # prescale the table carries (CIATables.k_scale) so the rebuilt
+        # k_cia stays consistent with ops.cia.cia_tau's residual handling
+        k_cia = cia.k_cia
+        curve = torch.as_tensor(g_mat, dtype=x.dtype, device=x.device) @ (
+            x * (1e-40 * cia.k_scale))
+        # the rebuilt table, out of place: zero but on pair icia over
+        # [ilo, ihi], where every (para, temperature) row is the curve
+        row = torch.nn.functional.pad(
+            curve, (ilo, k_cia.shape[-1] - ihi - 1)).to(k_cia.dtype)
+        pair = torch.arange(k_cia.shape[0], device=k_cia.device) == icia
+        k = torch.where(pair[:, None, None, None],
+                        row.expand(k_cia.shape), k_cia.new_zeros(()))
+        return cia.replace(k_cia=k)
 
 
 @register_model

@@ -11,11 +11,11 @@ Measurement convolution entry points
 - FWHM < 0: per-channel filter functions (.fil): weight matrix built from
   the tabulated filters.
 
-All weight matrices are built host-side in numpy (static grids) and applied
-as a single (NCONV, NWAVE) @ (NWAVE, ...) contraction on tensors. The
-differentiable double-Gaussian ILS (models 228-230) and the filter
-integration with a retrieved Doppler shift (model 447) come with their
-models.
+The static weight matrices are built host-side in numpy and applied as a
+single (NCONV, NWAVE) @ (NWAVE, ...) contraction on tensors. Two are
+tensor functions of the state, differentiable under ``torch.func``: the
+double-Gaussian ILS of models 228-230 and the filter integration with a
+retrieved Doppler shift (model 447).
 """
 
 import numpy as np
@@ -143,10 +143,30 @@ def ils_weights_filter(wave: np.ndarray, vconv: np.ndarray,
 
 
 def double_gauss_ils_weights(wave, vconv, offset, fwhm, amp, xdist=5.0):
-    """Differentiable double-Gaussian ILS weights of models 228/229/230."""
-    raise NotImplementedError(
-        "the double-Gaussian ILS comes with models 228-230 "
-        "(ROADMAP Queue 1 item 3)")
+    """Differentiable (NCONV, NWAVE) ILS weights for a per-channel
+    double-Gaussian lineshape (ACS-MIR models 228/229/230).
+
+    The JAX package's reformulation of the reference's two-step
+    construction (model_229.py:141-190 builds per-channel sampled filters
+    with ngauss, then lblconv_fil linearly re-interpolates them onto the
+    calc grid): the Gaussians are evaluated directly at the calc-grid
+    wavenumbers, the exact limit of the reference's sample-then-interp,
+    with the same xdist * FWHM/2 per-Gaussian support window, then
+    row-normalised. The support mask comes before the normalisation, so a
+    Gaussian's far wing, which underflows in float32, never enters a row.
+
+    Parameters: wave (NW,), vconv (NC,), offset/fwhm/amp (NC, NG) tensors
+    (``wave`` may be host numpy).
+    """
+    wave = torch.as_tensor(wave, dtype=offset.dtype, device=offset.device)
+    mean = vconv[:, None, None] + offset[:, :, None]  # (NC, NG, 1)
+    sig = fwhm[:, :, None] / (2.0 * np.sqrt(2.0 * np.log(2.0)))
+    d = wave[None, None, :] - mean
+    gauss = amp[:, :, None] * torch.exp(-0.5 * (d / sig) ** 2)
+    support = torch.abs(d) <= (xdist * 0.5 * fwhm[:, :, None])
+    f = torch.sum(torch.where(support, gauss, 0.0), dim=1)  # (NC, NW)
+    f = torch.where(f > 0.0, f, 0.0)
+    return f / torch.sum(f, dim=1, keepdim=True)
 
 
 def _trapz_weights(x: np.ndarray) -> np.ndarray:
@@ -245,10 +265,83 @@ def integrate_filter_weights(wave: np.ndarray, vconv: np.ndarray,
     return out
 
 
+def _interp_rows(x, xp, fp, n):
+    """``jnp.interp(x[j], xp[j, :n[j]], fp[j, :n[j]])`` for every row j at
+    once: x (NC, M), xp/fp (NC, NF) with rows padded past n[j] by +inf /
+    anything, n (NC,) long tensor."""
+    i = torch.searchsorted(xp, x.contiguous(), right=True)
+    i = torch.minimum(torch.clamp(i, min=1), (n - 1).clamp(min=1)[:, None])
+    xp0, xp1 = torch.gather(xp, 1, i - 1), torch.gather(xp, 1, i)
+    fp0, fp1 = torch.gather(fp, 1, i - 1), torch.gather(fp, 1, i)
+    dx = xp1 - xp0
+    delta = x - xp0
+    eps = np.spacing(torch.finfo(xp.dtype).eps)
+    dx0 = torch.abs(dx) <= eps
+    f = torch.where(dx0, fp0, fp0 + (delta / torch.where(dx0, 1.0, dx))
+                    * (fp1 - fp0))
+    first = xp[:, :1]
+    last_i = (n - 1)[:, None]
+    f = torch.where(x < first, fp[:, :1], f)
+    return torch.where(x > torch.gather(xp, 1, last_i),
+                       torch.gather(fp, 1, last_i), f)
+
+
 def integrate_filter_apply(wave, spec, nfil, vfil, afil,
                            v_doppler=0.0, ispace=0, v_doppler_nominal=None):
-    """IFORM=Integrated_radiance integration with a retrieved Doppler
-    velocity (model 447)."""
-    raise NotImplementedError(
-        "filter integration with a retrieved Doppler shift comes with "
-        "model 447 (ROADMAP Queue 1 item 3)")
+    """Differentiable IFORM=Integrated_radiance integration with a possibly
+    retrieved Doppler velocity (model 447 retrieves v_doppler; the
+    reference integrate_filter corrects the calc grid first,
+    Measurement_0.py:2720).
+
+    Channel membership (which calc points fall inside each filter span) is
+    fixed at the grid corrected by the *nominal* velocity, as in the JAX
+    package, where membership is a static index set under jit; the
+    integrand stays exactly differentiable in ``v_doppler`` around that
+    nominal. The JAX package loops over the channels; here the members
+    are one padded (NCONV, max members) gather (a channel's members are a
+    contiguous run of the ascending grid) and each channel's filter is
+    interpolated and trapezoid-integrated over its run under a mask, so an
+    evaluation makes the same few launches whatever NCONV.
+
+    ``wave``: the rest-frame calc grid (host numpy or a tensor); ``spec``
+    (NWAVE,) tensor; ``nfil``/``vfil``/``afil`` the .fil tables (host).
+    """
+    if v_doppler_nominal is None:
+        v_doppler_nominal = float(v_doppler)
+    # a tensor's values through .tolist(): .numpy() raises inside torch.func
+    wave_np = np.asarray(wave.detach().cpu().tolist()
+                         if isinstance(wave, torch.Tensor) else wave,
+                         dtype=np.float64)
+    wave_nom = doppler_corrected_wave(wave_np, v_doppler_nominal, ispace)
+    nfil = np.asarray(nfil).astype(np.int64)
+    vfil, afil = np.asarray(vfil), np.asarray(afil)
+    nconv = nfil.shape[0]
+    first = np.empty(nconv, dtype=np.int64)
+    count = np.empty(nconv, dtype=np.int64)
+    for j in range(nconv):
+        sel = np.where((wave_nom >= vfil[0, j])
+                       & (wave_nom <= vfil[nfil[j] - 1, j]))[0]
+        first[j] = sel[0] if sel.size else 0
+        count[j] = sel.size
+    m = max(int(count.max()), 2)
+    k = np.arange(m)
+    idx = first[:, None] + np.minimum(k[None, :],
+                                      np.maximum(count[:, None] - 1, 0))
+    # the padded filter tables, one row per channel, +inf past each filter
+    nmax = int(nfil.max())
+    col = np.arange(nmax)[None, :] < nfil[:, None]
+    xp = np.where(col, vfil[:nmax].T, np.inf)
+    fp = np.where(col, afil[:nmax].T, 0.0)
+
+    dev = dict(device=spec.device)
+    dt = dict(dtype=spec.dtype, **dev)
+    idx_t = torch.as_tensor(idx, **dev)
+    pair = torch.as_tensor(k[None, 1:] < count[:, None], **dev)
+    wavecorr = doppler_corrected_wave(torch.as_tensor(wave_np, **dt),
+                                      v_doppler, ispace)
+    xs = wavecorr[idx_t]
+    af = _interp_rows(xs, torch.as_tensor(xp, **dt), torch.as_tensor(fp, **dt),
+                      torch.as_tensor(nfil, **dev))
+    y = af * spec[idx_t]
+    seg = (xs[:, 1:] - xs[:, :-1]) * (y[:, 1:] + y[:, :-1])
+    return 0.5 * torch.sum(torch.where(pair, seg, 0.0), dim=1)

@@ -32,6 +32,14 @@ from archnemesis_tpu_torch.rt.atmosphere import (
 )
 
 
+# the JAX package's model ids the port does not register yet, with the
+# module each waits for
+_WAITING = {
+    202: "the telluric structure of rt/telluric.py",
+    1002: "the multi-location atmosphere of multiloc.py",
+}
+
+
 @dataclass(frozen=True)
 class StateVector:
     """Static state-vector description + a-priori."""
@@ -92,6 +100,12 @@ def read_apr(path: str, atm: Atmosphere) -> StateVector:
             for _ in range(nvar):
                 varident = [int(v) for v in f.readline().split()[:3]]
                 model_id = varident[2]
+                if model_id in _WAITING:
+                    raise NotImplementedError(
+                        f"model id {model_id} (varident={varident}): not "
+                        f"ported yet ({_WAITING[model_id]}, ROADMAP Queue 1 "
+                        "item 9)"
+                    )
                 if model_id not in MODEL_REGISTRY:
                     raise NotImplementedError(
                         f"model id {model_id} not implemented (varident={varident})"
@@ -198,17 +212,18 @@ def ils_models_present(sv: StateVector) -> bool:
     )
 
 
-def apply_ils_models(sv: StateVector, xn, igeom: int, vconv):
+def apply_ils_models(sv: StateVector, xn, igeom: int, vconv, **kw):
     """Differentiable instrument-lineshape parameterisations (models
     228/229/230): returns (vconv', offset, fwhm, amp) per-channel double-
-    Gaussian parameters from the last ils-domain model, or None."""
+    Gaussian parameters from the last ils-domain model, or None. ``kw``
+    goes to each model (``vconv_host``: the grid as host numpy)."""
     x = _unlog(sv, xn)
     out = None
     for e in sv.entries:
         model = MODEL_REGISTRY[e.model_id]
         if getattr(model, "domain", "atmosphere") != "ils":
             continue
-        out = model.apply_ils(e, igeom, vconv, x[e.ix : e.ix + e.nx])
+        out = model.apply_ils(e, igeom, vconv, x[e.ix : e.ix + e.nx], **kw)
     return out
 
 

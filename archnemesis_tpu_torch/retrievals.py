@@ -10,7 +10,10 @@ with ``torch.func.jacfwd`` Jacobians. Every entry point takes ``device``
 counterpart of the JAX package's ``cast_dtype``).
 
 Ported: ISCAT = thermal emission, multiple scattering and plane-parallel
-single scattering with nadir FOV points, LIN 0-3 chaining, resume. Limb FOV
+single scattering with nadir FOV points, every instrument function of the
+nadir set-up (channel interpolation, the static ILS and filter weights, the
+double-Gaussian ILS of models 228-230, filter integration with a retrieved
+Doppler shift), LIN 0-3 chaining, resume. Limb FOV
 points, telluric transmission, the other set-ups (SO, limb, transit, disc,
 combined) and nested sampling raise ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that brings them.
@@ -45,8 +48,10 @@ from archnemesis_tpu_torch.ops.convolution import (
     conv_channel_interp,
     conv_quad_weights,
     doppler_corrected_wave,
+    double_gauss_ils_weights,
     ils_weights_filter,
     ils_weights_lbl,
+    integrate_filter_apply,
     integrate_filter_weights,
     invert_doppler_shift,
 )
@@ -57,6 +62,7 @@ from archnemesis_tpu_torch.rt.scattering import ScatterQuadrature
 from archnemesis_tpu_torch.retrieval.statevector import (
     StateVector,
     apply_domain,
+    apply_ils_models,
     apply_spectrum_models,
     apply_state,
     ils_models_present,
@@ -297,10 +303,9 @@ def make_retrieval_setup(
     def dev(x):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
-    # per-geometry static setup
-    if any(e.model_id == 447 for e in sv.entries):
-        _not_ported("model 447 (retrieved Doppler)",
-                    "ROADMAP Queue 1 item 3")
+    # per-geometry static setup; model 447 retrieves the Doppler velocity,
+    # so the observer-frame grid becomes a function of the state
+    has_447 = any(e.model_id == 447 for e in sv.entries)
     geoms = []
     for ig in range(geom.ngeom):
         nc = geom.nconv[ig]
@@ -334,8 +339,15 @@ def make_retrieval_setup(
             # differentiable double-Gaussian ILS models 228/229/230
             # (reference calc_wave_range Measurement_0.py:2090-2105)
             if ils_models_present(sv):
-                _not_ported("ILS models 228/229/230",
-                            "ROADMAP Queue 1 item 3")
+                vc_a, off_a, fw_a, _ = (
+                    v.numpy() for v in apply_ils_models(
+                        sv, sv.xa, ig, torch.as_tensor(vconv),
+                        vconv_host=vconv)
+                )
+                half = 2.5 * fw_a.max() + np.abs(off_a).max()
+                wavemin = vc_a.min() - 1.5 * half
+                wavemax = vc_a.max() + 1.5 * half
+                ils_w = "dynamic"
             elif geom.nfil is not None:
                 wavemin = geom.vfil[0, :].min()
                 wavemax = max(
@@ -345,6 +357,11 @@ def make_retrieval_setup(
                 ils_w = "filter"
             else:
                 raise ValueError("FWHM<0 requires a .fil file or an ILS model")
+        if has_447 and ils_w not in (None, "dynamic", "intfilter"):
+            raise NotImplementedError(
+                "model 447 (retrieved Doppler) needs a differentiable "
+                "convolution path: FWHM=0, ILS models 228/229/230, or "
+                "IFORM=Integrated_radiance")
         # a Doppler shift widens the needed rest-frame calc range
         # (reference calc_wave_range Measurement_0.py:2113-2115)
         if st.v_doppler != 0.0:
@@ -381,12 +398,12 @@ def make_retrieval_setup(
                     wavecorr, np.asarray(vconv), geom.fwhm,
                     InstrumentLineshape(st.ishape),
                 ))
-        elif isinstance(ils_w, str) and ils_w == "filter":
+        elif ils_w == "filter":
             ils_w = dev(ils_weights_filter(
                 wavecorr, np.asarray(vconv),
                 geom.nfil, geom.vfil, geom.afil,
             ))
-        elif isinstance(ils_w, str) and ils_w == "intfilter":
+        elif ils_w == "intfilter" and not has_447:
             ils_w = dev(integrate_filter_weights(
                 wavecorr, np.asarray(vconv),
                 geom.nfil, geom.vfil, geom.afil,
@@ -396,10 +413,11 @@ def make_retrieval_setup(
         xfac_g = (dev(_iform_xfac(st.iform, deck.atmosphere, deck.stellar,
                                   wave_host))
                   if st.iform in flux_units else 1.0)
-        # the observer-frame calc grid and the channel centres, on the
-        # device once (the state does not move them: model 447 is not
-        # ported)
-        geoms.append((ig, vconv, dev(vconv), ktw, dev(wavecorr), ils_w,
+        # the channel centres and the calc grid on the device once: the
+        # observer-frame grid where the state does not move it, else the
+        # rest-frame grid, corrected per evaluation (model 447)
+        geoms.append((ig, vconv, dev(vconv), ktw, wave_host,
+                      dev(wave_host if has_447 else wavecorr), ils_w,
                       xfac_g))
 
     cfg = make_forward_config(
@@ -437,8 +455,9 @@ def make_retrieval_setup(
     aero_wave = (None if deck.aerosol is None
                  else deck.aerosol.wave.detach().cpu().double().numpy())
     cia = deck.cia
-    cia_range = None
+    cia_range = cia_waven = None
     if cia is not None:
+        cia_waven = cia.waven.detach().cpu().double().numpy()
         # spectroscopy wave range in cm-1 for CIA-domain models
         # (reference model_500 hook, model_500.py:185-196)
         tw = _host_wave(deck.ktables)
@@ -459,10 +478,16 @@ def make_retrieval_setup(
             if deck.aerosol is not None
             else None
         )
-        cia_x = (apply_domain(sv, xn, "cia", cia, wave_range=cia_range)
+        cia_x = (apply_domain(sv, xn, "cia", cia, wave_range=cia_range,
+                              waven_host=cia_waven)
                  if cia is not None else None)
+        # measurement-domain models (447: retrieved Doppler velocity)
+        v_dop = (apply_domain(sv, xn, "measurement",
+                              {"v_doppler": st.v_doppler})["v_doppler"]
+                 if has_447 else st.v_doppler)
         out = []
-        for ig, vconv, vconv_dev, ktw, wave_obs, ils_w, xfac_g in geoms:
+        for (ig, vconv, vconv_dev, ktw, wave_host, wave_dev, ils_w,
+             xfac_g) in geoms:
             spec_sum = 0.0
             for iav in range(geom.nav[ig]):
                 spec = nadir_spectrum(atm, ktw, cia_x, aero, surf, ig, iav)
@@ -471,17 +496,33 @@ def make_retrieval_setup(
             # WITHOUT dividing by the weight total (nemesisfm
             # ForwardModel_0.py:530-535; FOV weights are pre-normalised)
             spec_sum = spec_sum * xfac_g
+            vconv_out = vconv_dev
+            # observer-frame calc grid (reference corrects Wave by the
+            # Doppler shift inside conv/lblconv, Measurement_0.py:2149);
+            # differentiable in v_dop when model 447 retrieves it
+            wave_obs = (doppler_corrected_wave(wave_dev, v_dop, st.ispace)
+                        if has_447 else wave_dev)
             if ils_w is None:
                 conv = conv_channel_interp(wave_obs, spec_sum, vconv_dev)
-            else:
+            elif isinstance(ils_w, torch.Tensor):
                 conv = apply_ils(ils_w, spec_sum)
+            elif ils_w == "dynamic":
+                vconv_out, off, fw, amp = apply_ils_models(
+                    sv, xn, ig, vconv_dev, vconv_host=vconv)
+                conv = apply_ils(double_gauss_ils_weights(
+                    wave_obs, vconv_out, off, fw, amp), spec_sum)
+            else:  # "intfilter" with a retrieved Doppler shift
+                conv = integrate_filter_apply(
+                    wave_host, spec_sum, geom.nfil, geom.vfil, geom.afil,
+                    v_doppler=v_dop, ispace=st.ispace,
+                    v_doppler_nominal=st.v_doppler)
             if st.iform == SpectraUnit.Normalised_radiance:
                 # normalise to the radiance at VNORM (reference nemesisfm
                 # ForwardModel_0.py:581-583)
                 vnorm = dev(st.vnorm)
-                conv = conv / interp(vnorm, vconv_dev, conv, left=conv[0],
+                conv = conv / interp(vnorm, vconv_out, conv, left=conv[0],
                                      right=conv[-1])
-            out.append(apply_spectrum_models(sv, xn, ig, vconv_dev, conv))
+            out.append(apply_spectrum_models(sv, xn, ig, vconv_out, conv))
         return torch.cat(out)
 
     return RetrievalSetup(

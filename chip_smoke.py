@@ -157,6 +157,28 @@ without them. Phases, each of which fails the run on its own:
     evaluation in float64 and float32 (``SCAT_JACOBIAN_RUNS``), float32
     within 5e-4 of float64; the wall-clock of
     ``retrieval_nemesis(niter=3)`` on a copy of the deck;
+18. the remaining models on the card ("models"): every model golden of
+    the JAX package's model tests in float64 at their own tolerances
+    (``model_golden_cases``: the profile, domain, spectral, exoplanet and
+    Venus models on ``models_apply.npz``, ``models_domain.npz`` and
+    ``models_exo_venus.npz``, ILS models 228-230 on ``ils_models.npz`` at
+    5e-4 with a finite, nonzero ``jacfwd`` through 229, model 446 on an
+    in-memory size lookup, 500 on the reference formula); the closed
+    forms of the knee profile and of model 9 against their level loops
+    (``knee_profile_loop``, ``model9_loop``) at rtol 1e-12, with the
+    tensor operations of each form; then two
+    composed copies of ``jupiter_nadir``: ``models_nadir``
+    (``models_nadir_deck``: model 0 and nine fixture blocks, NX = 101) and
+    ``models_ils`` (``models_ils_deck``: 350 channels, FWHM < 0, models 0,
+    229 and 447, NX = 89), each in float64 against the port's CPU run of
+    the same set-up (forward at rtol 1e-10, every column of the new models
+    and three of model 0 within 1e-8 of their peaks), 6 primal launches a
+    forward and 6 fused launches an evaluation, float32 against float64
+    (spectrum within 1e-4, each Jacobian column within ``JAC_F32_BOUND``
+    of its peak, the columns outside it printed), the median time, peak
+    memory and tensor operations of an evaluation beside those of the
+    deck's own state vector; and the wall-clock of
+    ``retrieval_nemesis(niter=3)`` on ``models_nadir``, whose phi must fall;
 
 then a JSON line of the kernels (launches on the main paths, error, times,
 bound, library time) and, last, ``{"ok": true, "device": {...}}``. ``--profile`` adds
@@ -2597,6 +2619,789 @@ def phase_scattering_retrieval(profile: bool = False):
     return launches
 
 
+
+# ---- the remaining models: profile, spectral, measurement, ILS, optics ---
+
+MODELS_FIXTURES = "tests/fixtures/models"
+MODELS_APPLY_GOLDEN = "tests/goldens/models_apply.npz"
+MODELS_DOMAIN_GOLDEN = "tests/goldens/models_domain.npz"
+MODELS_EXO_GOLDEN = "tests/goldens/models_exo_venus.npz"
+ILS_GOLDEN = "tests/goldens/ils_models.npz"
+# the blocks of tests/fixtures/models appended to the jupiter_nadir deck's
+# own temperature block (model 0) in the models_nadir case
+MODELS_NADIR_BLOCKS = ("m1_knee", "m2_scale", "m3_logscale", "m45_ch4",
+                       "m9_cloud", "m887_xsc", "m447_doppler", "m231_poly",
+                       "m667_dilution")
+# the models_ils case: the channels kept (cm-1), the .spx FWHM (< 0: the
+# ILS comes from the state) and model 229's a priori and errors (main
+# Gaussian offsets A0, A1, A2 and the second Gaussian's DELDG [cm-1], FWHM
+# at the first channel [cm-1], the second Gaussian's amplitude at both
+# ends). 229's FWHM grows with the square of the wavenumber, 4.7-fold over
+# 600-1300 cm-1 (8 to 37.6 cm-1, 3 to 15 calc points of 2.5 cm-1), and the
+# widened calc range 454-1446 cm-1 stays inside the k-tables' 5-1500 cm-1;
+# over the deck's whole 5-1399 cm-1 it would grow 78,000-fold and the range
+# would leave the tables below 5 cm-1
+MODELS_ILS_CHANNELS = (600.0, 1300.0)
+MODELS_ILS_FWHM = -1.0
+MODELS_ILS_229 = ((0.2, 0.1), (-0.1, 0.1), (0.15, 0.1), (3.0, 0.5),
+                  (8.0, 1.0), (0.3, 0.05), (0.2, 0.05))
+# the profile goldens of tests/test_models.py (parse and apply_state), and
+# the two applied directly (the reference's wrappers of 9 and 49 are broken
+# upstream, so their goldens come from direct calculate calls)
+PROFILE_CASES = ("m0_temp", "m1_knee", "m2_scale", "m3_logscale",
+                 "m4_kneevar", "m20_kneetrop", "m32_cloudp", "m45_ch4",
+                 "m47_gauss", "m50_scaleprof", "m51_setprof", "mm1_aeroprof")
+DOMAIN_CASES = ("m999_tsurf", "m777_tanhe", "m666_ptan", "m887_xsc",
+                "m231_poly", "m232_angstrom", "m233_quad", "m667_dilution")
+ILS_RTOL = 5.0e-4  # tests/test_ils_models.py: the interpolation limit
+MODELS_EVAL_RUNS = 5
+
+
+def _model_atmosphere(device):
+    """jupiter_nadir's deck (port reader) with its atmosphere on ``device``."""
+    from archnemesis_tpu_torch.io.legacy import load_deck
+
+    deck = load_deck(DECK, "cirstest")
+    return deck, deck.atmosphere.to(device)
+
+
+def _apr_case(d, name, atm):
+    """Parse a fixture .apr and hold XA/SA/LX to golden ``d`` at the JAX
+    tests' tolerances; returns the state vector."""
+    from archnemesis_tpu_torch.retrieval.statevector import read_apr
+
+    sv = read_apr(f"{MODELS_FIXTURES}/{name}/test.apr", atm)
+    np.testing.assert_allclose(sv.xa, d[f"{name}_XA"], rtol=1e-10,
+                               err_msg=name)
+    np.testing.assert_allclose(sv.sa, d[f"{name}_SA"], rtol=1e-8, atol=1e-30,
+                               err_msg=name)
+    np.testing.assert_array_equal(sv.lx, d[f"{name}_LX"], err_msg=name)
+    return sv
+
+
+def _np(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().double().numpy()
+    return np.asarray(x, dtype=np.float64)
+
+
+def _profile_case(name, device):
+    import torch
+
+    from archnemesis_tpu_torch.models import MODEL_REGISTRY
+    from archnemesis_tpu_torch.retrieval.statevector import apply_state
+
+    d = np.load(MODELS_APPLY_GOLDEN)
+    _, atm = _model_atmosphere(device)
+    sv = _apr_case(d, name, atm)
+    if name == "m9_cloud":
+        x = np.array([np.exp(sv.xa[0]), np.exp(sv.xa[1]), sv.xa[2]])
+        out = MODEL_REGISTRY[9].apply(sv.entries[0], atm,
+                                      torch.as_tensor(x, device=device))
+        np.testing.assert_allclose(_np(out.dust), d["m9_cloud_DUST"],
+                                   rtol=1e-8, atol=1e-38)
+        return
+    if name == "m49_refgas":
+        out = MODEL_REGISTRY[49].apply(
+            sv.entries[0], atm, torch.as_tensor(np.exp(sv.xa), device=device))
+        np.testing.assert_allclose(_np(out.vmr), d["m49_refgas_VMR"],
+                                   rtol=1e-10)
+        return
+    out = apply_state(atm, torch.as_tensor(sv.xa, device=device), sv)
+    np.testing.assert_allclose(_np(out.t), d[f"{name}_T"], rtol=1e-8,
+                               err_msg=f"{name} T")
+    np.testing.assert_allclose(_np(out.vmr), d[f"{name}_VMR"], rtol=1e-8,
+                               atol=1e-40, err_msg=f"{name} VMR")
+    np.testing.assert_allclose(_np(out.dust), d[f"{name}_DUST"], rtol=1e-7,
+                               atol=1e-38, err_msg=f"{name} DUST")
+    np.testing.assert_allclose(_np(out.h), d[f"{name}_H"], rtol=1e-7,
+                               atol=1e-3, err_msg=f"{name} H")
+    renorm = d[f"{name}_RENORM"]
+    if renorm.max() > 0:
+        np.testing.assert_allclose(_np(out.dust_renorm), renorm, rtol=1e-10)
+
+
+def _domain_case(name, device):
+    import torch
+
+    from archnemesis_tpu_torch.retrieval.statevector import (
+        apply_domain,
+        apply_spectrum_models,
+        apply_state,
+    )
+
+    d = np.load(MODELS_DOMAIN_GOLDEN)
+    deck, atm = _model_atmosphere(device)
+    sv = _apr_case(d, name, atm)
+    xa = torch.as_tensor(sv.xa, device=device)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float64,
+                               device=device)
+
+    nconv = int(deck.geometry.nconv[0])
+    if name == "m999_tsurf":
+        surf = apply_domain(sv, xa, "surface", deck.surface.to(device))
+        np.testing.assert_allclose(float(surf.tsurf),
+                                   float(d["m999_tsurf_TSURF"]))
+    elif name == "m777_tanhe":
+        ms = apply_domain(sv, xa, "measurement", {})
+        np.testing.assert_allclose(12.0 + float(ms["tanhe_shift"]),
+                                   d["m777_tanhe_TANHE"][0])
+    elif name == "m666_ptan":
+        out = apply_state(atm, xa, sv, adjust_hydrostat=False)
+        np.testing.assert_allclose(_np(out.p), d["m666_ptan_P"], rtol=1e-8)
+    elif name == "m887_xsc":
+        aero = apply_domain(sv, xa, "scatter", deck.aerosol.to(device))
+        np.testing.assert_allclose(_np(aero.kext), d["m887_xsc_KEXT"],
+                                   rtol=1e-10)
+    elif name in ("m231_poly", "m667_dilution"):
+        got = apply_spectrum_models(sv, xa, 0, t(d["VCONV"][:nconv, 0]),
+                                    t(d["SPECMOD_IN"][:nconv, 0]))
+        np.testing.assert_allclose(_np(got), d[f"{name}_SPECMOD"][:nconv, 0],
+                                   rtol=1e-10)
+    else:  # m232_angstrom, m233_quad
+        got = apply_spectrum_models(sv, xa, 0, t(d[f"{name}_WAVEC"]),
+                                    t(d[f"{name}_SPEC_IN"]))
+        np.testing.assert_allclose(_np(got), d[f"{name}_SPECMOD"],
+                                   rtol=1e-10)
+
+
+def venus_atmosphere(device):
+    """The 40-level Venus atmosphere of tests/test_models_exo_venus.py."""
+    from archnemesis_tpu_torch.core.types import Atmosphere
+
+    npro = 40
+    h = np.linspace(0.0, 90.0e3, npro)
+    arrays = dict(
+        h=h, p=9.2e6 * np.exp(-h / 15.9e3),
+        t=np.linspace(730.0, 170.0, npro),
+        vmr=np.stack([np.full(npro, 0.965), np.full(npro, 1.5e-4)], axis=1),
+        dust=np.zeros((npro, 4)), parah2=np.zeros(npro),
+        molwt=np.full(npro, 43.45e-3), radius=np.asarray(6.0518e6),
+        latitude=np.asarray(0.0))
+    import torch
+
+    return Atmosphere(
+        **{k: torch.as_tensor(v, device=device) for k, v in arrays.items()},
+        gas_id=(2, 9), iso_id=(0, 0), planet=2)
+
+
+def _exo_case(name, device):
+    import io
+
+    import torch
+
+    from archnemesis_tpu_torch.models import MODEL_REGISTRY
+    from archnemesis_tpu_torch.models.base import ModelEntry, ProfileTarget
+    from archnemesis_tpu_torch.retrieval.statevector import apply_domain
+
+    d = np.load(MODELS_EXO_GOLDEN)
+    _, atm = _model_atmosphere(device)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64),
+                               device=device)
+
+    if name == "m43_guillot":
+        apr = io.StringIO(
+            "0.3 0.05\n0.8 0.1\n1.0e-3 2e-4\n0.2 0.05\n2.0 0.4\n"
+            "5700.0 6.96e8 7.78e11 150.0\n")
+        ctx = dict(npro=atm.np_, gas_id=atm.gas_id, iso_id=atm.iso_id,
+                   ndust=atm.ndust)
+        res = MODEL_REGISTRY[43].from_apr(apr, [0, 0, 43], 0, ctx)
+        out = MODEL_REGISTRY[43].apply(res.entry, atm,
+                                       t([0.3, 0.8, 1.0e-3, 0.2, 2.0]))
+        np.testing.assert_allclose(_np(out.t), d["m43_T"], rtol=1e-7)
+    elif name == "m62_madhu":
+        sv = _apr_case(d, name, atm)
+        x = np.where(sv.lx == 1, np.exp(sv.xa), sv.xa)
+        out = MODEL_REGISTRY[62].apply(sv.entries[0], atm, t(x))
+        np.testing.assert_allclose(_np(out.t), d["m62_T"], rtol=1e-10)
+    elif name == "m447_doppler":
+        sv = _apr_case(d, name, atm)
+        ms = apply_domain(sv, t(sv.xa), "measurement", {})
+        np.testing.assert_allclose(float(ms["v_doppler"]), 3.5)
+    else:  # m110_venus, m111_venus
+        venus = venus_atmosphere(device)
+        mid = 110 if name == "m110_venus" else 111
+        e = ModelEntry(varident=(-1, 0, mid), model_id=mid, ix=0,
+                       nx=1 if mid == 110 else 3,
+                       target=ProfileTarget.AEROSOL, target_idx=0,
+                       extra=() if mid == 110 else (1,))
+        x = [2.5] if mid == 110 else [-1.5, 1.0e-4, 5.0e-6]
+        out = MODEL_REGISTRY[mid].apply(e, venus, t(x))
+        np.testing.assert_allclose(_np(out.dust), d[f"m{mid}_DUST"],
+                                   rtol=1e-10, atol=1e-30)
+        if mid == 111:
+            np.testing.assert_allclose(_np(out.vmr), d["m111_VMR"],
+                                       rtol=1e-10)
+
+
+def model_entry(model_id, nx, extra=()):
+    """A ModelEntry of ``model_id`` that targets no profile (the entries of
+    the ILS, optics and spectral models), at the start of the state."""
+    from archnemesis_tpu_torch.models.base import ModelEntry, ProfileTarget
+
+    return ModelEntry(
+        varident=(model_id, 0, model_id), model_id=model_id, ix=0, nx=nx,
+        target=ProfileTarget.NOT_ATMOSPHERIC, extra=extra)
+
+
+def ils_model_spectrum(model_id, x, device, d=None):
+    """(vconv', convolved spectrum) of ILS model 228, 229 or 230 on the
+    golden's grid, spectrum and parameters ``x`` (a tensor)."""
+    import torch
+
+    from archnemesis_tpu_torch.models import MODEL_REGISTRY
+    from archnemesis_tpu_torch.ops.convolution import (
+        apply_ils,
+        double_gauss_ils_weights,
+    )
+
+    d = np.load(ILS_GOLDEN) if d is None else d
+    nx, extra = {228: (8, ()), 229: (7, ())}.get(model_id, (14, None))
+    if model_id == 230:
+        lims = tuple((float(lo), float(hi))
+                     for lo, hi in zip(d["LIML"], d["LIMH"]))
+        extra = (2, lims)
+    vc, off, fw, amp = MODEL_REGISTRY[model_id].apply_ils(
+        model_entry(model_id, nx, extra), 0,
+        torch.as_tensor(d["VCONV"], device=device), x)
+    w = double_gauss_ils_weights(d["WAVE"], vc, off, fw, amp)
+    return vc, apply_ils(w, torch.as_tensor(d["SPEC"], device=device))
+
+
+def ils_parameters(model_id, d):
+    """Model ``model_id``'s parameters in the ILS golden (230: window-major,
+    7 per window)."""
+    return {228: d["P228"], 229: d["P229"],
+            230: d["PAR230"].T.reshape(-1)}[model_id]
+
+
+def _ils_case(name, device):
+    import torch
+
+    d = np.load(ILS_GOLDEN)
+    mid = int(name[1:4])
+    x = torch.as_tensor(ils_parameters(mid, d), device=device)
+    vc, y = ils_model_spectrum(mid, x, device, d)
+    if mid == 228:
+        np.testing.assert_allclose(_np(vc), d["VCONV228"], rtol=1e-12)
+    np.testing.assert_allclose(_np(y), d[f"Y{mid}"], rtol=ILS_RTOL)
+    if mid == 229:
+        jac = torch.func.jacfwd(
+            lambda p: ils_model_spectrum(229, p, device, d)[1])(x)
+        if not (torch.isfinite(jac).all() and jac.abs().max() > 0):
+            raise AssertionError("model 229's Jacobian is not finite or is 0")
+
+
+def model446_lookup():
+    """(entry extras, aerosol waves, radius) of the in-memory size lookup
+    of tests/test_optics_models.py (no HDF5 file)."""
+    rng = np.random.default_rng(11)
+    wave_lu = np.linspace(800.0, 1400.0, 25)
+    reff = np.array([0.1, 0.5, 1.0, 2.0, 5.0])
+    kext_lu = rng.uniform(0.5, 2.0, (25, 5)).cumsum(axis=1)
+    alb_lu = rng.uniform(0.2, 0.9, (25, 5))
+    return ((1, 1, 1000.0, wave_lu, reff, kext_lu, alb_lu),
+            np.linspace(850.0, 1350.0, 40))
+
+
+def model500_cia(device):
+    """The CIA table of tests/test_optics_models.py's model 500 case."""
+    import torch
+
+    from archnemesis_tpu_torch.core.spectra import CIATables
+    from archnemesis_tpu_torch.enums import ParaH2Ratio
+
+    arrays = dict(waven=np.linspace(0.0, 2000.0, 201),
+                  temp=np.array([100.0, 200.0]), frac=np.array([0.25]),
+                  k_cia=np.full((2, 1, 2, 201), 7.0))
+    return CIATables(
+        **{k: torch.as_tensor(v, device=device) for k, v in arrays.items()},
+        pair_gas1=(39, 39), pair_gas2=(39, 40), inormalt=(None, None),
+        npara=0, inormal=ParaH2Ratio.EQUILIBRIUM)
+
+
+def _optics_case(name, device):
+    import torch
+    from scipy.interpolate import interp1d
+
+    from archnemesis_tpu_torch.core.spectra import AerosolOptics
+    from archnemesis_tpu_torch.models import MODEL_REGISTRY
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64),
+                               device=device)
+
+    if name == "m446_lookup":
+        extra, aero_wave = model446_lookup()
+        _, _, xwave, wave_lu, reff, kext_lu, alb_lu = extra
+        aero = AerosolOptics(wave=t(aero_wave), kext=t(np.ones((40, 2))),
+                             ksca=t(np.ones((40, 2))))
+        k1 = interp1d(wave_lu, kext_lu, axis=0)(aero_wave)
+        a1 = interp1d(wave_lu, alb_lu, axis=0)(aero_wave)
+        for r, r_table in ((0.73, 0.73), (99.0, 5.0)):  # and clamped
+            out = MODEL_REGISTRY[446].apply_scatter(
+                model_entry(446, 1, extra), aero, t([r]))
+            kx = interp1d(reff, k1, axis=1)(r_table)
+            ax = interp1d(reff, a1, axis=1)(r_table)
+            kx = kx / np.interp(xwave, aero_wave, kx)
+            np.testing.assert_allclose(_np(out.kext)[:, 1], kx, rtol=1e-10)
+            np.testing.assert_allclose(_np(out.ksca)[:, 1], ax * kx,
+                                       rtol=1e-10)
+    else:  # m500_basis: the reference formula (model_500.py:79-95)
+        nbasis, amps = 5, np.array([2.0, 1.0, 3.0, 0.5, 1.5])
+        out = MODEL_REGISTRY[500].apply_cia(
+            model_entry(500, nbasis, (1,)), model500_cia(device), t(amps),
+            wave_range=(400.0, 1600.0))
+        k = _np(out.k_cia)
+        ilo, ihi = 40, 160
+        width = (ihi - ilo) / nbasis
+        centers = np.linspace(ilo, ihi, nbasis)
+        xs = np.arange(ilo, ihi + 1)
+        g = np.exp(-((xs[:, None] - centers[None, :]) ** 2)
+                   / (2 * width**2))
+        expect = g @ (amps * 1e-40)
+        assert np.all(k[0] == 0.0)
+        for it in range(2):
+            np.testing.assert_allclose(k[1, 0, it, ilo:ihi + 1], expect,
+                                       rtol=1e-12)
+        assert np.all(k[1, 0, 0, :ilo] == 0.0)
+        assert np.all(k[1, 0, 0, ihi + 1:] == 0.0)
+
+
+def _radius_case(name, device):
+    """Models 555/556 (tests/test_models_domain.py: the override is
+    honoured for a catalogue planet)."""
+    import io
+
+    import torch
+
+    from archnemesis_tpu_torch.models import MODEL_REGISTRY
+
+    _, atm = _model_atmosphere(device)
+    res = MODEL_REGISTRY[555].from_apr(io.StringIO("5.0 1.0\n"),
+                                       [555, 0, 555], 0, {})
+    a1 = MODEL_REGISTRY[555].apply(
+        res.entry, atm, torch.tensor([5.0], dtype=torch.float64,
+                                     device=device))
+    res = MODEL_REGISTRY[556].from_apr(io.StringIO("1.01 0.005\n"),
+                                       [556, 0, 556], 0, {})
+    a2 = MODEL_REGISTRY[556].apply(
+        res.entry, atm, torch.tensor([1.01], dtype=torch.float64,
+                                     device=device))
+    np.testing.assert_allclose(float(a2.planet_radius) / 1.01,
+                               float(a1.planet_radius) - 5.0e3, rtol=1e-10)
+
+
+def knee_profile_loop(atm, abu_deep, fsh, pknee_atm):
+    """The JAX package's level scan of the knee profile (models 1, 4, 20;
+    ``archnemesis_tpu/models/profile_models.py:_knee_profile``) as a loop
+    over the levels: the reference that ``models.profile_models.
+    _knee_profile``, a closed form, is held to, and whose operations the
+    models phase counts beside it."""
+    import torch
+
+    from archnemesis_tpu_torch.models import profile_models as pm
+
+    xfac = (1.0 - fsh) / fsh
+    pknee_pa = pknee_atm * 101325.0
+    hknee = pm._hknee_from_p(atm, pknee_pa)
+    scale = pm._atm_scale_height(atm)
+    h_prev = torch.cat([atm.h[:1], atm.h[:-1]])
+    prev, seen, out = atm.h.new_zeros(()), False, []
+    for j in range(atm.h.shape[0]):
+        delh = atm.h[j] - h_prev[j] if seen else atm.h[j] - hknee
+        above = bool(atm.p[j] < pknee_pa)
+        val = (pm._maximum(prev * torch.exp(-delh * xfac / scale[j]), 1e-36)
+               if above else abu_deep)
+        seen = seen or above
+        out.append(val)
+        prev = val
+    return torch.stack(out)
+
+
+def model9_loop(atm, x):
+    """Model 9's cloud (``archnemesis_tpu/models/profile_models.py:545``)
+    with the JAX package's level scan as a loop over the levels, beside
+    the closed form of ``models.profile_models.Model9``; returns the
+    normalised profile."""
+    import torch
+
+    from archnemesis_tpu_torch.models import profile_models as pm
+
+    tau, xfsh, hknee = x[0], x[1], x[2]
+    scale = pm._atm_scale_height(atm)
+    h_km = atm.h / 1.0e3
+    delh = torch.cat([atm.h.new_zeros(1), torch.diff(atm.h)])
+    prev, seen, out = atm.h.new_zeros(()), False, []
+    for j in range(atm.h.shape[0]):
+        above = bool(h_km[j] >= hknee)
+        if above and not seen:
+            val = torch.ones_like(prev)
+        elif above:
+            val = prev * torch.exp(-delh[j] / (scale[j] * xfsh))
+        else:
+            val = torch.zeros_like(prev)
+        seen = seen or above
+        out.append(val)
+        prev = val
+    nd = torch.stack(out)
+    h_next = torch.cat([h_km[1:], h_km[-1:] + 1.0])
+    frac = 1.0 - (hknee - h_km) * 1.0e3 / ((h_next - h_km) * 1.0e3)
+    nd = torch.where(h_km < hknee,
+                     torch.where(h_next >= hknee, nd * frac, 0.0), nd)
+    return nd / pm.simpson_nonuniform(nd, atm.h) * tau
+
+
+def model_golden_cases() -> dict:
+    """name -> check(device): every model golden of the JAX package's model
+    tests, on the port. Each raises if the port misses the golden at the
+    JAX test's own tolerance."""
+    cases = {n: _profile_case
+             for n in PROFILE_CASES + ("m9_cloud", "m49_refgas")}
+    cases.update({n: _domain_case for n in DOMAIN_CASES})
+    cases.update({n: _exo_case for n in ("m43_guillot", "m62_madhu",
+                                         "m447_doppler", "m110_venus",
+                                         "m111_venus")})
+    cases.update({n: _ils_case for n in ("m228_ils", "m229_ils",
+                                         "m230_ils")})
+    cases.update({n: _optics_case for n in ("m446_lookup", "m500_basis")})
+    cases["m555_m556_radius"] = _radius_case
+    return {name: (lambda device, fn=fn, name=name: fn(name, device))
+            for name, fn in cases.items()}
+
+
+def _apr_block(name: str) -> str:
+    """A fixture's model block: its .apr after the header and count."""
+    with open(f"{MODELS_FIXTURES}/{name}/test.apr") as f:
+        return "".join(f.readlines()[2:])
+
+
+def _write_apr(deck: str, blocks) -> None:
+    """The deck's cirstest.apr: its own temperature block (model 0), then
+    ``blocks``."""
+    apr = os.path.join(deck, "cirstest.apr")
+    with open(apr) as f:
+        own = f.readlines()[2:4]
+    with open(apr, "w") as f:
+        f.write("*** jupiter_nadir with the remaining models ***\n")
+        f.write(f"{1 + len(blocks)}\n")
+        f.write("".join(own))
+        for block in blocks:
+            f.write(block if block.endswith("\n") else block + "\n")
+
+
+def models_nadir_deck(base: str) -> str:
+    """A copy of jupiter_nadir under ``base`` whose .apr holds model 0
+    (temperature, 81 levels) and the fixture blocks of
+    ``MODELS_NADIR_BLOCKS``: a knee profile (NH3), a scaling (gas 26) and a
+    log scaling (gas 27), the CH4 humidity model, a cloud (dust 1), the
+    cross sections of model 887, a retrieved Doppler shift (447), a
+    polynomial scaling (231, with its scal231.dat) and a dilution (667).
+    Its .xsc is rewritten on 887's six wavelengths with 887's a-priori
+    cross sections and albedo 0, so that the cloud absorbs."""
+    deck = copy_deck(DECK, base)
+    _write_apr(deck, [_apr_block(n) for n in MODELS_NADIR_BLOCKS])
+    shutil.copy(f"{MODELS_FIXTURES}/m231_poly/scal231.dat", deck)
+    with open(f"{MODELS_FIXTURES}/m887_xsc/test.apr") as f:
+        rows = [line.split() for line in f.readlines()[4:]]
+    with open(os.path.join(deck, "cirstest.xsc"), "w") as f:
+        f.write("1\n")
+        for wave, xsc, _err in rows:
+            f.write(f"{wave}  {xsc}\n       0.0\n")
+    return deck
+
+
+def models_ils_deck(base: str) -> str:
+    """A copy of jupiter_nadir under ``base`` with its channels cut to
+    ``MODELS_ILS_CHANNELS``, its .spx FWHM set below 0 and an .apr of model
+    0, the double-Gaussian ILS of model 229 (a priori ``MODELS_ILS_229``)
+    and a retrieved Doppler shift (447): the set-up's "dynamic" ILS with a
+    moving observer-frame grid."""
+    deck = copy_deck(DECK, base)
+    spx = os.path.join(deck, "cirstest.spx")
+    with open(spx) as f:
+        lines = f.readlines()
+    lo, hi = MODELS_ILS_CHANNELS
+    rows = [r for r in lines[4:] if r.split()
+            and lo <= float(r.split()[0]) <= hi]
+    head = lines[0].split()
+    with open(spx, "w") as f:
+        f.write(f"{MODELS_ILS_FWHM:12.4f} {' '.join(head[1:])}\n")
+        f.write(f"{len(rows):11d}\n")
+        f.write("".join(lines[2:4]) + "".join(rows))
+    block229 = "229 0 229\n" + "".join(f"{v} {e}\n"
+                                       for v, e in MODELS_ILS_229)
+    _write_apr(deck, [block229, _apr_block("m447_doppler")])
+    return deck
+
+
+
+def _count_ops(fn):
+    """(fn(), the tensor operations it dispatched): on the card each is at
+    least one kernel launch, so the count is the launches the host issues
+    (the kernels' own ctypes launches are counted by their wrappers)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with _Count() as count:
+        out = fn()
+    return out, count.n
+
+
+def _cpu_jacobian_columns(setup, cols, chunk: int = 12):
+    """Columns ``cols`` of a CPU set-up's Jacobian at its a priori, as
+    (NY, len(cols)) float64: ``chunk`` tangents per ``vmap`` of ``jvp``."""
+    import torch
+
+    x = torch.as_tensor(setup.sv.xa)
+    parts = []
+    for i in range(0, len(cols), chunk):
+        part = cols[i:i + chunk]
+        basis = torch.zeros(len(part), setup.sv.nx, dtype=torch.float64)
+        basis[torch.arange(len(part)), torch.as_tensor(part)] = 1.0
+        _, dy = torch.func.vmap(
+            lambda v: torch.func.jvp(setup.forward_fn, (x,), (v,)),
+            out_dims=(None, 0))(basis)
+        parts.append(dy)
+    return torch.cat(parts).T
+
+
+def _time_evaluations(setup, x, runs: int):
+    """(median, min, max ms, peak GiB) of ``forward_and_jacobian`` over
+    ``runs`` runs after a warm-up, host clock ending in a synchronise,
+    each run checked to launch the fused kernel 6 times."""
+    import torch
+
+    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
+
+    forward_and_jacobian(setup.forward_fn, x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        _, launched = _fused_launches(
+            lambda: forward_and_jacobian(setup.forward_fn, x))
+        times.append((time.perf_counter() - t0) * 1e3)
+        if launched != 6:
+            raise AssertionError(f"{launched} fused launches, expected 6")
+    return (float(np.median(times)), min(times), max(times),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _models_case(name: str, deck: str, card: str, profile: bool = False):
+    """One composed deck on the card: the float64 forward and full Jacobian
+    against the port's CPU set-up, float32 against float64, the launches
+    and the time of an evaluation. Returns (primal launches of one
+    forward, fused launches of one evaluation)."""
+    import torch
+
+    from archnemesis_tpu_torch.ops.overlap_cuda import combine_pair
+    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
+    from archnemesis_tpu_torch.retrievals import make_retrieval_setup
+
+    s64 = make_retrieval_setup(deck, "cirstest", device="cuda")
+    cpu = make_retrieval_setup(deck, "cirstest", device="cpu")
+    nx, ny = s64.sv.nx, s64.y.shape[0]
+    xa = torch.as_tensor(s64.sv.xa, device="cuda")
+
+    # the main path of this case, counted on its own: one forward (kernel 1)
+    # and one forward-plus-Jacobian evaluation (kernel 1t)
+    combine_pair.launches = 0
+    y_card = s64.forward_fn(xa)
+    torch.cuda.synchronize()
+    primal = combine_pair.launches
+    if primal != 6:
+        raise AssertionError(f"{name}: {primal} primal launches, expected 6")
+    (yn, kk), fused = _fused_launches(
+        lambda: forward_and_jacobian(s64.forward_fn, xa))
+    if fused != 6:
+        raise AssertionError(f"{name}: {fused} fused launches, expected 6")
+    if kk.shape != (ny, nx) or not torch.isfinite(kk).all():
+        raise AssertionError(f"{name}: Jacobian not finite ({ny}, {nx})")
+    torch.testing.assert_close(yn, y_card, rtol=1e-12, atol=0)
+
+    # float64 on the card against the port's CPU run of the same set-up:
+    # every column of the new models, and model 0's levels 0, 40 and 80
+    # (phase 6 holds model 0's columns to the reference)
+    y_cpu = cpu.forward_fn(cpu.sv.xa).numpy()
+    y64 = y_card.cpu().numpy()
+    np.testing.assert_allclose(y64, y_cpu, rtol=1e-10, atol=0)
+    cols = [c for e in s64.sv.entries if e.model_id != 0
+            for c in range(e.ix, e.ix + e.nx)]
+    cols += [c for e in s64.sv.entries if e.model_id == 0
+             for c in range(e.ix, e.ix + e.nx, 40)]
+    t0 = time.perf_counter()
+    k_cpu = _cpu_jacobian_columns(cpu, cols).numpy()
+    cpu_s = time.perf_counter() - t0
+    k_card = kk.cpu().numpy()
+    worst = 0.0
+    for i, c in enumerate(cols):
+        peak = np.abs(k_cpu[:, i]).max()
+        np.testing.assert_allclose(k_card[:, c], k_cpu[:, i], rtol=0,
+                                   atol=1e-8 * peak,
+                                   err_msg=f"{name} column {c}")
+        if peak > 0:
+            worst = max(worst, np.abs(k_card[:, c] - k_cpu[:, i]).max() / peak)
+    models = sorted({e.model_id for e in s64.sv.entries})
+    _print(f"{name} float64 on the card (NX={nx}, NY={ny}; models "
+           f"{models}): forward within rtol 1e-10 of the CPU (max rel "
+           f"{np.abs(y64 / y_cpu - 1).max():.3e}); {len(cols)} Jacobian "
+           f"columns within 1e-8 of their peaks (worst {worst:.3e}; the "
+           f"CPU's columns took {cpu_s:.1f} s); {primal} primal launches per "
+           f"forward, {fused} fused launches per evaluation")
+
+    # float32 against float64, at PERF.md's gates
+    s32 = make_retrieval_setup(deck, "cirstest", device="cuda",
+                               dtype=torch.float32)
+    (y32, k32), fused32 = _fused_launches(
+        lambda: forward_and_jacobian(s32.forward_fn, xa.float()))
+    if fused32 != 6:
+        raise AssertionError(f"{name}: {fused32} fused launches (float32)")
+    r = rel_err(y32.double().cpu().numpy(), y64)
+    col_peak = kk.abs().max(dim=0).values
+    live = col_peak > 0
+    col_err = torch.where(
+        live, (k32.double() - kk).abs().max(dim=0).values
+        / torch.where(live, col_peak, 1.0), 0.0).cpu().numpy()
+    owner = {c: e.model_id for e in s64.sv.entries
+             for c in range(e.ix, e.ix + e.nx)}
+    misses = [(owner[c], c, float(col_err[c])) for c in range(nx)
+              if col_err[c] >= JAC_F32_BOUND]
+    _print(f"{name} float32 vs float64: spectrum max rel {r.max():.3e}, "
+           f"median {np.median(r):.3e} (gate {F32_BOUNDS[0]:.0e}); Jacobian "
+           f"max error over column peak {col_err.max():.3e} (gate "
+           f"{JAC_F32_BOUND:.0e}); columns outside the gate (model, column, "
+           f"error): {misses if misses else 'none'}")
+    if not r.max() < F32_BOUNDS[0]:
+        raise AssertionError(f"{name}: float32 spectrum outside 1e-4")
+    del y32, k32
+
+    # the time, memory and host operations of one evaluation
+    for dtype_name, setup, x in (("float64", s64, xa),
+                                 ("float32", s32, xa.float())):
+        med, lo, hi, peak_gib = _time_evaluations(setup, x, MODELS_EVAL_RUNS)
+        _, ops_fwd = _count_ops(lambda: setup.forward_fn(x))
+        _, ops_jac = _count_ops(
+            lambda: forward_and_jacobian(setup.forward_fn, x))
+        _print(f"forward-plus-Jacobian on {name} (NX={nx}, {dtype_name}, "
+               f"{card}): median {med:.3f} ms over {MODELS_EVAL_RUNS} runs "
+               f"(min {lo:.3f}, max {hi:.3f}); peak memory {peak_gib:.3f} "
+               f"GiB; tensor operations dispatched: {ops_fwd} per forward, "
+               f"{ops_jac} per evaluation")
+    if profile:
+        profile_forward(
+            lambda: forward_and_jacobian(s64.forward_fn, xa), runs=1,
+            what=f"{name} forward-plus-Jacobian (float64, {nx} tangents)",
+            trace=f"build/{name}_jacobian_trace.json")
+    return primal, fused
+
+
+def _recurrence_forms():
+    """The closed forms of the knee profile and of model 9 against their
+    level loops on the jupiter_nadir atmosphere (81 levels, float64) at
+    rtol 1e-12, and the tensor operations each form dispatches in a forward
+    and in a ``jacfwd`` over its three parameters."""
+    import torch
+
+    from archnemesis_tpu_torch.models import profile_models as pm
+    from archnemesis_tpu_torch.models.base import ModelEntry, ProfileTarget
+
+    _, atm = _model_atmosphere("cuda")
+    cloud = ModelEntry(varident=(-1, 0, 9), model_id=9, ix=0, nx=3,
+                       target=ProfileTarget.AEROSOL, target_idx=0)
+    forms = {
+        "knee profile (models 1/4/20)": (
+            lambda z: pm._knee_profile(atm, z[0], z[1], z[2]),
+            lambda z: knee_profile_loop(atm, z[0], z[1], z[2]),
+            [1.9e-4, 0.3, 0.5]),
+        "model 9": (
+            lambda z: pm.Model9.apply(cloud, atm, z).dust[:, 0],
+            lambda z: model9_loop(atm, z), [4.0, 0.25, -20.0]),
+    }
+    for what, (closed, loop, x0) in forms.items():
+        x = torch.tensor(x0, dtype=torch.float64, device="cuda")
+        got, ops_closed = _count_ops(lambda: closed(x))
+        want, ops_loop = _count_ops(lambda: loop(x))
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+        _, jac_closed = _count_ops(lambda: torch.func.jacfwd(closed)(x))
+        _print(f"{what} on {atm.np_} levels: the closed form equal to the "
+               f"level loop within rtol 1e-12; tensor operations "
+               f"{ops_closed} a forward and {jac_closed} a jacfwd over its 3 "
+               f"parameters, the loop {ops_loop} a forward")
+
+
+def phase_models(card: str, profile: bool = False):
+    """The remaining models on the card: every model golden in float64, the
+    composed ``models_nadir`` and ``models_ils`` decks through the
+    retrieval set-up, and a 3-iteration retrieval on ``models_nadir``.
+    Returns (primal launches, fused launches) of the two cases' main
+    paths."""
+    import torch
+
+    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
+    from archnemesis_tpu_torch.retrievals import (
+        make_retrieval_setup,
+        retrieval_nemesis,
+    )
+
+    t0 = time.perf_counter()
+    cases = model_golden_cases()
+    for check in cases.values():
+        check("cuda")
+    torch.cuda.synchronize()
+    _print(f"model goldens on the card, float64: {len(cases)} cases "
+           f"({', '.join(cases)}) at the JAX tests' tolerances, in "
+           f"{time.perf_counter() - t0:.1f} s")
+    _recurrence_forms()
+
+    # the operations the deck's own state vector (model 0 alone) makes,
+    # beside which the composed decks' counts are read
+    plain = make_retrieval_setup(DECK, "cirstest", device="cuda")
+    xp = torch.as_tensor(plain.sv.xa, device="cuda")
+    forward_and_jacobian(plain.forward_fn, xp)
+    _, ops_fwd = _count_ops(lambda: plain.forward_fn(xp))
+    _, ops_jac = _count_ops(lambda: forward_and_jacobian(plain.forward_fn,
+                                                         xp))
+    _print(f"jupiter_nadir with model 0 alone (NX={plain.sv.nx}): tensor "
+           f"operations dispatched: {ops_fwd} per forward, {ops_jac} per "
+           "evaluation")
+    del plain
+
+    launches = np.zeros(2, dtype=int)
+    with tempfile.TemporaryDirectory() as tmp:
+        nadir = models_nadir_deck(os.path.join(tmp, "nadir"))
+        launches += _models_case("models_nadir", nadir, card, profile)
+        launches += _models_case("models_ils",
+                                 models_ils_deck(os.path.join(tmp, "ils")),
+                                 card)
+        t0 = time.perf_counter()
+        res3, launched = _fused_launches(lambda: retrieval_nemesis(
+            nadir, "cirstest", niter=3, write_outputs=False, device="cuda"))
+        wall = time.perf_counter() - t0
+    hist = res3.phi_history
+    if not (np.isfinite(res3.xn).all() and hist[-1] < hist[0]):
+        raise AssertionError("models_nadir retrieval did not reduce phi")
+    _print(f"retrieval_nemesis(models_nadir, niter=3, float64, {card}): "
+           f"{wall:.3f} s wall, {res3.n_iter} iterations accepted, "
+           f"{launched} fused launches, phi {['%.6e' % p for p in hist]}")
+    return int(launches[0]), int(launches[1])
+
+
 def main() -> int:
     import torch
 
@@ -2625,13 +3430,14 @@ def main() -> int:
     phase_scattering_goldens()
     scat_launches, _ = phase_scattering_headline(profile=profile)
     scat_tan_launches = phase_scattering_retrieval(profile=profile)
+    model_launches, model_tan_launches = phase_models(card, profile=profile)
 
     kernels = [dict(
         name="overlap_combine",
         route="cuda",
         source="archnemesis_tpu_torch/csrc/overlap_combine.cu",
         replaces="archnemesis_tpu/ops/overlap_pallas.py:398",
-        launches=launches + scat_launches,
+        launches=launches + scat_launches + model_launches,
         max_abs_err=record["max_abs_err"],
         ms=record["ms"],
         plain_ms=record["plain_ms"],
@@ -2643,7 +3449,7 @@ def main() -> int:
         route="cuda",
         source="archnemesis_tpu_torch/csrc/overlap_combine.cu",
         replaces="archnemesis_tpu/ops/overlap_pallas.py:292",
-        launches=tan_launches + scat_tan_launches,
+        launches=tan_launches + scat_tan_launches + model_tan_launches,
         max_abs_err=tan_record["max_abs_err"],
         ms=tan_record["ms"],
         plain_ms=tan_record["plain_ms"],

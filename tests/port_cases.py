@@ -6,6 +6,7 @@ The same numbers go to both packages: a JAX structure is flattened with
 carried across with ``archnemesis_tpu_torch.convert``.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -235,6 +236,18 @@ def copy_runtime_deck(tmp_path_factory, name):
     return chip_smoke.copy_runtime_deck(str(tmp_path_factory.mktemp(name)))
 
 
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """Run the block's torch work on ``n`` intra-op threads, restored
+    after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def one_torch_thread():
     """Run a module's torch work on one intra-op thread: the suite runs in
@@ -242,10 +255,8 @@ def one_torch_thread():
     default of one thread per core oversubscribes them (its large
     elementwise passes then run many times slower). The count is restored
     after the module."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    with torch_threads(1):
+        yield
 
 
 # --- the scattering slice: the Jupiter scattering deck in both packages
@@ -362,3 +373,93 @@ def brdf_surfaces(decks, d, lowbc):
                if lowbc == 2 else None),
         lowbc=LowerBoundaryCondition(lowbc), gasgiant=False)
     return tsurf, jsurf
+
+
+# --- the remaining models: the composed decks of chip_smoke's "models" phase
+
+def _jax_atmosphere_as_arrays(deck_dir):
+    """The deck's JAX atmosphere with its profiles as JAX arrays: the JAX
+    knee model indexes the atmosphere by a sort order, which a jitted
+    forward cannot do on numpy fields."""
+    import jax.numpy as jnp
+
+    atm = jax_load_deck(deck_dir, "cirstest").atmosphere
+    return atm.replace(**{
+        f.name: jnp.asarray(getattr(atm, f.name))
+        for f in dataclasses.fields(atm)
+        if not f.metadata.get("static", False)
+        and getattr(atm, f.name) is not None})
+
+
+def models_deck_case(tmp_path_factory, make_deck, columns: dict) -> dict:
+    """A composed deck (``make_deck(base)``, e.g. ``chip_smoke.
+    models_nadir_deck``) set up in both
+    packages, and each package's forward at the a priori with its JVP
+    along each column of ``columns`` ({name: (model id, offset in its
+    block)}): the port's one ``vmap`` of ``jvp`` on two threads (its plain
+    combine takes over a minute on one at these widths), the JAX
+    package's jitted."""
+    import jax
+    import jax.numpy as jnp
+
+    from archnemesis_tpu.retrievals import make_retrieval_setup as jax_setup
+    from archnemesis_tpu_torch.retrievals import make_retrieval_setup
+
+    deck = make_deck(str(tmp_path_factory.mktemp(make_deck.__name__)))
+    port = make_retrieval_setup(deck, "cirstest", device="cpu")
+    jx = jax_setup(deck, "cirstest",
+                   atm_override=_jax_atmosphere_as_arrays(deck))
+    np.testing.assert_array_equal(port.sv.xa, jx.sv.xa)
+    np.testing.assert_array_equal(port.y, jx.y)
+    ix = {e.model_id: e.ix for e in port.sv.entries}
+    cols = {name: ix[mid] + off for name, (mid, off) in columns.items()}
+    basis = np.zeros((len(cols), port.sv.nx))
+    basis[np.arange(len(cols)), list(cols.values())] = 1.0
+    xa = port.sv.xa
+    with torch_threads(2):
+        y, dy = torch.func.vmap(
+            lambda v: torch.func.jvp(port.forward_fn,
+                                     (torch.as_tensor(xa),), (v,)),
+            out_dims=(None, 0))(torch.as_tensor(basis))
+    jy, jdy = jax.jit(jax.vmap(
+        lambda v: jax.jvp(jx.forward_fn, (jnp.asarray(xa),), (v,)),
+        out_axes=(None, 0)))(jnp.asarray(basis))
+    return dict(port=port, y=y.numpy(), jy=np.asarray(jy),
+                dy=dict(zip(cols, dy.numpy())),
+                jdy=dict(zip(cols, np.asarray(jdy))))
+
+
+def models_filter_deck(base: str) -> str:
+    """A copy of jupiter_nadir under ``base`` for filter integration with
+    a retrieved Doppler shift: IFORM = Integrated_radiance, its channels
+    cut to the 15 of 801-829 cm-1 with FWHM < 0 and a .fil of Gaussian
+    filters (13 samples over +-6 cm-1 each), and an .apr of model 0 and
+    model 447."""
+    import os
+
+    deck = chip_smoke.copy_deck(DECK, base)
+    spx = os.path.join(deck, "cirstest.spx")
+    with open(spx) as f:
+        lines = f.readlines()
+    rows = [r for r in lines[4:]
+            if r.split() and 800.0 <= float(r.split()[0]) <= 830.0]
+    head = lines[0].split()
+    with open(spx, "w") as f:
+        f.write(f"{-1.0:12.4f} {' '.join(head[1:])}\n{len(rows):11d}\n")
+        f.write("".join(lines[2:4]) + "".join(rows))
+    with open(os.path.join(deck, "cirstest.fil"), "w") as f:
+        f.write(f"{len(rows)}\n")
+        for r in rows:
+            vc = float(r.split()[0])
+            v = np.linspace(vc - 6.0, vc + 6.0, 13)
+            f.write(f"{vc}\n13\n")
+            for vi, ai in zip(v, np.exp(-(((v - vc) / 3.0) ** 2))):
+                f.write(f"{vi:.6f} {ai:.8f}\n")
+    inp = os.path.join(deck, "cirstest.inp")
+    with open(inp) as f:
+        inp_lines = f.read().splitlines()
+    inp_lines[7] = "6"  # IFORM = Integrated_radiance
+    with open(inp, "w") as f:
+        f.write("\n".join(inp_lines) + "\n")
+    chip_smoke._write_apr(deck, [chip_smoke._apr_block("m447_doppler")])
+    return deck

@@ -137,10 +137,17 @@ def test_models_from_apr_and_apply(nadir, varident, tmp_path, monkeypatch):
 
 
 def test_unported_model_id_raises(tmp_path):
+    """The two ids the port does not register yet name their queue item;
+    an id neither package knows raises as well."""
     _pdeck = load_deck(DECK, "cirstest")
     apr = tmp_path / "t.apr"
-    apr.write_text("header\n1\n0 0 4\n")
-    with pytest.raises(NotImplementedError, match="model id 4"):
+    for model_id in (202, 1002):
+        apr.write_text(f"header\n1\n0 0 {model_id}\n")
+        with pytest.raises(NotImplementedError,
+                           match=f"model id {model_id}.*Queue 1 item 9"):
+            port_sv.read_apr(str(apr), _pdeck.atmosphere)
+    apr.write_text("header\n1\n0 0 12345\n")
+    with pytest.raises(NotImplementedError, match="model id 12345"):
         port_sv.read_apr(str(apr), _pdeck.atmosphere)
 
 
