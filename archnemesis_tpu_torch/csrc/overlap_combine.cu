@@ -21,7 +21,8 @@
 // the bytes at the HBM rate.
 //
 // The primal kernel (combine_primal_kernel) does close to that work, one
-// warp per row, with the row's elements in shared memory (combine_row):
+// warp per row, with the row's elements in shared memory (combine_row, in
+// overlap_row.cuh, which the combine's A/B variants share):
 //   1. lane j < NG loads a[r, j] and b[r, j] (coalesced). Rows sorted
 //      along g, the norm (overlap_pallas.py:52-63), are found so by one
 //      warp vote and kept; other rows are sorted by rank counting (NG
@@ -135,290 +136,9 @@
 // instruction issue and the shared-memory pipe, which phase A also needs
 // (PERF.md has the times).
 
-#include <cuda_runtime.h>
-
-#include <cfloat>
-#include <cstdint>
+#include "overlap_row.cuh"
 
 namespace {
-
-constexpr int kWarp = 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T> struct Limits;
-template <> struct Limits<float> {
-  __device__ static float max() { return FLT_MAX; }
-  __device__ static float tiny() { return FLT_MIN; }
-  __device__ static float eps() { return FLT_EPSILON; }
-};
-template <> struct Limits<double> {
-  __device__ static double max() { return DBL_MAX; }
-  __device__ static double tiny() { return DBL_MIN; }
-  __device__ static double eps() { return DBL_EPSILON; }
-};
-
-// a * b + c rounded once, in both kernels alike
-__device__ __forceinline__ float fma_t(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double fma_t(double a, double b, double c) {
-  return fma(a, b, c);
-}
-
-constexpr int kMaxWarps = 16;              // rows per block, at most
-constexpr int kPairSlots = kWarp * kWarp;  // w2 by packed index (ia << 5) | ib
-constexpr int kEdgeSlots = 40;             // NG + 1 <= 33 edges, padded
-constexpr int kSlackEps = 128;             // the rebin's g-axis slack, in eps
-constexpr size_t kMaxSmem = 232448;        // bytes of shared memory a block
-
-// A sorted element: its key and its packed original index pair; and, once
-// the keys are sorted, its prefix sum and weight. Both are one 8-byte
-// (float) or 16-byte (double) shared-memory access.
-template <typename T>
-struct __align__(2 * sizeof(T)) Elem {
-  T key;
-  uint32_t pay;
-};
-template <typename T>
-struct __align__(2 * sizeof(T)) Span {
-  T ghi;
-  T w;
-};
-static_assert(sizeof(Elem<float>) == 8 && sizeof(Elem<double>) == 16, "");
-static_assert(sizeof(Span<float>) == 8 && sizeof(Span<double>) == 16, "");
-
-__host__ __device__ constexpr int round_up4(int x) { return (x + 3) & ~3; }
-
-// Shared memory of the primal kernel: per block the pair weights by packed
-// index and the bin edges; per warp two element buffers of n = NG*NG
-// (rounded up to 4), the row's sorted a and b and their original indices.
-// Every part is a multiple of 16 bytes.
-template <typename T>
-__host__ __device__ size_t primal_block_bytes() {
-  return (kPairSlots + kEdgeSlots) * sizeof(T);
-}
-template <typename T>
-__host__ __device__ size_t primal_warp_bytes(int n) {
-  return 2 * static_cast<size_t>(round_up4(n)) * sizeof(Elem<T>) +
-         2 * kWarp * sizeof(T) + 2 * kWarp;
-}
-
-// The block's weight table (w2s[(ia << 5) | ib] = w2[ia * NG + ib], the
-// same bits) and bin edges, loaded by every thread; ends in a barrier.
-template <typename T>
-__device__ void load_tables(T* w2s, T* edge_s, const T* __restrict__ w2,
-                            const T* __restrict__ edges, int ng) {
-  for (int x = threadIdx.x; x < kPairSlots; x += blockDim.x) {
-    const int ia = x / kWarp;
-    const int ib = x - ia * kWarp;
-    w2s[x] = (ia < ng && ib < ng) ? w2[ia * ng + ib] : T(0);
-  }
-  for (int x = threadIdx.x; x <= ng; x += blockDim.x) edge_s[x] = edges[x];
-  __syncthreads();
-}
-
-// Steps 1-6 of one row, run by its whole warp; `smem` is the warp's
-// primal_warp_bytes. Lane j < NG writes out[row, j] and returns the
-// floored denominator of bin j. MATS: lane j also adds each overlap of its
-// walk into column j of the NG x NG matrices mat (MA, by ia) and mat + NG*NG
-// (MB, by ib), row-major.
-template <typename T, bool MATS>
-__device__ T combine_row(const T* __restrict__ a, const T* __restrict__ b,
-                         const T* w2s, const T* edge_s, unsigned char* smem,
-                         T* __restrict__ out, int row, int ng, T* mat) {
-  const int n = ng * ng;
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int cap = round_up4(n);
-  Elem<T>* buf = reinterpret_cast<Elem<T>*>(smem);
-  Elem<T>* other = buf + cap;
-  T* sorted_a = reinterpret_cast<T*>(other + cap);
-  T* sorted_b = sorted_a + kWarp;
-  unsigned char* index_a = reinterpret_cast<unsigned char*>(sorted_b + kWarp);
-  unsigned char* index_b = index_a + kWarp;
-
-  const size_t base = static_cast<size_t>(row) * ng;
-  const bool live = lane < ng;
-  T sa = live ? a[base + lane] : T(0);
-  T sb = live ? b[base + lane] : T(0);
-  int ia = lane, ib = lane;  // original g-indices of sa, sb
-
-  // 1. a and b in ascending order: rows already sorted along g, the norm,
-  // keep theirs; others are ranked by counting, ties broken by index
-  const T a_up = __shfl_up_sync(kFull, sa, 1);
-  const T b_up = __shfl_up_sync(kFull, sb, 1);
-  if (!__all_sync(kFull, lane == 0 || !live || (a_up <= sa && b_up <= sb))) {
-    int rank_a = 0, rank_b = 0;
-    for (int j = 0; j < ng; ++j) {
-      const T aj = __shfl_sync(kFull, sa, j);
-      const T bj = __shfl_sync(kFull, sb, j);
-      rank_a += (aj < sa || (aj == sa && j < lane)) ? 1 : 0;
-      rank_b += (bj < sb || (bj == sb && j < lane)) ? 1 : 0;
-    }
-    if (live) {
-      sorted_a[rank_a] = sa;
-      index_a[rank_a] = static_cast<unsigned char>(lane);
-      sorted_b[rank_b] = sb;
-      index_b[rank_b] = static_cast<unsigned char>(lane);
-    }
-    __syncwarp();
-    if (live) {
-      sa = sorted_a[lane];
-      ia = index_a[lane];
-      sb = sorted_b[lane];
-      ib = index_b[lane];
-    }
-  }
-
-  // 2. the NG sorted runs, run i = a_(i) + b_(j) over j, lane j holding
-  // column j, merged in pairs (runs 2k, 2k+1) straight from registers:
-  // x_j goes to j + #{y < x_j}, y_j to j + #{x <= y_j} (equal keys: the
-  // left run first), the counts by binary search across the lanes
-  const int top_step = 1 << (31 - __clz(ng));  // largest power of 2 <= NG
-  for (int i = 0; i < ng; i += 2) {
-    const T ax = __shfl_sync(kFull, sa, i);
-    const int iax = __shfl_sync(kFull, ia, i);
-    const T x = ax + sb;
-    const int s = i * ng;
-    if (i + 1 == ng) {  // the last run of an odd NG has no partner
-      if (live) buf[s + lane] = {x, static_cast<uint32_t>((iax << 5) | ib)};
-      break;
-    }
-    const T ay = __shfl_sync(kFull, sa, i + 1);
-    const int iay = __shfl_sync(kFull, ia, i + 1);
-    const T y = ay + sb;
-    int cx = 0, cy = 0;
-    for (int step = top_step; step > 0; step >>= 1) {
-      const int tx = cx + step;
-      const int ty = cy + step;
-      const T yv = __shfl_sync(kFull, y, (tx - 1) & (kWarp - 1));
-      const T xv = __shfl_sync(kFull, x, (ty - 1) & (kWarp - 1));
-      if (tx <= ng && yv < x) cx = tx;
-      if (ty <= ng && xv <= y) cy = ty;
-    }
-    if (live) {
-      buf[s + lane + cx] = {x, static_cast<uint32_t>((iax << 5) | ib)};
-      buf[s + lane + cy] = {y, static_cast<uint32_t>((iay << 5) | ib)};
-    }
-  }
-  __syncwarp();
-
-  // 3. merge-path tree over the runs of 2 NG: at each level, runs of `run`
-  // elements merge in pairs; lane l writes output positions
-  // [d_begin, d_end), slices of an odd length, so that the lanes' accesses
-  // at one step of their slices fall in distinct banks
-  const int slice = ((n + kWarp - 1) / kWarp) | 1;
-  const int d_begin = min(lane * slice, n);
-  const int d_end = min(d_begin + slice, n);
-  for (int run = 2 * ng; run < n; run *= 2) {
-    int d = d_begin;
-    while (d < d_end) {
-      const int s = d / (2 * run) * (2 * run);  // the pair's first element
-      const int mid = min(s + run, n);          // its right run's first
-      const int end = min(s + 2 * run, n);
-      const int stop = min(d_end, end);
-      // co-rank: how many of the pair's first d - s outputs come from the
-      // left run (equal keys: the left run first)
-      const int k = d - s;
-      int lo = max(0, k - (end - mid));
-      int hi = min(k, mid - s);
-      while (lo < hi) {
-        const int c = (lo + hi) >> 1;
-        if (buf[s + c].key <= buf[mid + k - c - 1].key) {
-          lo = c + 1;
-        } else {
-          hi = c;
-        }
-      }
-      // a run that is used up reads as the type's largest key, which the
-      // other run's keys never exceed before the slice ends
-      int x = s + lo;
-      int y = mid + k - lo;
-      const Elem<T> spent = {Limits<T>::max(), 0u};
-      Elem<T> ex = x < mid ? buf[x] : spent;
-      Elem<T> ey = y < end ? buf[y] : spent;
-      for (; d < stop; ++d) {
-        const bool take_x = ex.key <= ey.key;
-        other[d] = take_x ? ex : ey;
-        x += take_x;
-        y += !take_x;
-        const int next = take_x ? x : y;
-        const Elem<T> e_next = next < (take_x ? mid : end) ? buf[next] : spent;
-        if (take_x) {
-          ex = e_next;
-        } else {
-          ey = e_next;
-        }
-      }
-    }
-    __syncwarp();
-    Elem<T>* t = buf;
-    buf = other;
-    other = t;
-  }
-
-  // 4. inclusive prefix sum of the sorted weights, beside each weight, in
-  // the free buffer: a serial scan of the lane's slice, then a warp scan
-  // of the slices' totals
-  Span<T>* span = reinterpret_cast<Span<T>*>(other);
-  T run_w = T(0);
-  for (int e = d_begin; e < d_end; ++e) {
-    const T w = w2s[buf[e].pay];
-    run_w += w;
-    span[e] = {run_w, w};
-  }
-  T incl = run_w;
-#pragma unroll
-  for (int o = 1; o < kWarp; o <<= 1) {
-    const T up = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += up;
-  }
-  T offset = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) offset = T(0);
-  for (int e = d_begin; e < d_end; ++e) span[e].ghi += offset;
-  __syncwarp();
-
-  // 5. lane j rebins bin j: from the first element whose upper end lies
-  // above the bin's lower edge (less the slack) to the first whose upper
-  // end lies above its upper edge (plus the slack)
-  if (!live) return T(0);
-  const T lo_j = edge_s[lane];
-  const T hi_j = edge_s[lane + 1];
-  const T slack = T(kSlackEps) * Limits<T>::eps();
-  int e = 0;
-  {
-    const T first = lo_j - slack;
-    int top = n;
-    while (e < top) {
-      const int c = (e + top) >> 1;
-      if (span[c].ghi > first) {
-        top = c;
-      } else {
-        e = c + 1;
-      }
-    }
-  }
-  const T last = hi_j + slack;
-  T num = T(0), den = T(0);
-  for (; e < n; ++e) {
-    const Span<T> sp = span[e];
-    const Elem<T> el = buf[e];
-    const T g_lo = sp.ghi - sp.w;
-    T inter = (sp.ghi < hi_j ? sp.ghi : hi_j) - (g_lo > lo_j ? g_lo : lo_j);
-    inter = inter > T(0) ? inter : T(0);
-    num = fma_t(el.key, inter, num);
-    den += inter;
-    if constexpr (MATS) {
-      mat[(el.pay >> 5) * ng + lane] += inter;
-      mat[n + (el.pay & 31) * ng + lane] += inter;
-    }
-    if (sp.ghi >= last) break;
-  }
-  // 6. the overlap-weighted mean
-  const T tiny = Limits<T>::tiny();
-  den = den > tiny ? den : tiny;
-  out[base + lane] = num / den;
-  return den;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kMaxWarps * kWarp)
@@ -439,8 +159,7 @@ combine_primal_kernel(const T* __restrict__ a, const T* __restrict__ b,
 }
 
 // `warps` rows per block, 1 .. 16; 0 takes the count of 16, 8, 4, 2, 1
-// that keeps the most rows resident on an SM (with few warps resident the
-// kernel is bound by latency), the smaller block on a tie.
+// that keeps the most rows resident on an SM (resident_warps).
 template <typename T>
 int launch_primal(const void* a, const void* b, const void* w2,
                   const void* edges, void* out, int rows, int ng, int warps,
@@ -457,18 +176,8 @@ int launch_primal(const void* a, const void* b, const void* w2,
     err = cudaDeviceGetAttribute(
         &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    int best = 0;
-    for (int w = kMaxWarps; w >= 1; w /= 2) {
-      const size_t smem = primal_block_bytes<T>() + w * per_warp;
-      if (smem > kMaxSmem) continue;
-      // 1 KB of each block's shared memory is the system's
-      const int blocks =
-          min(min(static_cast<int>(sm_smem / (smem + 1024)), 64 / w), 32);
-      if (blocks >= 1 && blocks * w >= best) {
-        best = blocks * w;
-        warps = w;
-      }
-    }
+    warps = resident_warps(primal_block_bytes<T>(), per_warp, sm_smem,
+                           kMaxWarps);
     if (warps == 0) return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = primal_block_bytes<T>() + warps * per_warp;

@@ -3,8 +3,10 @@ interface, once per source content.
 
 ``nvcc`` compiles for ``sm_90a`` (no fast-math: the kernels' divisions,
 ``exp`` and ``pow`` stay IEEE) into ``build/<name>/<hash>/lib<name>.so`` at
-the repository root; the hash covers the source and the flags, so an edited
-source builds anew and an unchanged one is built once. The libraries are
+the repository root; the hash covers the source, every local header it
+includes (``#include "..."``, found beside the including file, recursively)
+and the flags, so an edited source or header builds anew and an unchanged
+one is built once. The libraries are
 loaded with ``ctypes`` by the kernel modules (``ops/overlap_cuda.py``,
 ``ops/lbl_cuda.py``), which call ``build`` at their first launch.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,6 +31,40 @@ def source_path(name: str) -> str:
     return os.path.join(PACKAGE_DIR, "csrc", f"{name}.cu")
 
 
+_LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def local_sources(path: str) -> list:
+    """``path`` and every file it includes with ``#include "..."`` that
+    lies beside the including file, recursively, each once, in the order
+    first met."""
+    order, todo = [], [os.path.abspath(path)]
+    while todo:
+        current = todo.pop(0)
+        if current in order:
+            continue
+        order.append(current)
+        with open(current) as f:
+            text = f.read()
+        here = os.path.dirname(current)
+        for name in _LOCAL_INCLUDE.findall(text):
+            found = os.path.join(here, name)
+            if os.path.isfile(found):
+                todo.append(os.path.abspath(found))
+    return order
+
+
+def source_digest(path: str) -> str:
+    """The build's key: a hash of the source, its local headers
+    (``local_sources``) and the flags. Needs no nvcc."""
+    digest = hashlib.sha256()
+    for source in local_sources(path):
+        with open(source, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -37,13 +74,12 @@ def _nvcc() -> str:
 
 
 def build(name: str) -> dict:
-    """Compile ``csrc/<name>.cu`` (once per source content) and return
+    """Compile ``csrc/<name>.cu`` (once per content of the source and its
+    headers) and return
     ``{"path", "seconds", "ptxas"}``; ``seconds`` is 0 when it was built
     before. Raises if nvcc is missing or fails."""
     source = source_path(name)
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    out_dir = os.path.join(BUILD_ROOT, name, digest.hexdigest()[:16])
+    out_dir = os.path.join(BUILD_ROOT, name, source_digest(source))
     lib = os.path.join(out_dir, f"lib{name}.so")
     log = os.path.join(out_dir, "ptxas.txt")
     if os.path.exists(lib):

@@ -2,22 +2,25 @@
 plain versions.
 
 The variants of the TPU tool ``combine_lean``
-(``tools/bench_overlap_variants.py:131``), the lower bounds a redesign of
-the combine kernel is measured against:
+(``tools/bench_overlap_variants.py:131``), each the function of one of its
+modes:
 
-- ``full``: the combine with static pair weights, min/max compare-exchange
-  and a weight that moves only where its key changed;
+- ``full``: the combine with static pair weights and a 1e-37 denominator
+  floor;
 - ``edges``: the same sort, rebinned through cumulative edge sums (NG + 1
   edge sums instead of NG bins of two clipped ends);
-- ``sortonly``: the compare-exchange stages on the keys alone (the NG
-  smallest pair sums, ascending);
-- ``rollonly``: the stages' data movement alone (the padded pair-sum row
-  rotated by the sum of the network's strides, its first NG columns).
+- ``sortonly``: the NG smallest pair sums, ascending;
+- ``rollonly``: the padded pair-sum row rotated by the sum of the TPU
+  network's strides, its first NG columns.
 
 ``combine_lean`` launches the kernel of ``csrc/overlap_variants.cu`` on a
-CUDA tensor, in the layout of the combine kernel (``csrc/overlap_combine.cu``),
-and runs the plain version ``combine_lean_plain`` on a CPU one. float32
-only, as the TPU tool is.
+CUDA tensor and runs the plain version ``combine_lean_plain`` on a CPU one.
+The kernel takes the combine kernel (``csrc/overlap_combine.cu``) apart
+stage by stage on its own row code (``csrc/overlap_row.cuh``): ``full`` is
+that kernel's row with the tool's floor, ``edges`` its merge and scan with a
+search-based edge rebin, ``sortonly`` its merge on the keys alone,
+``rollonly`` one pass over the inputs at the byte bound. float32 only, as
+the TPU tool is.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ MODES = ("full", "edges", "sortonly", "rollonly")
 ROW_TILE = 256  # rows per block: the TPU tool's default row tile
 # the full mode's row-tile sweep of the TPU tool (lean8 .. lean128)
 ROW_TILES = (8, 16, 32, 64, 128, ROW_TILE)
-MAX_NG = 22  # the kernel's rows hold at most 512 pair sums
+MAX_NG = 32  # NG lanes of one warp, as the combine kernel
 DEN_FLOOR = 1e-37  # the rebins' denominator floor (the TPU tool's)
 # rows per chunk of the plain version: bounds its (rows, NG*NG, NG + 1)
 # overlap tensor to about 2**26 elements
@@ -45,11 +48,6 @@ _PLAIN_CHUNK_ELEMS = 2**26
 def ref_pad(ng: int) -> int:
     """The TPU kernel's padded row length: next power of two of NG*NG."""
     return 1 << (ng * ng - 1).bit_length()
-
-
-def e_pad(ng: int) -> int:
-    """This kernel's row length: the TPU one's, at least one per lane."""
-    return max(32, ref_pad(ng))
 
 
 def roll_shift(ng: int) -> int:
@@ -78,12 +76,11 @@ def _library():
 
 @functools.lru_cache(maxsize=16)
 def _tables(del_g: tuple, device: torch.device):
-    """Device copies of the padded pair weights and the bin edges for one
-    static del_g, in float32."""
-    ng = len(del_g)
-    w2 = np.zeros(e_pad(ng))
-    w2[: ng * ng] = pair_weights(del_g)
-    return (torch.as_tensor(w2, dtype=torch.float32, device=device),
+    """Device copies of the pair weights and the bin edges for one static
+    del_g, in float32 (the combine kernel's bits: ``overlap_cuda._tables``
+    casts the same float64 values)."""
+    return (torch.as_tensor(pair_weights(del_g), dtype=torch.float32,
+                            device=device),
             torch.as_tensor(g_bin_edges(del_g), dtype=torch.float32,
                             device=device))
 
@@ -152,7 +149,7 @@ def _check_cuda_inputs(tau_a, tau_b, ng, mode, rows_per_cta):
     if tau_a.shape[1] != ng:
         raise ValueError(f"rows have {tau_a.shape[1]} g-ordinates, del_g {ng}")
     if not 1 <= ng <= MAX_NG:
-        raise ValueError(f"NG={ng} outside 1..{MAX_NG} (rows of <= 512)")
+        raise ValueError(f"NG={ng} outside 1..{MAX_NG}")
     if tau_a.shape[0] * ng >= 2**31:
         raise ValueError("too many rows for 32-bit row indexing")
     if mode not in MODES:
@@ -183,9 +180,8 @@ def combine_lean(tau_a, tau_b, del_g, mode: str = "full",
     out = torch.empty_like(tau_a)
     err = _library().overlap_variant_f32(
         tau_a.data_ptr(), tau_b.data_ptr(), w2.data_ptr(), edges.data_ptr(),
-        out.data_ptr(), tau_a.shape[0], ng, e_pad(ng),
-        ref_pad(ng).bit_length() - 1, MODES.index(mode), rows_per_cta,
-        tau_a.device.index or 0,
+        out.data_ptr(), tau_a.shape[0], ng, MODES.index(mode), rows_per_cta,
+        ref_pad(ng), roll_shift(ng), tau_a.device.index or 0,
         torch.cuda.current_stream(tau_a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"overlap_variant launch failed: CUDA error {err}")

@@ -31,6 +31,45 @@ def _scalar(x, like):
     return torch.as_tensor(x, dtype=like.dtype, device=like.device)
 
 
+# Straight rays through a spherical atmosphere of radius ``radius`` that
+# leave altitude ``base`` at zenith angle ``ang`` (radians), z0 = radius +
+# base. The reference's forms (Layer_0.py:847-870, AtmCalc_0.py:380-400)
+# subtract numbers of the planet's size, of which float32 keeps ~8 m on
+# Jupiter: every profile interpolated along the path moves by that much,
+# and a cloud a few km thick loses 3e-3 of its Jacobian. Both are written
+# here without those differences, in alt - base, z0 (1 - cos) = 2 z0
+# sin^2(ang / 2) and the squared impact parameter (z0 sin)^2; at nadir they
+# reduce to alt - base and base + s, exactly.
+
+
+def _ray_terms(base, radius, ang):
+    z0 = radius + base
+    # no Python number meets z0: under torch.func a 0-d tensor with a
+    # tangent and a Python float promote to float64
+    versine = 2.0 * torch.sin(0.5 * ang) ** 2
+    return z0, z0 * versine, (z0 * torch.sin(ang)) ** 2
+
+
+def ray_length(alt, base, radius, ang):
+    """Length along the ray from ``base`` up to altitude ``alt``:
+    sqrt((radius + alt)^2 - (z0 sin)^2) - z0 cos, with the root taken as 0
+    below the ray's tangent point."""
+    z0, z0_versine, impact2 = _ray_terms(base, radius, ang)
+    r = radius + alt
+    under = r**2 - impact2
+    length = (alt - base) + z0_versine - impact2 / (
+        torch.sqrt(under.clamp_min(0.0)) + r)
+    return torch.where(under > 0, length, -z0 * torch.cos(ang))
+
+
+def ray_altitude(s, base, radius, ang):
+    """Altitude at length ``s`` along the ray: sqrt(s^2 + z0^2 + 2 s z0
+    cos) - radius."""
+    z0, z0_versine, impact2 = _ray_terms(base, radius, ang)
+    q = s + z0 * torch.cos(ang)
+    return base + s - z0_versine + impact2 / (torch.sqrt(q**2 + impact2) + q)
+
+
 def split_layers(atm: Atmosphere, cfg: LayerConfig, layang=0.0,
                  layht_override=None):
     """Layer base altitudes/pressures for the configured scheme (reference
@@ -57,13 +96,9 @@ def split_layers(atm: Atmosphere, cfg: LayerConfig, layang=0.0,
         basep = interp1d_extrap(h, p, baseh)
     elif cfg.laytyp == LayerType.EQUAL_PATH_LENGTH:
         ang = torch.deg2rad(_scalar(layang, h))
-        sin, cos = torch.sin(ang), torch.cos(ang)
-        z0 = atm.radius + layht
-        zmax = atm.radius + h[-1]
-        smax = torch.sqrt(zmax**2 - (z0 * sin) ** 2) - z0 * cos
+        smax = ray_length(h[-1], layht, atm.radius, ang)
         bases = linspace(_scalar(0.0, h), smax, nlay + 1)[:-1]
-        baseh = (torch.sqrt(bases**2 + z0**2 + 2 * bases * z0 * cos)
-                 - atm.radius)
+        baseh = ray_altitude(bases, layht, atm.radius, ang)
         basep = torch.exp(interp1d_extrap(h, torch.log(p), baseh))
     elif cfg.laytyp == LayerType.BASE_PRESSURE:
         basep = _scalar(np.asarray(cfg.p_base), h)
@@ -90,12 +125,9 @@ def average_layers(atm: Atmosphere, cfg: LayerConfig, baseh, basep,
     delh = torch.cat([baseh[1:] - baseh[:-1], (h[-1] - baseh[-1])[None]])
 
     ang = torch.deg2rad(_scalar(layang, h))
-    sin, cos = torch.sin(ang), torch.cos(ang)
     # slant geometry is anchored at the base of the lowest layer
-    z0 = radius + baseh[0]
-    zmax = radius + h[-1]
-    smax = torch.sqrt(zmax**2 - (z0 * sin) ** 2) - z0 * cos
-    bases = torch.sqrt((radius + baseh) ** 2 - (z0 * sin) ** 2) - z0 * cos
+    smax = ray_length(h[-1], baseh[0], radius, ang)
+    bases = ray_length(baseh, baseh[0], radius, ang)
     dels = torch.cat([bases[1:] - bases[:-1], (smax - bases[-1])[None]])
     laysf = dels / delh
     baset = interp1d_extrap(h, t, baseh)
@@ -108,7 +140,7 @@ def average_layers(atm: Atmosphere, cfg: LayerConfig, baseh, basep,
         s_upper = torch.cat([bases[1:], smax[None]])
         frac_lin = _scalar(np.linspace(0.0, 1.0, nint), h)
         s = bases[:, None] + (s_upper - bases)[:, None] * frac_lin[None, :]
-        hgt = torch.sqrt(s**2 + z0**2 + 2 * s * z0 * cos) - radius
+        hgt = ray_altitude(s, baseh[0], radius, ang)
 
         p_s = interp1d_extrap(h, p, hgt)
         t_s = interp1d_extrap(h, t, hgt)
@@ -176,7 +208,7 @@ def average_layers(atm: Atmosphere, cfg: LayerConfig, baseh, basep,
     elif cfg.layint == LayerIntegrationScheme.MID_PATH:
         s_upper = torch.cat([bases[1:], smax[None]])
         s_mid = 0.5 * (bases + s_upper)
-        height = torch.sqrt(s_mid**2 + z0**2 + 2 * s_mid * z0 * cos) - radius
+        height = ray_altitude(s_mid, baseh[0], radius, ang)
         press = interp1d_extrap(h, p, height)
         temp = interp1d_extrap(h, t, height)
         frac = interp1d_extrap(h, parah2, height)

@@ -17,6 +17,7 @@ import torch
 
 from archnemesis_tpu_torch.core.types import Layers
 from archnemesis_tpu_torch.enums import PathCalc
+from archnemesis_tpu_torch.rt.layer import ray_length
 from archnemesis_tpu_torch.utils.pytree import static_field, tensor_dataclass
 
 
@@ -45,21 +46,22 @@ class Paths:
         return self.layinc.shape[0]
 
 
-def _scale_factors(layers: Layers, radius, h_top, angle_deg, z0):
+def _scale_factors(layers: Layers, radius, h_top, angle_deg, base):
     """LOS/vertical scale factor per layer for a ray with zenith angle
-    ``angle_deg`` at radius ``z0`` (reference AtmCalc_0.py:380-400)."""
+    ``angle_deg`` at altitude ``base`` (reference AtmCalc_0.py:380-400, at
+    radius z0 = radius + base)."""
     like = layers.baseh
     ang = torch.deg2rad(torch.as_tensor(angle_deg, dtype=like.dtype,
                                         device=like.device))
-    sin2a = torch.sin(ang) ** 2
-    cosa = torch.cos(ang)
-    rb = radius + layers.baseh  # (NLAY,)
     h_top = torch.as_tensor(h_top, dtype=like.dtype,
                             device=like.device).reshape(1)
-    r_up = torch.cat([rb[1:], radius + h_top])
     h_up = torch.cat([layers.baseh[1:], h_top])
-    s0 = torch.sqrt((rb**2 - sin2a * z0**2).clamp_min(0.0)) - z0 * cosa
-    s1 = torch.sqrt((r_up**2 - sin2a * z0**2).clamp_min(0.0)) - z0 * cosa
+    # sqrt(max((radius + alt)^2 - (z0 sin)^2, 0)) - z0 cos at each layer's
+    # base and top, without subtracting numbers of the planet's size
+    # (rt/layer.py:ray_length): the reference's difference form leaves the
+    # factor ~1e-3 off one in float32
+    s0 = ray_length(layers.baseh, base, radius, ang)
+    s1 = ray_length(h_up, base, radius, ang)
     return (s1 - s0) / (h_up - layers.baseh)
 
 
@@ -84,8 +86,8 @@ def nadir_path(
         np.arange(nlay - 1, botlay - 1, -1), device=like.device
     )  # top->bottom
 
-    z0 = radius + layers.baseh[botlay]
-    sf_all = _scale_factors(layers, radius, h_top, emiss_ang, z0)  # (NLAY,)
+    sf_all = _scale_factors(layers, radius, h_top, emiss_ang,
+                            layers.baseh[botlay])  # (NLAY,)
 
     def angle(x):
         return torch.as_tensor(x, dtype=like.dtype,

@@ -1,8 +1,11 @@
-"""What the port's tools share: the card's description and a CUDA-event
-timer."""
+"""What the port's tools share: the card's description, a CUDA-event
+timer and the toolkit's disassembler."""
 
 from __future__ import annotations
 
+import os
+import re
+import shutil
 import subprocess
 
 import numpy as np
@@ -41,3 +44,18 @@ def require_cuda():
     have no CPU fallback."""
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this tool measures the card")
+
+
+# one SASS instruction line: /*offset*/ [@predicate] OPCODE ...
+SASS_LINE = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)")
+
+
+def cuobjdump():
+    """Path of the toolkit's ``cuobjdump``, or None where it has none."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                        "cuobjdump")
+    return path if os.path.isfile(path) else None

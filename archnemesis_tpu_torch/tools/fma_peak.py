@@ -15,9 +15,6 @@ of the data sheet's float32 peak, the FFMA count of the kernel's SASS where
 from __future__ import annotations
 
 import collections
-import os
-import re
-import shutil
 import subprocess
 
 import numpy as np
@@ -25,7 +22,9 @@ import torch
 
 from archnemesis_tpu_torch.ops import fma_peak
 from archnemesis_tpu_torch.tools.common import (
+    SASS_LINE,
     card_line,
+    cuobjdump,
     median_ms,
     require_cuda,
 )
@@ -36,24 +35,12 @@ COLS = 512
 # 700 W)
 PEAK_F32_FLOPS = 67e12
 CHECK_ROWS = 4096
-# one SASS instruction line: /*offset*/ [@predicate] OPCODE ...
-_SASS_LINE = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                        r"([A-Z][A-Z0-9_.]*)")
-
-
-def _cuobjdump():
-    found = shutil.which("cuobjdump")
-    if found:
-        return found
-    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
-                        "cuobjdump")
-    return path if os.path.isfile(path) else None
 
 
 def sass_opcodes(lib_path: str):
     """Opcode counts of the probe kernel's SASS in the built library
     (``cuobjdump -sass``), or None where the toolkit has no cuobjdump."""
-    tool = _cuobjdump()
+    tool = cuobjdump()
     if tool is None:
         return None
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
@@ -64,7 +51,7 @@ def sass_opcodes(lib_path: str):
         if "Function :" in line:
             inside = "fma_peak_kernel" in line
             continue
-        m = _SASS_LINE.match(line)
+        m = SASS_LINE.match(line)
         if inside and m:
             counts[m.group(1).split(".")[0]] += 1
     return counts

@@ -6,15 +6,27 @@ port's counterpart of ``tools/bench_overlap_variants.py``.
 The TPU tool's inputs (``default_rng(0)``, rows of 20 log-normal values
 sorted along g, R = 8192 x 71, Gauss-Legendre del_g) and its variant
 names: ``check`` (the lean combine against the combine kernel, max relative
-difference), ``current`` (the combine kernel, ``ops/overlap_cuda.py:
-combine_pair``: the merge of the presorted runs with a rebin of the
-straddled bins), ``lean``, ``edges``, ``sortonly``, ``rollonly`` (the modes
-of ``ops/overlap_variants.py:combine_lean`` at 256 rows per block) and
-``lean8`` .. ``lean128`` (the full mode at 8 .. 128 rows per block). The
-full mode (``lean``) is the combine kernel's earlier design, a bitonic
-network in registers with every element tested against every bin, in its
-lean form. So one call times the current kernel beside the earlier design
-and beside the earlier design's sort and data movement alone.
+difference: 0, since both run one row code), ``current`` (the combine
+kernel, ``ops/overlap_cuda.py:combine_pair``), ``lean``, ``edges``,
+``sortonly``, ``rollonly`` (the modes of
+``ops/overlap_variants.py:combine_lean`` at 256 rows per block) and
+``lean8`` .. ``lean128`` (the full mode at 8 .. 128 rows per block).
+
+The modes take the combine kernel apart stage by stage, on its own row
+code (``csrc/overlap_row.cuh``):
+
+- ``lean``: the combine kernel's row, with the tool's denominator floor
+  and its rows taken in turn by the block's warps; its time against
+  ``current`` is what the row layout costs;
+- ``edges``: the kernel's merge and weight scan, with a second prefix sum
+  of key * weight and a rebin by NG + 1 binary searches of the bin edges:
+  ``lean - edges`` is what the per-bin walk costs against a search;
+- ``sortonly``: the kernel's merge on the keys alone (4-byte elements, no
+  index pair): ``current - sortonly`` is what the kernel spends beyond the
+  merge (the scan, the rebin and the 8-byte element);
+- ``rollonly``: one coalesced pass that reads the inputs and writes NG
+  values a row, the device-memory floor of any combine at these shapes.
+
 Prints ms per pair combine, the median of CUDA-event times, with the
 card's name and power limit. Default: every name.
 """

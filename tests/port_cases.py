@@ -157,6 +157,49 @@ def overlap_inputs(rows: int, ng: int, seed: int) -> tuple:
     return ta, tb
 
 
+WARP = 32  # lanes of the kernels' warps
+
+
+def kernel_scan(w: np.ndarray, keys=None) -> np.ndarray:
+    """Inclusive prefix sum of ``w`` (of ``keys * w`` where ``keys`` is
+    given) as the combine kernels take it, in w's dtype: lane l scans its
+    slice of ceil(n / 32) rounded up to odd elements in order (with keys, a
+    fused multiply-add an element, each rounded once), the warp scans the
+    slices' totals (Hillis-Steele, shuffles up by 1, 2, 4, 8, 16), and each
+    slice adds the totals before it."""
+    dtype = w.dtype.type
+    n = w.size
+    size = ((n + WARP - 1) // WARP) | 1
+    bounds = [(min(lane * size, n), min(lane * size + size, n))
+              for lane in range(WARP)]
+    ghi = np.zeros(n, dtype)
+    totals = np.zeros(WARP, dtype)
+    for lane, (b, e) in enumerate(bounds):
+        if e <= b:
+            continue
+        if keys is None:
+            ghi[b:e] = np.cumsum(w[b:e], dtype=dtype)
+        else:
+            run = 0.0
+            for i in range(b, e):
+                # float32: the product is exact in float64, and the sum
+                # rounds there before it rounds to float32; float64: two
+                # roundings. Either is within an ulp of the fused one.
+                run = dtype(float(keys[i]) * float(w[i]) + float(run))
+                ghi[i] = run
+        totals[lane] = ghi[e - 1]
+    incl = totals.copy()
+    step = 1
+    while step < WARP:
+        up = np.concatenate([np.zeros(step, dtype), incl[:-step]])
+        incl = np.where(np.arange(WARP) >= step, incl + up, incl).astype(dtype)
+        step *= 2
+    offset = np.concatenate([np.zeros(1, dtype), incl[:-1]])
+    for lane, (b, e) in enumerate(bounds):
+        ghi[b:e] = ghi[b:e] + offset[lane]
+    return ghi
+
+
 def np64(x):
     """numpy float64 copy of a tensor or array."""
     if isinstance(x, torch.Tensor):

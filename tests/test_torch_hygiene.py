@@ -288,6 +288,33 @@ def test_probe_and_variant_modules_import_without_nvcc(tmp_path):
     assert "probe raised" in out.stdout
 
 
+def test_build_key_covers_included_headers(tmp_path):
+    """The build key (``ops/cuda_build.source_digest``, computed without
+    nvcc) covers the local headers a source includes: an edit of the row
+    header both combine sources include gives both a new key, so neither
+    loads a library built from the old header; an edit elsewhere does
+    not."""
+    from archnemesis_tpu_torch.ops import cuda_build
+
+    names = ("overlap_combine", "overlap_variants")
+    for name in names:
+        got = cuda_build.local_sources(cuda_build.source_path(name))
+        assert [os.path.basename(p) for p in got] == [f"{name}.cu",
+                                                       "overlap_row.cuh"]
+    csrc = tmp_path / "csrc"
+    shutil.copytree(PORT / "csrc", csrc)
+    keys = {n: cuda_build.source_digest(str(csrc / f"{n}.cu"))
+            for n in (*names, "lbl_cross_section")}
+    assert keys["overlap_combine"] == cuda_build.source_digest(
+        cuda_build.source_path("overlap_combine"))
+    header = csrc / "overlap_row.cuh"
+    header.write_text(header.read_text() + "// an edit\n")
+    for name in names:
+        assert cuda_build.source_digest(str(csrc / f"{name}.cu")) != keys[name]
+    assert cuda_build.source_digest(
+        str(csrc / "lbl_cross_section.cu")) == keys["lbl_cross_section"]
+
+
 def test_sharding_and_tools_need_a_card(no_cuda):
     """The sharded synthesis packs its kernel inputs on the card unless asked
     for the CPU; the measurement tools refuse to run without a card; a

@@ -8,6 +8,7 @@ on the card only (``cuda`` marker; skipped here).
 
 import dataclasses
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -234,17 +235,39 @@ def test_block_width_invariance(lines, golden_case):
     np.testing.assert_allclose(ks[0], ks[1], rtol=1e-12, atol=0)
 
 
+# tests/test_lbl_pallas.py's grid and layers
+PALLAS_WAVE = np.linspace(2050.0, 2250.0, 700)
+PALLAS_STATE = (np.array([120.0, 200.0, 290.0]), np.array([1.0e-3, 0.3, 1.2]),
+                np.array([0.99, 0.9, 0.5]))
+
+
 @pytest.fixture(scope="module")
 def pallas_case(lines):
     """tests/test_lbl_pallas.py's grid and layers, iso_id 0 (the abundance
     factor)."""
     ll, jll = (dataclasses.replace(x, iso_id=0) for x in lines)
-    wave = np.linspace(2050.0, 2250.0, 700)
-    t = np.array([120.0, 200.0, 290.0])
-    p = np.array([1.0e-3, 0.3, 1.2])
-    amb = np.array([0.99, 0.9, 0.5])
-    return ll, jll, build_blocks(wave, ll.nu), jax_build_blocks(wave, jll.nu), \
-        (t, p, amb)
+    return ll, jll, build_blocks(PALLAS_WAVE, ll.nu), \
+        jax_build_blocks(PALLAS_WAVE, jll.nu), PALLAS_STATE
+
+
+def card_lines():
+    """The port's lines of the ``cuda`` case, iso_id 0, from the committed
+    ``.npz`` export: the card's machine has no h5py, and
+    ``test_npz_export_equals_h5`` holds the export to the HDF5 file bit for
+    bit."""
+    return dataclasses.replace(
+        read_ans_linedata(LINEDATA_NPZ, gas_id=5, iso_id=1), iso_id=0)
+
+
+def test_card_lines_need_no_h5py(lines, monkeypatch):
+    """With h5py not importable, as on the card's machine, the HDF5 file
+    cannot be read but the ``cuda`` case's lines can, and they are the
+    HDF5 file's lines."""
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError):
+        read_ans_linedata(LINE_H5, gas_id=5, iso_id=1)
+    assert_same_fields(card_lines(),
+                       dataclasses.replace(lines[0], iso_id=0), LINE_FIELDS)
 
 
 @pytest.mark.parametrize("shape", sorted(port_voigt.LINESHAPES))
@@ -337,11 +360,14 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_kernel_matches_plain_on_card(cuda, pallas_case, dtype):
+def test_kernel_matches_plain_on_card(cuda, dtype):
     """float64: rtol 1e-10 of the plain version; float32: the float32
-    bound against the float64 plain version; one launch."""
-    ll, _, blocks, _, state = pallas_case
-    t, p, amb = (torch.as_tensor(x, device=cuda) for x in state)
+    bound against the float64 plain version; one launch. On
+    ``pallas_case``'s grid and layers, the lines from the ``.npz`` export
+    (``card_lines``)."""
+    ll = card_lines()
+    blocks = build_blocks(PALLAS_WAVE, ll.nu)
+    t, p, amb = (torch.as_tensor(x, device=cuda) for x in PALLAS_STATE)
     want = lbl_cross_section_plain(ll, blocks, t, p, amb)
     before = lbl_cuda.lbl_cross_section.launches
     got = lbl_cuda.lbl_cross_section(ll, blocks, t.to(dtype), p.to(dtype),

@@ -26,41 +26,10 @@ import torch
 from archnemesis_tpu.ops.overlap import _combine_pair as jax_combine_pair
 from archnemesis_tpu.ops.overlap import g_bin_edges as jax_g_bin_edges
 from archnemesis_tpu_torch.ops import overlap, overlap_cuda
-from port_cases import gauss_del_g, tiefree_overlap_inputs
+from port_cases import gauss_del_g, kernel_scan, tiefree_overlap_inputs
 
 NGS = (1, 2, 3, 7, 20, 31, 32)
 SLACK_EPS = 128  # the kernel's kSlackEps
-WARP = 32
-
-
-def kernel_scan(w: np.ndarray) -> np.ndarray:
-    """Inclusive prefix sum of ``w`` as the kernel takes it, in w's dtype:
-    lane l scans its slice of ceil(n / 32) rounded up to odd elements in
-    order, the warp scans the slices' totals (Hillis-Steele, shuffles up by
-    1, 2, 4, 8, 16), and each slice adds the totals before it."""
-    dtype = w.dtype.type
-    n = w.size
-    size = ((n + WARP - 1) // WARP) | 1
-    bounds = [(min(lane * size, n), min(lane * size + size, n))
-              for lane in range(WARP)]
-    ghi = np.zeros(n, dtype)
-    totals = np.zeros(WARP, dtype)
-    for lane, (b, e) in enumerate(bounds):
-        if e > b:
-            ghi[b:e] = np.cumsum(w[b:e], dtype=dtype)
-            totals[lane] = ghi[e - 1]
-    incl = totals.copy()
-    step = 1
-    while step < WARP:
-        up = np.concatenate([np.zeros(step, dtype), incl[:-step]])
-        incl = np.where(np.arange(WARP) >= step, incl + up, incl).astype(dtype)
-        step *= 2
-    offset = np.concatenate([np.zeros(1, dtype), incl[:-1]])
-    for lane, (b, e) in enumerate(bounds):
-        ghi[b:e] = ghi[b:e] + offset[lane]
-    return ghi
-
-
 def mirror_row(a_row, b_row, w2, edges):
     """One row through the kernel's steps, in the dtype of the inputs.
 

@@ -19,6 +19,7 @@ import chip_smoke
 
 from archnemesis_tpu_torch.ops import fma_peak
 from archnemesis_tpu_torch.ops import overlap_variants as ov
+from archnemesis_tpu_torch.ops.overlap_cuda import combine_pair
 from port_cases import gauss_del_g, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -155,7 +156,8 @@ def test_rollonly_shift_is_the_network_stride_sum():
     NG = 4."""
     assert (ov.ref_pad(20), ov.roll_shift(20)) == (512, 501)
     assert (ov.ref_pad(4), ov.roll_shift(4)) == (16, 10)
-    assert (ov.e_pad(4), ov.e_pad(20)) == (32, 512)
+    assert (ov.ref_pad(1), ov.roll_shift(1)) == (1, 0)
+    assert ov.ref_pad(32) == 1024
 
 
 def test_combine_lean_wrapper_on_cpu():
@@ -201,13 +203,14 @@ def test_fma_kernel_matches_plain_on_card(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ov.MODES)
-@pytest.mark.parametrize("ng", [4, 20])
+@pytest.mark.parametrize("ng", [4, 20, 32])
 def test_variant_kernel_matches_plain_on_card(cuda, mode, ng):
     """``sortonly``/``rollonly`` bit for bit; ``full``/``edges`` within
     ``chip_smoke.variant_f32_tol`` of each row's peak of the float64 plain
     version, and within three times it of the float32 plain version (whose
     serial cumsum is the less accurate); ``full`` bit for bit at every row
-    tile."""
+    tile and equal to the combine kernel (``combine_pair``, whose row code
+    it runs) bit for bit."""
     del_g = gauss_del_g(ng)
     a, b = (torch.as_tensor(x, device=cuda)
             for x in _variant_inputs(4096, ng, seed=ng))
@@ -226,3 +229,5 @@ def test_variant_kernel_matches_plain_on_card(cuda, mode, ng):
         for tile in ov.ROW_TILES[:-1]:
             torch.testing.assert_close(
                 ov.combine_lean(a, b, del_g, mode, tile), got, rtol=0, atol=0)
+        torch.testing.assert_close(combine_pair(a, b, del_g), got, rtol=0,
+                                   atol=0)
