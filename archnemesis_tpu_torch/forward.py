@@ -1,10 +1,11 @@
-"""Forward model: components -> synthetic nadir spectrum.
+"""Forward model: components -> synthetic spectra.
 
-Port of the nadir path of the JAX package's ``forward.py``, with
-correlated-k, line-by-line table and runtime line-by-line gas opacity
-(reference ``ForwardModel_0`` nemesisfm :437 + CIRSrad :4376): a static
+Port of the JAX package's ``forward.py`` for the nadir, limb and
+disc-averaged geometries, with correlated-k, line-by-line table and runtime
+line-by-line gas opacity (reference ``ForwardModel_0`` nemesisfm :437,
+nemesisLfm :1254, nemesisdiscfm :1609 + CIRSrad :4376): a static
 ``ForwardConfig`` is built once on the host (gas index mappings, enums,
-quadrature constants), and ``forward_nadir`` is a plain function of the
+quadrature constants), and every forward is a plain function of the
 component structures.
 """
 
@@ -45,7 +46,11 @@ from archnemesis_tpu_torch.rt.emission import (
     transmission_spectrum,
 )
 from archnemesis_tpu_torch.rt.layer import build_layers
-from archnemesis_tpu_torch.rt.path import Paths, nadir_path
+from archnemesis_tpu_torch.rt.path import (
+    Paths,
+    limb_paths,
+    nadir_path,
+)
 from archnemesis_tpu_torch.utils.device import resolve_device
 from archnemesis_tpu_torch.utils.interp import interp, interp1d_extrap
 
@@ -415,6 +420,24 @@ def path_spectrum(
     return torch.einsum("wgp,g->wp", spec, del_g)
 
 
+def _calc_grid(ktab, layers):
+    """(wave, del_g) of the calc grid in the run's type: the tables' own,
+    or a runtime deck's host grid (its synthesis reads its own float64
+    copy)."""
+    if isinstance(ktab, RuntimeLBL):
+        return (layers.temp.new_tensor(runtime_wave(ktab)),
+                layers.temp.new_tensor(ktab.del_g))
+    return ktab.wave, ktab.del_g
+
+
+def _structures_to(device, atm, ktab, *rest):
+    """The component structures on ``device``; a ``RuntimeLBL`` stays on
+    the host."""
+    if not isinstance(ktab, RuntimeLBL):
+        ktab = ktab.to(device)
+    return (atm.to(device), ktab) + _to_device(device, *rest)
+
+
 def forward_nadir(
     atm: Atmosphere,
     laycfg: LayerConfig,
@@ -443,12 +466,8 @@ def forward_nadir(
     host and its synthesis runs on ``device``.
     """
     device = resolve_device(device)
-    atm = atm.to(device)
-    if not isinstance(ktab, RuntimeLBL):
-        ktab = ktab.to(device)
-    cia = cia.to(device) if cia is not None else None
-    aero = aero.to(device) if aero is not None else None
-    surf = surf.to(device) if surf is not None else None
+    atm, ktab, cia, aero, surf = _structures_to(device, atm, ktab, cia, aero,
+                                                surf)
 
     layers = apply_dust_renorm(build_layers(atm, laycfg, layang=0.0), atm)
     path = nadir_path(
@@ -460,13 +479,7 @@ def forward_nadir(
         azi_ang=azi_ang,
         imod=PathCalc.THERMAL_EMISSION,
     )
-    if isinstance(ktab, RuntimeLBL):
-        # the host grid in the run's type (the synthesis reads its own
-        # float64 copy)
-        wave = layers.temp.new_tensor(runtime_wave(ktab))
-        del_g = layers.temp.new_tensor(ktab.del_g)
-    else:
-        wave, del_g = ktab.wave, ktab.del_g
+    wave, del_g = _calc_grid(ktab, layers)
     taus = layer_optical_depths(cfg, layers, wave, ktab, cia, aero)
     spec = path_spectrum(cfg, wave, taus["tautot"], path, surf, del_g)
     if ktab.wave_slice is not None:
@@ -476,6 +489,235 @@ def forward_nadir(
     if return_diagnostics:
         return spec, {"layers": layers, "path": path, **taus}
     return spec
+
+
+def so_tangent_layers(baseh_m: np.ndarray, tanhe_km: np.ndarray):
+    """Unique tangent (bottom) layers bracketing each measured tangent
+    height (reference calc_path_SO ForwardModel_0.py:3240-3258). Host-side
+    static."""
+    nlay = baseh_m.shape[0]
+    baseh_km = np.asarray(baseh_m) / 1.0e3
+    itanhe = []
+    for th in np.atleast_1d(tanhe_km):
+        ibase = int(np.argmin(np.abs(baseh_km - th)))
+        if baseh_km[ibase] <= th:
+            ibasel, ibaseh = ibase, min(ibase + 1, nlay - 1)
+        else:
+            ibasel, ibaseh = ibase - 1, ibase
+        itanhe += [ibasel, ibaseh]
+    return np.unique(itanhe)
+
+
+def so_geometry(atm: Atmosphere, laycfg: LayerConfig, tanhe_km,
+                lfm_bracket: bool = False):
+    """Host-side static limb geometry: the tangent layers and the linear
+    tangent-height interpolation stencil (reference calc_path_SO
+    ForwardModel_0.py:3240-3258 and nemesisSOfm :943-961), from the
+    unperturbed layering at 90 degrees (the reference freezes layer
+    heights, adjust_hydrostat=False, ForwardModel_0.py:855).
+
+    ``lfm_bracket=True`` keeps nemesisLfm's bracket choice
+    (ForwardModel_0.py:1322-1329) verbatim: there ``base0 =
+    BASEH_TANHE[ibase]/1e3`` divides the tangent baseline, already in km,
+    by 1e3 again, so the bracket is almost always [ibase, ibase+1], with
+    weights that may extrapolate; a bracket past the last path takes the
+    last path alone."""
+    layers = build_layers(atm, laycfg, layang=90.0)
+    baseh = layers.baseh.detach().cpu().double().numpy()
+    itanhe = so_tangent_layers(baseh, tanhe_km)
+    baseh_tan = baseh[itanhe] / 1.0e3  # (NPATH,) km
+    npath = len(itanhe)
+
+    tanhe = np.atleast_1d(np.asarray(tanhe_km, dtype=np.float64))
+    lo, hi, wlo, whi = [], [], [], []
+    for th in tanhe:
+        ibase = int(np.argmin(np.abs(baseh_tan - th)))
+        base0 = baseh_tan[ibase] / 1.0e3 if lfm_bracket else baseh_tan[ibase]
+        if base0 <= th:
+            ibasel, ibaseh = ibase, ibase + 1
+        else:
+            ibasel, ibaseh = ibase - 1, ibase
+        if ibaseh > npath - 1:
+            lo.append(ibasel)
+            hi.append(ibasel)
+            wlo.append(1.0)
+            whi.append(0.0)
+        else:
+            span = baseh_tan[ibaseh] - baseh_tan[ibasel]
+            lo.append(ibasel)
+            hi.append(ibaseh)
+            wlo.append(1.0 - (th - baseh_tan[ibasel]) / span)
+            whi.append(1.0 - (baseh_tan[ibaseh] - th) / span)
+    return dict(
+        itanhe=itanhe,
+        lo=np.asarray(lo), hi=np.asarray(hi),
+        wlo=np.asarray(wlo), whi=np.asarray(whi),
+        baseh_tan=baseh_tan, tanhe_km=tanhe,
+    )
+
+
+def forward_limb(
+    atm: Atmosphere,
+    laycfg: LayerConfig,
+    ktab: KTables,
+    cia: Optional[CIATables],
+    aero: Optional[AerosolOptics],
+    cfg: ForwardConfig,
+    tanhe_km,
+    return_diagnostics: bool = False,
+    device=None,
+):
+    """Limb thermal-emission forward evaluation at one tangent height (km,
+    a host number): the reference nemesisfm path for EMISS_ANG < 0
+    (ForwardModel_0.py:505-508 + calc_path :2996-2998). The layering is
+    re-based at the tangent height (LAYHT = tanhe, LAYANG = 90) and one
+    mirrored limb path through every layer feeds the thermal-emission
+    integral (no surface). Returns (NWAVE, 1), gathered over the ranks of
+    wave-sharded tables as ``forward_nadir``'s; ``device`` as in
+    ``forward_nadir``."""
+    device = resolve_device(device)
+    atm, ktab, cia, aero = _structures_to(device, atm, ktab, cia, aero)
+    layers = apply_dust_renorm(
+        build_layers(atm, laycfg, layang=90.0,
+                     layht_override=float(tanhe_km) * 1.0e3),
+        atm,
+    )
+    paths = limb_paths(layers, atm.radius, atm.h[-1], [0],
+                       imod=PathCalc.THERMAL_EMISSION)
+    wave, del_g = _calc_grid(ktab, layers)
+    taus = layer_optical_depths(cfg, layers, wave, ktab, cia, aero)
+    spec = path_spectrum(cfg, wave, taus["tautot"], paths, None, del_g)
+    if ktab.wave_slice is not None:
+        # wave-sharded tables, as in forward_nadir
+        spec = ktab.wave_slice.gather(spec, dim=0)
+    if return_diagnostics:
+        return spec, {"layers": layers, "paths": paths, **taus}
+    return spec
+
+
+def tangent_stencil(spec, geo: dict, tanhe_shift=None):
+    """(NWAVE, NPATH) tangent-path spectra -> (NWAVE, NGEOM) at the
+    measured tangent heights: the static ``so_geometry`` stencil, or with
+    ``tanhe_shift`` (km, a tensor that model 777 retrieves) a
+    differentiable search over the paths' tangent heights."""
+    if tanhe_shift is None:
+        def host(x):
+            return torch.as_tensor(x, device=spec.device)
+
+        return (spec[:, host(geo["lo"])] * host(geo["wlo"]).to(spec.dtype)
+                + spec[:, host(geo["hi"])] * host(geo["whi"]).to(spec.dtype))
+    bt = spec.new_tensor(geo["baseh_tan"])  # (NPATH,) km, ascending
+    th = spec.new_tensor(geo["tanhe_km"]) + tanhe_shift  # (NGEOM,)
+    idx = torch.clamp(torch.searchsorted(bt, th.detach()) - 1, 0,
+                      bt.shape[0] - 2)
+    w = torch.clamp((th - bt[idx]) / (bt[idx + 1] - bt[idx]), 0.0, 1.0)
+    return spec[:, idx] * (1.0 - w)[None, :] + spec[:, idx + 1] * w[None, :]
+
+
+def forward_limb_batch(
+    atm: Atmosphere,
+    laycfg: LayerConfig,
+    ktab: KTables,
+    cia: Optional[CIATables],
+    aero: Optional[AerosolOptics],
+    cfg: ForwardConfig,
+    geo: dict,
+    tanhe_shift=None,
+    return_diagnostics: bool = False,
+    device=None,
+):
+    """Limb thermal-emission forward model over every measured tangent
+    height at once (reference nemesisLfm ForwardModel_0.py:1254 +
+    calc_path_L :3375): ONE layering at 90 degrees and one
+    ``layer_optical_depths`` feed every tangent path of ``geo`` (from
+    ``so_geometry``), then ``tangent_stencil`` to the measured tangent
+    heights. Returns (NWAVE, NGEOM); ``device`` as in ``forward_nadir``."""
+    device = resolve_device(device)
+    atm, ktab, cia, aero = _structures_to(device, atm, ktab, cia, aero)
+    layers = apply_dust_renorm(build_layers(atm, laycfg, layang=90.0), atm)
+    paths = limb_paths(layers, atm.radius, atm.h[-1], geo["itanhe"],
+                       imod=PathCalc.THERMAL_EMISSION)
+    wave, del_g = _calc_grid(ktab, layers)
+    taus = layer_optical_depths(cfg, layers, wave, ktab, cia, aero)
+    spec = path_spectrum(cfg, wave, taus["tautot"], paths, None,
+                         del_g)  # (NWAVE, NPATH) radiance
+    specmod = tangent_stencil(spec, geo, tanhe_shift)
+    if return_diagnostics:
+        return specmod, {"layers": layers, "paths": paths, **taus,
+                         "spec_paths": spec}
+    return specmod
+
+
+def forward_disc(
+    atm: Atmosphere,
+    laycfg: LayerConfig,
+    ktab: KTables,
+    cia: Optional[CIATables],
+    aero: Optional[AerosolOptics],
+    surf: Optional[SurfaceSpec],
+    cfg: ForwardConfig,
+    quad: dict,
+    point_fn=None,
+    ray_chunk: Optional[int] = None,
+    device=None,
+):
+    """Disc-averaged spectrum (NWAVE,) over a static quadrature
+    (``rt.disc.disc_quadrature``): the reference nemesisdiscfm's fan-out
+    over averaging rays (ForwardModel_0.py:1609). The layering and the
+    layer optical depths do not depend on the rays' angles, so they are
+    computed ONCE; the rays' nadir paths then go through the emission in
+    chunks of ``ray_chunk`` rays (None = all at once; under ``jacfwd``
+    every tangent holds a (NWAVE, NG, NLAY, chunk) block), and the
+    ``wgeom``-weighted sum adds the chunks up.
+
+    ``point_fn(emiss, sol, azi) -> (NWAVE,)`` replaces the per-ray nadir
+    forward (called once per ray, with host angles). ``device`` as in
+    ``forward_nadir``."""
+    angles = [np.asarray(quad[k], dtype=np.float64).reshape(-1)
+              for k in ("emiss_ang", "sol_ang", "azi_ang")]
+    wgeom = np.asarray(quad["wgeom"], dtype=np.float64).reshape(-1)
+    if point_fn is not None:
+        out = 0.0
+        for i in range(wgeom.shape[0]):
+            out = out + float(wgeom[i]) * point_fn(
+                *(float(a[i]) for a in angles))
+        return out
+    device = resolve_device(device)
+    atm, ktab, cia, aero, surf = _structures_to(device, atm, ktab, cia, aero,
+                                                surf)
+    layers = apply_dust_renorm(build_layers(atm, laycfg, layang=0.0), atm)
+    wave, del_g = _calc_grid(ktab, layers)
+    taus = layer_optical_depths(cfg, layers, wave, ktab, cia, aero)
+    nav = wgeom.shape[0]
+    chunk = nav if ray_chunk is None else max(1, int(ray_chunk))
+    out = 0.0
+    for c in range(0, nav, chunk):
+        sel = slice(c, c + chunk)
+        paths = nadir_path(layers, atm.radius, atm.h[-1],
+                           *(a[sel] for a in angles),
+                           imod=PathCalc.THERMAL_EMISSION)
+        spec = path_spectrum(cfg, wave, taus["tautot"], paths, surf,
+                             del_g)  # (NWAVE, chunk)
+        out = out + spec @ spec.new_tensor(wgeom[sel])
+    return out
+
+
+# The largest (NWAVE, NG, NLAY, rays) block of ``forward_disc``, the
+# primal and every tangent of a Jacobian together. It bounds one block, not
+# the peak: the emission stage holds several at once. On an H100 with
+# jupiter_nadir (599 waves, 20 g, 71 layers, 81 tangents, float64) the
+# chunk is 7 rays, a 3.63 GiB block, and the peak read 36.26 GiB at
+# nmu 3 and 5 alike: 10 such blocks.
+DISC_BLOCK_BYTES = 4 * 2**30
+
+
+def disc_ray_chunk(nwave: int, ng: int, nlay: int, n_tangents: int,
+                   itemsize: int) -> int:
+    """Rays per chunk of ``forward_disc`` whose (NWAVE, NG, NLAY, chunk)
+    block of the primal and ``n_tangents`` tangents fits
+    ``DISC_BLOCK_BYTES``."""
+    per_ray = nwave * ng * nlay * (n_tangents + 1) * itemsize
+    return max(1, DISC_BLOCK_BYTES // per_ray)
 
 
 def solar_flux(stellar: Optional[StellarSpec], wave):

@@ -10,13 +10,15 @@ with ``torch.func.jacfwd`` Jacobians. Every entry point takes ``device``
 counterpart of the JAX package's ``cast_dtype``).
 
 Ported: ISCAT = thermal emission, multiple scattering and plane-parallel
-single scattering with nadir FOV points, every instrument function of the
-nadir set-up (channel interpolation, the static ILS and filter weights, the
-double-Gaussian ILS of models 228-230, filter integration with a retrieved
-Doppler shift), LIN 0-3 chaining, resume. Limb FOV
-points, telluric transmission, the other set-ups (SO, limb, transit, disc,
-combined) and nested sampling raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings them.
+single scattering with nadir and limb FOV points, every instrument function
+of the nadir set-up (channel interpolation, the static ILS and filter
+weights, the double-Gaussian ILS of models 228-230, filter integration with
+a retrieved Doppler shift), the limb (``make_retrieval_setup_limb``),
+combined multi-angle (``make_retrieval_setup_c``) and disc-averaged
+(``make_retrieval_setup_disc``) set-ups, LIN 0-3 chaining, resume, and
+nested sampling (``retrieval_method=1``). Telluric transmission, HDF5
+decks and the SO and transit set-ups raise ``NotImplementedError`` naming
+the ``ROADMAP.md`` item that brings them.
 """
 
 from __future__ import annotations
@@ -36,10 +38,15 @@ from archnemesis_tpu_torch.enums import (
     SpectraUnit,
 )
 from archnemesis_tpu_torch.forward import (
+    disc_ray_chunk,
+    forward_disc,
+    forward_limb,
+    forward_limb_batch,
     forward_nadir,
     forward_scattering_nadir,
     forward_singlescat_nadir,
     make_forward_config,
+    so_geometry,
 )
 from archnemesis_tpu_torch.io.legacy import Deck, load_deck
 from archnemesis_tpu_torch.io.linedata import RuntimeLBL
@@ -203,6 +210,149 @@ def _iform_xfac(iform, atm, stellar, wave):
     return 1.0
 
 
+def _load_setup_deck(deck_dir: str, runname: str, atm_override, dtype,
+                     hdf5_item: bool = False) -> Deck:
+    """The deck of a set-up in the run's type, on the host:
+    ``atm_override`` in place of its atmosphere, the float32 table fixes
+    (``_attach_logk``) and the cast. ``hdf5_item``: a set-up whose JAX
+    counterpart reads an HDF5 deck when there is one raises for it."""
+    import os
+
+    if hdf5_item and os.path.exists(os.path.join(deck_dir, runname + ".h5")):
+        _not_ported("HDF5 decks", "io/hdf5.py, ROADMAP Queue 1 item 4")
+    deck = load_deck(deck_dir, runname)
+    if atm_override is not None:
+        deck = dataclasses.replace(deck, atmosphere=atm_override)
+    return _typed_deck(deck, dtype)
+
+
+def _typed_deck(deck: Deck, dtype) -> Deck:
+    """The float32 table fixes (``_attach_logk``), then the cast."""
+    return cast_deck_components(_attach_logk(deck, dtype), dtype)
+
+
+def _measurement(geom):
+    """The measurement vector and its diagonal covariance (reference
+    calc_MeasurementVector Measurement_0.py:1423), host float64."""
+    y_parts, se_parts = [], []
+    for ig in range(geom.ngeom):
+        nc = geom.nconv[ig]
+        y_parts.append(geom.meas[:nc, ig])
+        se_parts.append(geom.errmeas[:nc, ig] ** 2)
+    return np.concatenate(y_parts), np.diag(np.concatenate(se_parts))
+
+
+def _ils_halfwidth(fwhm: float, ishape: InstrumentLineshape) -> float:
+    """Half the calc range an ILS of ``fwhm`` needs beyond the channels
+    (reference calc_wave_range Measurement_0.py:2044)."""
+    if ishape == InstrumentLineshape.Square:
+        return 0.5 * fwhm
+    if ishape == InstrumentLineshape.Triangular:
+        return fwhm
+    return 3.0 * 0.5 * fwhm / np.sqrt(np.log(2.0))
+
+
+def _channel_range(geom):
+    """(min, max) channel centre over every geometry."""
+    vmin = min(float(geom.vconv[: geom.nconv[ig], ig].min())
+               for ig in range(geom.ngeom))
+    vmax = max(float(geom.vconv[: geom.nconv[ig], ig].max())
+               for ig in range(geom.ngeom))
+    return vmin, vmax
+
+
+def _as_state(xn, dev):
+    """``forward_fn``'s state as a tensor: a host array is put on the
+    set-up's device in its type."""
+    return xn if isinstance(xn, torch.Tensor) else dev(xn)
+
+
+def _vconv_list(geom):
+    return [geom.vconv[: geom.nconv[ig], ig] for ig in range(geom.ngeom)]
+
+
+def _to_run(dtype, device) -> Callable:
+    """A host array as a tensor of the run's type on its device."""
+    def dev(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    return dev
+
+
+def _shared_window(deck: Deck, geom, st, widen_doppler: bool):
+    """One windowed table set over every geometry's channels, widened by
+    the ILS support and, where ``widen_doppler``, by the Doppler shift
+    (reference calc_wave_range Measurement_0.py:2044, :2113-2115)."""
+    vmin, vmax = _channel_range(geom)
+    if geom.fwhm > 0.0:
+        dv = _ils_halfwidth(geom.fwhm, InstrumentLineshape(st.ishape))
+        vmin, vmax = vmin - dv, vmax + dv
+    if widen_doppler and st.v_doppler != 0.0:
+        lo = invert_doppler_shift(vmin, st.v_doppler, st.ispace)
+        hi = invert_doppler_shift(vmax, st.v_doppler, st.ispace)
+        vmin, vmax = min(vmin, lo), max(vmax, hi)
+    if isinstance(deck.ktables, RuntimeLBL):
+        return deck.ktables.windowed(vmin, vmax)
+    return _windowed_ktab(deck, vmin, vmax)
+
+
+def _ils_weights(geom, st, wave, vconv, intfilter: bool, ktab_quad: bool,
+                 fwh=None):
+    """One geometry's static instrument function on the host calc grid
+    ``wave`` (observer frame) as a host float64 (NCONV, NWAVE) matrix, or
+    None for channel interpolation (FWHM=0). ``intfilter``: IFORM=
+    Integrated_radiance integrates the .fil filters (reference nemesisfm
+    ForwardModel_0.py:556-559). ``ktab_quad``: FWHM>0 in k-table mode is
+    the conv() spline quadrature, with the per-channel FWHM of the .fwh
+    table ``fwh``; otherwise FWHM>0 takes the lineshape weights. FWHM<0
+    takes the .fil filters."""
+    vconv = np.asarray(vconv)
+    if intfilter and st.iform == SpectraUnit.Integrated_radiance:
+        if geom.nfil is None:
+            raise ValueError("IFORM=Integrated_radiance requires a .fil "
+                             "filter file")
+        return integrate_filter_weights(wave, vconv, geom.nfil, geom.vfil,
+                                        geom.afil)
+    if geom.fwhm > 0.0:
+        if ktab_quad and st.ilbl == SpectralCalculationMode.K_TABLES:
+            vf, xf = fwh if fwh is not None else (None, None)
+            return conv_quad_weights(wave, vconv, geom.fwhm, vfwhm=vf,
+                                     xfwhm=xf)
+        return ils_weights_lbl(wave, vconv, geom.fwhm,
+                               InstrumentLineshape(st.ishape))
+    if geom.fwhm < 0.0 and geom.nfil is not None:
+        return ils_weights_filter(wave, vconv, geom.nfil, geom.vfil,
+                                  geom.afil)
+    return None
+
+
+def _convolve(wave, spec, ils_w, vconv):
+    """One geometry's spectrum on the calc grid ``wave`` through its
+    static instrument function: the weight matrix ``ils_w``, or channel
+    interpolation at ``vconv`` where it is None."""
+    if ils_w is None:
+        return conv_channel_interp(wave, spec, vconv)
+    return apply_ils(ils_w, spec)
+
+
+def _convolve_geoms(sv, xn, spec, ils, vconvs, wave):
+    """Column ig of ``spec`` (NWAVE, NGEOM) through geometry ig's static
+    instrument function (``ils[ig]``, channel centres ``vconvs[ig]`` on
+    the device) and the spectrum-domain models, concatenated."""
+    return torch.cat([
+        apply_spectrum_models(sv, xn, ig, vconv,
+                              _convolve(wave, spec[:, ig], ils[ig], vconv))
+        for ig, vconv in enumerate(vconvs)])
+
+
+def _setup(deck: Deck, sv, geom, forward_fn, device, dtype
+           ) -> RetrievalSetup:
+    y, se = _measurement(geom)
+    return RetrievalSetup(
+        deck=deck, sv=sv, forward_fn=forward_fn, y=y, se=se,
+        vconv_list=_vconv_list(geom), device=device, dtype=dtype,
+    )
+
+
 def make_retrieval_setup(
     deck_dir: str, runname: str, atm_override=None, sv_override=None,
     wave_pad_multiple: int = 1, ktab_transform=None,
@@ -232,11 +382,7 @@ def make_retrieval_setup(
     table fixes of ``_attach_logk``). ``forward_fn`` takes ``xn`` as a
     tensor there, or a host array that is put there."""
     device = resolve_device(device)
-    deck = load_deck(deck_dir, runname)
-    if atm_override is not None:
-        deck = dataclasses.replace(deck, atmosphere=atm_override)
-    deck = _attach_logk(deck, dtype)
-    deck = cast_deck_components(deck, dtype)
+    deck = _load_setup_deck(deck_dir, runname, atm_override, dtype)
     st = deck.settings
     iscat = ScatteringCalculationMode(deck.settings.iscat)
     multiple = iscat == ScatteringCalculationMode.MULTIPLE_SCATTERING
@@ -267,7 +413,7 @@ def make_retrieval_setup(
         # geometries
         raise NotImplementedError(
             f"IFORM={deck.settings.iform!r} is not a nadir radiance unit "
-            "(other set-ups: ROADMAP Queue 1 item 5)"
+            "(the SO and transit set-ups: ROADMAP Queue 1 item 5b)"
         )
     if (deck.settings.iform == SpectraUnit.Normalised_radiance
             and deck.settings.vnorm is None):
@@ -283,25 +429,14 @@ def make_retrieval_setup(
         else read_apr(deck.apr_path, deck.atmosphere)
     )
     geom = deck.geometry
-    if float(np.min(geom.emiss_ang)) < 0.0:
-        # limb points with scattering raise in the JAX package too (the
-        # reference computes limb paths in thermal emission only)
-        _not_ported("limb FOV points (EMISS_ANG < 0)",
-                    "forward_limb, ROADMAP Queue 1 item 5")
-
-    # measurement vector (reference calc_MeasurementVector Measurement_0.py:1423)
-    y_parts, se_parts = [], []
-    for ig in range(geom.ngeom):
-        nc = geom.nconv[ig]
-        y_parts.append(geom.meas[:nc, ig])
-        se_parts.append(geom.errmeas[:nc, ig] ** 2)
-    y = np.concatenate(y_parts)
-    se = np.diag(np.concatenate(se_parts))
+    if (float(np.min(geom.emiss_ang)) < 0.0
+            and iscat != ScatteringCalculationMode.THERMAL_EMISSION):
+        raise NotImplementedError(
+            "limb geometries with scattering are not wired (the reference "
+            "nemesisfm computes limb paths in thermal emission only)")
 
     deck = _deck_to(deck, device)
-
-    def dev(x):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    dev = _to_run(dtype, device)
 
     # per-geometry static setup; model 447 retrieves the Doppler velocity,
     # so the observer-frame grid becomes a function of the state
@@ -325,13 +460,7 @@ def make_retrieval_setup(
             ils_w = None
         elif geom.fwhm > 0.0:
             # ILS support (reference calc_wave_range Measurement_0.py:2044)
-            ishape = InstrumentLineshape(st.ishape)
-            if ishape == InstrumentLineshape.Square:
-                dv = 0.5 * geom.fwhm
-            elif ishape == InstrumentLineshape.Triangular:
-                dv = geom.fwhm
-            else:
-                dv = 3.0 * 0.5 * geom.fwhm / np.sqrt(np.log(2.0))
+            dv = _ils_halfwidth(geom.fwhm, InstrumentLineshape(st.ishape))
             wavemin, wavemax = vconv[0] - dv, vconv[-1] + dv
             ils_w = True
         else:
@@ -384,30 +513,11 @@ def make_retrieval_setup(
         if ktab_transform is not None:
             ktw = ktab_transform(ktw)
         wavecorr = doppler_corrected_wave(wave_host, st.v_doppler, st.ispace)
-        if ils_w is True:
-            if st.ilbl == SpectralCalculationMode.K_TABLES:
-                # k-table mode convolves via the conv() spline quadrature,
-                # with optional per-channel FWHM from a .fwh table
-                vf, xf = deck.fwh if deck.fwh is not None else (None, None)
-                ils_w = dev(conv_quad_weights(
-                    wavecorr, np.asarray(vconv), geom.fwhm,
-                    vfwhm=vf, xfwhm=xf,
-                ))
-            else:
-                ils_w = dev(ils_weights_lbl(
-                    wavecorr, np.asarray(vconv), geom.fwhm,
-                    InstrumentLineshape(st.ishape),
-                ))
-        elif ils_w == "filter":
-            ils_w = dev(ils_weights_filter(
-                wavecorr, np.asarray(vconv),
-                geom.nfil, geom.vfil, geom.afil,
-            ))
-        elif ils_w == "intfilter" and not has_447:
-            ils_w = dev(integrate_filter_weights(
-                wavecorr, np.asarray(vconv),
-                geom.nfil, geom.vfil, geom.afil,
-            ))
+        if ils_w is True or ils_w == "filter" or (ils_w == "intfilter"
+                                                   and not has_447):
+            ils_w = dev(_ils_weights(geom, st, wavecorr, vconv,
+                                     intfilter=True, ktab_quad=True,
+                                     fwh=deck.fwh))
         # multiple scattering's FluxRatio / Integrated_spectral_power unit
         # conversion on the calc grid (ForwardModel_0.py:4360-4373)
         xfac_g = (dev(_iform_xfac(st.iform, deck.atmosphere, deck.stellar,
@@ -468,8 +578,7 @@ def make_retrieval_setup(
         )
 
     def forward_fn(xn):
-        if not isinstance(xn, torch.Tensor):
-            xn = dev(xn)
+        xn = _as_state(xn, dev)
         atm = apply_state(deck.atmosphere, xn, sv)
         surf = apply_domain(sv, xn, "surface", deck.surface)
         aero = (
@@ -489,9 +598,20 @@ def make_retrieval_setup(
         for (ig, vconv, vconv_dev, ktw, wave_host, wave_dev, ils_w,
              xfac_g) in geoms:
             spec_sum = 0.0
-            for iav in range(geom.nav[ig]):
-                spec = nadir_spectrum(atm, ktw, cia_x, aero, surf, ig, iav)
-                spec_sum = spec_sum + geom.wgeom[ig, iav] * spec
+            iavs = range(geom.nav[ig])
+            for iav in iavs:
+                if geom.emiss_ang[ig, iav] >= 0.0:
+                    spec = nadir_spectrum(atm, ktw, cia_x, aero, surf, ig,
+                                          iav)
+                    spec_sum = spec_sum + geom.wgeom[ig, iav] * spec
+            # limb FOV points (EMISS_ANG < 0) after the nadir ones, each
+            # re-layered at its tangent height SOL_ANG (km)
+            for iav in iavs:
+                if geom.emiss_ang[ig, iav] < 0.0:
+                    spec = forward_limb(
+                        atm, deck.layer_config, ktw, cia_x, aero, cfg,
+                        tanhe_km=geom.sol_ang[ig, iav], device=device)[:, 0]
+                    spec_sum = spec_sum + geom.wgeom[ig, iav] * spec
             # NOTE: the reference accumulates WGEOM-weighted spectra
             # WITHOUT dividing by the weight total (nemesisfm
             # ForwardModel_0.py:530-535; FOV weights are pre-normalised)
@@ -502,10 +622,8 @@ def make_retrieval_setup(
             # differentiable in v_dop when model 447 retrieves it
             wave_obs = (doppler_corrected_wave(wave_dev, v_dop, st.ispace)
                         if has_447 else wave_dev)
-            if ils_w is None:
-                conv = conv_channel_interp(wave_obs, spec_sum, vconv_dev)
-            elif isinstance(ils_w, torch.Tensor):
-                conv = apply_ils(ils_w, spec_sum)
+            if ils_w is None or isinstance(ils_w, torch.Tensor):
+                conv = _convolve(wave_obs, spec_sum, ils_w, vconv_dev)
             elif ils_w == "dynamic":
                 vconv_out, off, fw, amp = apply_ils_models(
                     sv, xn, ig, vconv_dev, vconv_host=vconv)
@@ -525,10 +643,203 @@ def make_retrieval_setup(
             out.append(apply_spectrum_models(sv, xn, ig, vconv_out, conv))
         return torch.cat(out)
 
-    return RetrievalSetup(
-        deck=deck, sv=sv, forward_fn=forward_fn, y=y, se=se,
-        vconv_list=[g[1] for g in geoms], device=device, dtype=dtype,
-    )
+    return _setup(deck, sv, geom, forward_fn, device, dtype)
+
+
+def make_retrieval_setup_limb(
+    deck_dir: str, runname: str, atm_override=None, sv_override=None,
+    device=None, dtype=torch.float64,
+) -> RetrievalSetup:
+    """Limb thermal-emission retrieval set-up (reference nemesisLfm,
+    ForwardModel_0.py:1254 + calc_path_L :3375): one layering for every
+    tangent height, every tangent emission path through one
+    ``layer_optical_depths`` (``forward_limb_batch``), the tangent-height
+    stencil to the measured TANHE, then each geometry's ILS (or filter
+    integration for IFORM=Integrated_radiance) on one shared calc grid.
+    ``device`` and ``dtype`` as in ``make_retrieval_setup``."""
+    device = resolve_device(device)
+    deck = _load_setup_deck(deck_dir, runname, atm_override, torch.float64,
+                            hdf5_item=True)
+    st = deck.settings
+    geom = deck.geometry
+    if geom.tanhe is None:
+        raise ValueError("limb retrieval needs tangent heights (TANHE, "
+                         "i.e. EMISS_ANG<0 in the .spx)")
+    tanhe = np.asarray(geom.tanhe)
+    if tanhe.ndim == 2:
+        tanhe = tanhe[:, 0]
+
+    sv = (sv_override if sv_override is not None
+          else read_apr(deck.apr_path, deck.atmosphere))
+    # the stencil from the unperturbed layering in float64, whatever the
+    # run's type, so that both types take the same tangent paths
+    geo = so_geometry(deck.atmosphere, deck.layer_config, tanhe,
+                      lfm_bracket=True)
+    deck = _deck_to(_typed_deck(deck, dtype), device)
+
+    # one calc range over every geometry (nemesisLfm builds the ILS and
+    # the wave range once, ForwardModel_0.py:1282-1288)
+    ktw = _shared_window(deck, geom, st, widen_doppler=True)
+    has_447 = any(e.model_id == 447 for e in sv.entries)
+    has_777 = any(e.model_id == 777 for e in sv.entries)
+    dev = _to_run(dtype, device)
+    wave_host = _host_wave(ktw)
+    wavecorr = doppler_corrected_wave(wave_host, st.v_doppler, st.ispace)
+    ils = [_ils_weights(geom, st, wavecorr, vc, intfilter=True,
+                        ktab_quad=False) for vc in _vconv_list(geom)]
+    ils = [None if w is None else dev(w) for w in ils]
+    if has_447 and any(w is not None for w in ils):
+        raise NotImplementedError(
+            "model 447 (retrieved Doppler) in a limb run needs the "
+            "differentiable convolution path (FWHM=0 channel "
+            "interpolation); FWHM>0 / .fil / filter-integration weights "
+            "are static")
+
+    cfg = make_forward_config(deck.atmosphere, ktw, deck.cia, iray=st.iray,
+                              ispace=st.ispace, gasgiant=True)
+    wave_dev = dev(wave_host if has_447 else wavecorr)
+    vconvs = [dev(vc) for vc in _vconv_list(geom)]
+
+    def forward_fn(xn):
+        xn = _as_state(xn, dev)
+        atm = apply_state(deck.atmosphere, xn, sv, adjust_hydrostat=False)
+        meas = apply_domain(sv, xn, "measurement",
+                            {"v_doppler": st.v_doppler, "tanhe_shift": 0.0})
+        spec = forward_limb_batch(
+            atm, deck.layer_config, ktw, deck.cia, deck.aerosol, cfg, geo,
+            tanhe_shift=meas["tanhe_shift"] if has_777 else None,
+            device=device)  # (NWAVE, NGEOM)
+        wave_obs = (doppler_corrected_wave(wave_dev, meas["v_doppler"],
+                                           st.ispace)
+                    if has_447 else wave_dev)
+        return _convolve_geoms(sv, xn, spec, ils, vconvs, wave_obs)
+
+    return _setup(deck, sv, geom, forward_fn, device, dtype)
+
+
+def make_retrieval_setup_c(
+    deck_dir: str, runname: str, atm_override=None, sv_override=None,
+    device=None, dtype=torch.float64,
+) -> RetrievalSetup:
+    """Combined multi-angle scattering set-up (reference nemesisCfm
+    ForwardModel_0.py:1526 + calc_path_C :3571): an up- or down-looking
+    instrument observing one atmosphere and surface at NGEOM viewing
+    angles. One layering and one adding-doubling evaluation serve every
+    geometry: the geometries' (emiss, sol, azi) angles are one path batch
+    of ``forward_scattering_nadir``. ``device`` and ``dtype`` as in
+    ``make_retrieval_setup``."""
+    device = resolve_device(device)
+    deck = _load_setup_deck(deck_dir, runname, atm_override, dtype,
+                            hdf5_item=True)
+    st = deck.settings
+    geom = deck.geometry
+    if ScatteringCalculationMode(st.iscat) != (
+            ScatteringCalculationMode.MULTIPLE_SCATTERING):
+        raise ValueError(
+            "nemesisC requires ISCAT=MULTIPLE_SCATTERING "
+            "(reference calc_path_C check, ForwardModel_0.py:3628)")
+    emi = np.asarray(geom.emiss_ang[:, 0])
+    if not (np.all(emi > 90.0) or np.all((emi >= 0.0) & (emi < 90.0))):
+        raise ValueError(
+            "nemesisC geometries must all be upward-looking (>90) or all "
+            "downward-looking (<90) (ForwardModel_0.py:3619-3624)")
+    if np.any(np.asarray(geom.nav) > 1):
+        raise ValueError("nemesisC allows one FOV point per geometry "
+                         "(ForwardModel_0.py:3633-3635)")
+
+    sv = (sv_override if sv_override is not None
+          else read_apr(deck.apr_path, deck.atmosphere))
+    deck = _deck_to(deck, device)
+
+    # one calc range and one windowed table set over every geometry
+    # (nemesisCfm takes no Doppler shift)
+    ktw = _shared_window(deck, geom, st, widen_doppler=False)
+    dev = _to_run(dtype, device)
+    wave_host = _host_wave(ktw)
+    ils = [_ils_weights(geom, st, wave_host, vc, intfilter=False,
+                        ktab_quad=True) for vc in _vconv_list(geom)]
+    ils = [None if w is None else dev(w) for w in ils]
+
+    cfg = make_forward_config(deck.atmosphere, ktw, deck.cia, iray=st.iray,
+                              ispace=st.ispace,
+                              gasgiant=deck.surface.gasgiant)
+    quad = ScatterQuadrature(mu=st.mu, wtmu=st.wtmu, nf=st.nf, nphi=st.nphi)
+    angles = {k: np.asarray(getattr(geom, k)[:, 0], dtype=np.float64)
+              for k in ("emiss_ang", "sol_ang", "azi_ang")}
+    aero_wave = (None if deck.aerosol is None
+                 else deck.aerosol.wave.detach().cpu().double().numpy())
+    wave_dev = dev(wave_host)
+    vconvs = [dev(vc) for vc in _vconv_list(geom)]
+
+    def forward_fn(xn):
+        xn = _as_state(xn, dev)
+        atm = apply_state(deck.atmosphere, xn, sv)
+        surf = apply_domain(sv, xn, "surface", deck.surface)
+        aero = (apply_domain(sv, xn, "scatter", deck.aerosol,
+                             ispace=int(st.ispace), wave_host=aero_wave)
+                if deck.aerosol is not None else None)
+        spec = forward_scattering_nadir(
+            atm, deck.layer_config, ktw, deck.cia, aero, surf,
+            deck.stellar, cfg, quad, deck.hgphase,
+            iray_phase=st.iray > 0, device=device,
+            **angles)  # (NWAVE, NGEOM)
+        return _convolve_geoms(sv, xn, spec, ils, vconvs, wave_dev)
+
+    return _setup(deck, sv, geom, forward_fn, device, dtype)
+
+
+def make_retrieval_setup_disc(
+    deck_dir: str, runname: str, nmu: int = 5, phase: float = 0.0,
+    atm_override=None, sv_override=None, device=None, dtype=torch.float64,
+) -> RetrievalSetup:
+    """Disc-averaged retrieval set-up (reference nemesisdiscfm,
+    ForwardModel_0.py:1609 + calc_avepoints_exoplanet
+    Measurement_0.py:1680): the quadrature's rays as batches of nadir
+    paths over one layering and one set of layer optical depths
+    (``forward_disc``), the IFORM FluxRatio / Integrated_spectral_power
+    unit conversion on the calc grid. The rays go in batches that keep
+    each (NWAVE, NG, NLAY, rays) block of a Jacobian's tangents within
+    ``forward.DISC_BLOCK_BYTES`` (``forward.disc_ray_chunk``). ``device``
+    and ``dtype`` as in ``make_retrieval_setup``."""
+    from archnemesis_tpu_torch.rt.disc import disc_quadrature
+
+    device = resolve_device(device)
+    deck = _load_setup_deck(deck_dir, runname, atm_override, dtype)
+    st = deck.settings
+    geom = deck.geometry
+    sv = (sv_override if sv_override is not None
+          else read_apr(deck.apr_path, deck.atmosphere))
+    deck = _deck_to(deck, device)
+
+    vmin, vmax = _channel_range(geom)
+    ktw = _windowed_ktab(deck, vmin, vmax)
+    wave_host = _host_wave(ktw)
+    quad = disc_quadrature(nmu=nmu, phase=phase)
+    ray_chunk = disc_ray_chunk(ktw.k.shape[1], len(ktw.del_g),
+                               deck.layer_config.nlay, sv.nx,
+                               torch.finfo(dtype).bits // 8)
+    dev = _to_run(dtype, device)
+    xfac = dev(_iform_xfac(st.iform, deck.atmosphere, deck.stellar,
+                           wave_host))
+    cfg = make_forward_config(deck.atmosphere, ktw, deck.cia, iray=st.iray,
+                              ispace=st.ispace,
+                              gasgiant=deck.surface.gasgiant)
+    wave_dev = dev(wave_host)
+    vconvs = [dev(vc) for vc in _vconv_list(geom)]
+    ils = [None] * len(vconvs)  # channel interpolation
+
+    def forward_fn(xn):
+        xn = _as_state(xn, dev)
+        atm = apply_state(deck.atmosphere, xn, sv)
+        surf = apply_domain(sv, xn, "surface", deck.surface)
+        spec = forward_disc(
+            atm, deck.layer_config, ktw, deck.cia, deck.aerosol, surf,
+            cfg, quad, ray_chunk=ray_chunk, device=device) * xfac
+        # the one disc spectrum serves every geometry
+        return _convolve_geoms(sv, xn, spec[:, None].expand(-1, len(ils)),
+                               ils, vconvs, wave_dev)
+
+    return _setup(deck, sv, geom, forward_fn, device, dtype)
 
 
 def run_retrieval(
@@ -644,9 +955,14 @@ def retrieval_nemesis(
     resume=True restarts the OE loop from the last .itr checkpoint record
     (reference OptimalEstimation_0.from_itr:55).
 
-    retrieval_method: 0 = optimal estimation (coreretOE); 1 (nested
-    sampling) and the ``nemesis_so/_l/_pt/_disc/_c`` set-ups are not ported
-    yet and raise. ``ns_kwargs`` belongs to method 1.
+    The ``nemesis_l``, ``nemesis_disc`` and ``nemesis_c`` flags pick the
+    limb, disc-averaged and combined multi-angle set-ups;
+    ``nemesis_so`` and ``nemesis_pt`` are not ported yet and raise.
+
+    retrieval_method: 0 = optimal estimation (coreretOE), 1 = nested
+    sampling (reference dispatch Retrievals.py:298-307;
+    ``retrieval/nested.py``). ``ns_kwargs`` are passed to it. Returns an
+    OEResult (method 0) or an NSResult (method 1).
 
     ncores is accepted for API parity with the reference's joblib fan-out
     (Retrievals.py:35); analytic jacfwd Jacobians make it a no-op here: the
@@ -657,24 +973,25 @@ def retrieval_nemesis(
     """
     import os
 
-    del ncores, ns_kwargs  # parity-only (see docstring)
+    del ncores  # parity-only (see docstring)
 
-    for flag, name in ((nemesis_so, "nemesis_so"), (nemesis_l, "nemesis_l"),
-                       (nemesis_pt, "nemesis_pt"),
-                       (nemesis_disc, "nemesis_disc"),
-                       (nemesis_c, "nemesis_c")):
+    for flag, name in ((nemesis_so, "nemesis_so"),
+                       (nemesis_pt, "nemesis_pt")):
         if flag:
             _not_ported(f"{name}=True",
-                        "the other geometries, ROADMAP Queue 1 item 5")
-    if retrieval_method == 1:
-        _not_ported("retrieval_method=1 (nested sampling)",
-                    "retrieval/nested.py, ROADMAP Queue 1 item 6")
-    if retrieval_method != 0:
+                        "the SO and transit set-ups, ROADMAP Queue 1 item 5b")
+    if retrieval_method not in (0, 1):
         raise ValueError(f"unknown retrieval_method {retrieval_method}")
+    make_setup = (
+        make_retrieval_setup_limb if nemesis_l
+        else make_retrieval_setup_disc if nemesis_disc
+        else make_retrieval_setup_c if nemesis_c
+        else make_retrieval_setup
+    )
 
     def _setup_fn(**kw):
-        return make_retrieval_setup(deck_dir, runname, device=device,
-                                    dtype=dtype, **kw)
+        return make_setup(deck_dir, runname, device=device, dtype=dtype,
+                          **kw)
 
     setup = _setup_fn()
     st = setup.deck.settings
@@ -731,6 +1048,15 @@ def retrieval_nemesis(
                 setup.deck.atmosphere, xn_prev, sub_sv
             )
             setup = _setup_fn(atm_override=atm_baked.to("cpu"))
+
+    if retrieval_method == 1:
+        from archnemesis_tpu_torch.retrieval.nested import run_setup_ns
+
+        if lin > 0:
+            raise NotImplementedError(
+                "LIN chaining + nested sampling is not wired (the reference "
+                "also only folds LIN into the OE path, Retrievals.py:171)")
+        return run_setup_ns(setup, verbose=verbose, **(ns_kwargs or {}))
 
     x0 = None
     if resume:

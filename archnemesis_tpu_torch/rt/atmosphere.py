@@ -18,6 +18,7 @@ import torch
 from archnemesis_tpu_torch.constants import G_GRAV, R_GAS
 from archnemesis_tpu_torch.core.types import Atmosphere
 from archnemesis_tpu_torch.utils import datafiles
+from archnemesis_tpu_torch.utils.host import host_values
 
 
 def gas_molwt_per_column(gas_id, iso_id) -> np.ndarray:
@@ -121,24 +122,33 @@ def adjust_hydrostat_h(atm: Atmosphere, ialt: int | None = None) -> Atmosphere:
     adjust_hydrostatH Atmosphere_0.py:1027): repeat until the total
     atmospheric depth changes by < 1 %.
 
-    The stopping test reads the primal of the depth change as a host float
-    (one device-to-host copy per iteration, two or three iterations in
+    The stopping test reads the depth change on the host (one
+    device-to-host copy per iteration, two or three iterations in
     practice); the anchor level is read once from the input heights, which
-    the loop keeps at that level.
+    the loop keeps at that level. Under ``vmap`` over states the loop runs
+    until every row has stopped, each row frozen once it has, as the JAX
+    package's batched ``while_loop`` does; the rows must share the anchor
+    level.
     """
     if ialt is None:
-        ialt = int(torch.argmin(torch.abs(atm.h)))
+        levels = host_values(torch.argmin(torch.abs(atm.h)))
+        ialt = int(levels.reshape(-1)[0])
+        if not bool((levels == ialt).all()):
+            raise ValueError("adjust_hydrostat_h: batched states anchor at "
+                             f"different levels {sorted(set(levels.tolist()))}")
     planet_radius = getattr(atm, "planet_radius", None)
 
     h = atm.h
-    xdepth = 100.0
-    while xdepth > 1.0:
+    xdepth = torch.full_like(h[0], 100.0)
+    while bool(host_values(xdepth > 1.0).any()):
+        active = xdepth > 1.0
         atdepth = h[-1] - h[0]
         h_new = _hydrostat_h_once(h, atm.p, atm.t, atm.molwt, atm.latitude,
                                   atm.planet, ialt, planet_radius)
         atdepth1 = h_new[-1] - h_new[0]
-        xdepth = float(100.0 * torch.abs((atdepth1 - atdepth) / atdepth))
-        h = h_new
+        xdepth = torch.where(
+            active, 100.0 * torch.abs((atdepth1 - atdepth) / atdepth), xdepth)
+        h = torch.where(active, h_new, h)
     _, radius = calc_grav(h, atm.latitude, atm.planet, planet_radius)
     return atm.replace(h=h, radius=radius)
 

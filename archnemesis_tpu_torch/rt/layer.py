@@ -36,38 +36,81 @@ def _scalar(x, like):
 # base. The reference's forms (Layer_0.py:847-870, AtmCalc_0.py:380-400)
 # subtract numbers of the planet's size, of which float32 keeps ~8 m on
 # Jupiter: every profile interpolated along the path moves by that much,
-# and a cloud a few km thick loses 3e-3 of its Jacobian. Both are written
-# here without those differences, in alt - base, z0 (1 - cos) = 2 z0
-# sin^2(ang / 2) and the squared impact parameter (z0 sin)^2; at nadir they
-# reduce to alt - base and base + s, exactly.
+# and a cloud a few km thick loses 3e-3 of its Jacobian. Here no two
+# numbers of the planet's size are subtracted, at any angle up to 90
+# degrees: the root's argument r^2 - (z0 sin)^2 is the product (r - z0 sin)
+# (r + z0 sin) with r - z0 sin = (alt - base) + z0 (1 - sin), and the root
+# minus z0 cos is (r^2 - z0^2) / (root + z0 cos) = (alt - base) (r + z0) /
+# (root + z0 cos). The angle's complement pi/2 - ang is taken against
+# deg2rad(90) in the run's type, so that at 90 degrees (given in degrees)
+# cos = sin(complement) and 1 - sin = 2 sin^2(complement / 2) are exactly
+# 0 and the length at the tangent point is exactly 0. At nadir the lengths
+# are alt - base and the altitudes base + s, to the bit.
 
 
 def _ray_terms(base, radius, ang):
+    """z0, cos ang, 1 - sin ang and the impact parameter z0 sin ang."""
     z0 = radius + base
     # no Python number meets z0: under torch.func a 0-d tensor with a
     # tangent and a Python float promote to float64
-    versine = 2.0 * torch.sin(0.5 * ang) ** 2
-    return z0, z0 * versine, (z0 * torch.sin(ang)) ** 2
+    comp = torch.deg2rad(torch.full_like(ang, 90.0)) - ang
+    return (z0, torch.sin(comp), 2.0 * torch.sin(0.5 * comp) ** 2,
+            z0 * torch.sin(ang))
+
+
+def _ray_root(alt, base, radius, ang):
+    """(under, sqrt(under) where under > 0 else 1, r, z0, cos): under =
+    (radius + alt)^2 - (z0 sin)^2 in product form."""
+    z0, cos, one_minus_sin, impact = _ray_terms(base, radius, ang)
+    r = radius + alt
+    under = ((alt - base) + z0 * one_minus_sin) * (r + impact)
+    root = torch.sqrt(torch.where(under > 0, under, torch.ones_like(under)))
+    return under, root, r, z0, cos
 
 
 def ray_length(alt, base, radius, ang):
     """Length along the ray from ``base`` up to altitude ``alt``:
     sqrt((radius + alt)^2 - (z0 sin)^2) - z0 cos, with the root taken as 0
     below the ray's tangent point."""
-    z0, z0_versine, impact2 = _ray_terms(base, radius, ang)
-    r = radius + alt
-    under = r**2 - impact2
-    length = (alt - base) + z0_versine - impact2 / (
-        torch.sqrt(under.clamp_min(0.0)) + r)
-    return torch.where(under > 0, length, -z0 * torch.cos(ang))
+    under, root, r, z0, cos = _ray_root(alt, base, radius, ang)
+    # root - z0 cos as a quotient while cos >= 0 (the two terms are alike
+    # near the ray's start); beyond 90 degrees they add
+    den = root + z0 * cos
+    quot = (alt - base) * (r + z0) / torch.where(den > 0, den,
+                                                 torch.ones_like(den))
+    length = torch.where(cos >= 0, quot, root - z0 * cos)
+    length = torch.where(under > 0, length, -z0 * cos)
+    return torch.where(ang == 0, alt - base, length)
+
+
+def ray_segment(alt0, alt1, base, radius, ang):
+    """ray_length(alt1) - ray_length(alt0) without the difference of two
+    lengths (each up to thousands of km on a limb path): the difference of
+    the roots is (r1^2 - r0^2) / (root1 + root0) = (alt1 - alt0) (r1 + r0)
+    / (root1 + root0) wherever neither altitude lies below the tangent
+    point. The difference itself at nadir (exact there) and below the
+    tangent point."""
+    diff = (ray_length(alt1, base, radius, ang)
+            - ray_length(alt0, base, radius, ang))
+    under0, root0, r0, _, _ = _ray_root(alt0, base, radius, ang)
+    under1, root1, r1, _, _ = _ray_root(alt1, base, radius, ang)
+    root0 = torch.where(under0 > 0, root0, torch.zeros_like(root0))
+    root1 = torch.where(under1 > 0, root1, torch.zeros_like(root1))
+    den = root1 + root0
+    ok = (under0 >= 0) & (under1 >= 0) & (den > 0)
+    quot = (alt1 - alt0) * (r1 + r0) / torch.where(ok, den,
+                                                   torch.ones_like(den))
+    return torch.where((ang == 0) | ~ok, diff, quot)
 
 
 def ray_altitude(s, base, radius, ang):
     """Altitude at length ``s`` along the ray: sqrt(s^2 + z0^2 + 2 s z0
-    cos) - radius."""
-    z0, z0_versine, impact2 = _ray_terms(base, radius, ang)
-    q = s + z0 * torch.cos(ang)
-    return base + s - z0_versine + impact2 / (torch.sqrt(q**2 + impact2) + q)
+    cos) - radius, written base + x / (sqrt(z0^2 + x) + z0) with x = s (s +
+    2 z0 cos)."""
+    z0, cos, _, _ = _ray_terms(base, radius, ang)
+    x = s * (s + z0 * (2.0 * cos))
+    alt = base + x / (torch.sqrt(z0 * z0 + x) + z0)
+    return torch.where(ang == 0, base + s, alt)
 
 
 def split_layers(atm: Atmosphere, cfg: LayerConfig, layang=0.0,
@@ -128,7 +171,10 @@ def average_layers(atm: Atmosphere, cfg: LayerConfig, baseh, basep,
     # slant geometry is anchored at the base of the lowest layer
     smax = ray_length(h[-1], baseh[0], radius, ang)
     bases = ray_length(baseh, baseh[0], radius, ang)
-    dels = torch.cat([bases[1:] - bases[:-1], (smax - bases[-1])[None]])
+    # each layer's path length without the difference of two lengths
+    # (equal to bases[i + 1] - bases[i] at nadir, to the bit)
+    dels = ray_segment(baseh, torch.cat([baseh[1:], h[-1:]]), baseh[0],
+                       radius, ang)
     laysf = dels / delh
     baset = interp1d_extrap(h, t, baseh)
 
@@ -137,9 +183,8 @@ def average_layers(atm: Atmosphere, cfg: LayerConfig, baseh, basep,
 
     if cfg.layint == LayerIntegrationScheme.ABSORBER_WEIGHTED_AVERAGE:
         # (NLAY, NINT) path-length samples in each layer
-        s_upper = torch.cat([bases[1:], smax[None]])
         frac_lin = _scalar(np.linspace(0.0, 1.0, nint), h)
-        s = bases[:, None] + (s_upper - bases)[:, None] * frac_lin[None, :]
+        s = bases[:, None] + dels[:, None] * frac_lin[None, :]
         hgt = ray_altitude(s, baseh[0], radius, ang)
 
         p_s = interp1d_extrap(h, p, hgt)
@@ -150,7 +195,7 @@ def average_layers(atm: Atmosphere, cfg: LayerConfig, baseh, basep,
         duds = (p_s / t_s) * (1.0 / K_B)  # molecules m^-3
 
         w = _scalar(simpson_weights(nint), h)
-        ds = (s_upper - bases) / (nint - 1)  # per-layer sample spacing
+        ds = dels / (nint - 1)  # per-layer sample spacing
 
         # 2^-97-scaled number density (exact power of two: float64 results
         # are bit-identical) keeps the TOTAM divisor O(1)

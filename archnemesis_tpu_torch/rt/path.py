@@ -1,6 +1,6 @@
-"""Line-of-sight nadir path construction.
+"""Line-of-sight path construction (nadir / limb).
 
-Port of the nadir part of the JAX package's ``rt/path.py`` (reference
+Port of the JAX package's ``rt/path.py`` (reference
 AtmCalc/Path machinery, ``AtmCalc_0.py:33-420``, ``Path_0.py:32``): the path's
 layer list is a static index permutation (layinc), and the geometric scale
 factors are one expression over the layer base radii.
@@ -17,7 +17,7 @@ import torch
 
 from archnemesis_tpu_torch.core.types import Layers
 from archnemesis_tpu_torch.enums import PathCalc
-from archnemesis_tpu_torch.rt.layer import ray_length
+from archnemesis_tpu_torch.rt.layer import ray_segment
 from archnemesis_tpu_torch.utils.pytree import static_field, tensor_dataclass
 
 
@@ -56,13 +56,13 @@ def _scale_factors(layers: Layers, radius, h_top, angle_deg, base):
     h_top = torch.as_tensor(h_top, dtype=like.dtype,
                             device=like.device).reshape(1)
     h_up = torch.cat([layers.baseh[1:], h_top])
-    # sqrt(max((radius + alt)^2 - (z0 sin)^2, 0)) - z0 cos at each layer's
-    # base and top, without subtracting numbers of the planet's size
-    # (rt/layer.py:ray_length): the reference's difference form leaves the
-    # factor ~1e-3 off one in float32
-    s0 = ray_length(layers.baseh, base, radius, ang)
-    s1 = ray_length(h_up, base, radius, ang)
-    return (s1 - s0) / (h_up - layers.baseh)
+    # (s1 - s0) / (h_up - baseh) with s the length along the ray at each
+    # layer's base and top, without subtracting numbers of the planet's
+    # size or two path lengths (rt/layer.py:ray_segment): the reference's
+    # difference forms leave the factor ~1e-3 off one at nadir and 3e-4
+    # off at the limb in float32
+    seg = ray_segment(layers.baseh, h_up, base, radius, ang)
+    return seg / (h_up - layers.baseh)
 
 
 def nadir_path(
@@ -75,32 +75,92 @@ def nadir_path(
     botlay: int = 0,
     imod: PathCalc = PathCalc.THERMAL_EMISSION,
 ) -> Paths:
-    """Single downward-looking nadir path: layers ordered top->bottom
-    (observer in space), zenith angle defined at the bottom layer base
+    """Downward-looking nadir paths: layers ordered top->bottom (observer
+    in space), zenith angle defined at the bottom layer base
     (IPZEN=BOTTOM). Mirrors AtmCalc_0 nadir branch (AtmCalc_0.py:358-375)
-    + SF (:380-400)."""
+    + SF (:380-400). One path per ray: the host angles are numbers (one
+    path) or 1-D arrays of rays, whose scale factors are one expression
+    over (NPATH, NLAY)."""
     nlay = layers.nlay
     nuse = nlay - botlay
     like = layers.temp
+    emiss = np.asarray(emiss_ang, dtype=np.float64).reshape(-1)
+    npath = emiss.shape[0]
     uselay = torch.as_tensor(
         np.arange(nlay - 1, botlay - 1, -1), device=like.device
     )  # top->bottom
 
-    sf_all = _scale_factors(layers, radius, h_top, emiss_ang,
-                            layers.baseh[botlay])  # (NLAY,)
+    sf = _scale_factors(layers, radius, h_top, emiss[:, None],
+                        layers.baseh[botlay])  # (NPATH, NLAY)
 
     def angle(x):
-        return torch.as_tensor(x, dtype=like.dtype,
-                               device=like.device).reshape(1)
+        return torch.as_tensor(
+            np.broadcast_to(np.asarray(x, dtype=np.float64).reshape(-1),
+                            (npath,)).copy(),
+            dtype=like.dtype, device=like.device)
 
     return Paths(
-        layinc=uselay[:, None],
-        scale=sf_all[uselay][:, None],
-        emtemp=layers.temp[uselay][:, None],
-        mask=torch.ones((nuse, 1), dtype=like.dtype, device=like.device),
+        layinc=uselay[:, None].expand(nuse, npath),
+        scale=sf[:, uselay].T,
+        emtemp=layers.temp[uselay][:, None].expand(nuse, npath),
+        mask=torch.ones((nuse, npath), dtype=like.dtype, device=like.device),
         sol_ang=angle(sol_ang),
-        emiss_ang=angle(emiss_ang),
+        emiss_ang=angle(emiss),
         azi_ang=angle(azi_ang),
         imod=imod,
         surface_visible=True,
+    )
+
+
+def limb_paths(
+    layers: Layers,
+    radius,
+    h_top,
+    botlays,
+    imod: PathCalc = PathCalc.THERMAL_EMISSION,
+) -> Paths:
+    """Limb paths, one per tangent (bottom) layer in ``botlays``.
+
+    Each path traverses the atmosphere down to its tangent layer and back
+    out: layinc = [top..botlay, botlay..top] (AtmCalc_0.py:344-356). Scale
+    factors are taken at 90 degrees about z0 = radius + the tangent
+    layer's base; shorter paths are padded to the longest with ``mask``.
+    """
+    nlay = layers.nlay
+    botlays = [int(b) for b in botlays]
+    npath = len(botlays)
+    nlayin = max(2 * (nlay - b) for b in botlays)
+    like = layers.temp
+
+    layinc_np = np.zeros((nlayin, npath), dtype=np.int64)
+    mask_np = np.zeros((nlayin, npath))
+    for ip, b in enumerate(botlays):
+        nuse = 2 * (nlay - b)
+        half = nuse // 2
+        # first half: top down to the tangent layer; second half: back out
+        layinc_np[:half, ip] = np.arange(nlay - 1, b - 1, -1)
+        layinc_np[half:nuse, ip] = np.arange(b, nlay)
+        mask_np[:nuse, ip] = 1.0
+    layinc = torch.as_tensor(layinc_np, device=like.device)
+    mask = torch.as_tensor(mask_np, dtype=like.dtype, device=like.device)
+
+    scale = torch.stack([
+        _scale_factors(layers, radius, h_top, 90.0, layers.baseh[b])[
+            layinc[:, ip]]
+        for ip, b in enumerate(botlays)
+    ], dim=1) * mask
+
+    # keep real layer temperatures in the padding (its contributions are
+    # masked in the emission sum): zeros there make Planck's tangent NaN
+    zero = like.new_zeros(npath)
+    return Paths(
+        layinc=layinc,
+        scale=scale,
+        emtemp=layers.temp[layinc],
+        mask=mask,
+        sol_ang=zero,
+        emiss_ang=zero,
+        azi_ang=zero,
+        imod=imod,
+        surface_visible=False,
     )

@@ -185,6 +185,29 @@ without them. Phases, each of which fails the run on its own:
     memory and tensor operations of an evaluation beside those of the
     deck's own state vector; and the wall-clock of
     ``retrieval_nemesis(niter=3)`` on ``models_nadir``, whose phi must fall;
+19. the geometries on the card ("geometries"): ``jupiter_limb`` as
+    committed through ``make_retrieval_setup_limb`` (71 layers, 7 gases, 3
+    tangent heights on 6 tangent paths of up to 126 layers, 303 channels,
+    NX = 81) in float64 against ``jupiter_limb_fm.npz`` (rtol 2e-5) and
+    against the port's CPU run (forward and the columns
+    ``LIMB_JVP_COLUMNS`` at 1e-10), exactly 6 kernel-1 launches per
+    forward and 6 kernel-1t launches per evaluation, float32 within 1e-4 /
+    1e-5 of float64 and each float32 Jacobian column within
+    ``JAC_F32_BOUND`` of its peak, the median time and peak memory of an
+    evaluation in both types and the wall-clock of
+    ``retrieval_nemesis(nemesis_l=True, niter=3)``; the disc set-up on
+    ``jupiter_nadir`` at nmu = 3 against ``jupiter_disc_fm.npz`` (rtol
+    1e-5), 6 launches of each kernel, the time and peak memory of an
+    evaluation at nmu = 3 and 5; the combined set-up equal to the nadir
+    set-up on ``jupiter_scatter`` (rtol 1e-10), and a copy at the three
+    angles ``C_ANGLES`` equal to three single-angle copies;
+20. nested sampling on the full ``jupiter_fdret`` ("nested"): the
+    likelihood of 64 and 400 states vmapped in chunks of 64 against a loop
+    of ``forward_fn`` (rtol 1e-10, 6 kernel-1 launches per chunk); the 3
+    parameter posterior of the JAX package's slow
+    ``tests/test_nested_deck.py`` against OE (means within 2 sigma, the
+    best chi2 within 3x OE's); logZ, iterations, likelihoods, wall time and
+    likelihoods per second;
 
 then a JSON line of the kernels (launches on the main paths, error, times,
 bound, library time) and, last, ``{"ok": true, "device": {...}}``. ``--profile`` adds
@@ -2570,13 +2593,14 @@ def phase_scattering_headline(profile: bool = False):
 
 def jacobian_column_misses(k32, k64, entries) -> tuple:
     """(error of each float32 Jacobian column against float64 over the
-    column's float64 peak (0 for an all-zero column), [(model id, column,
-    error, column peak over the largest column peak)] of the columns at or
-    above ``JAC_F32_BOUND``)."""
+    column's float64 peak (0 for a column that float32 cannot hold, see
+    ``float32_unheld_columns``), [(model id, column, error, column peak
+    over the largest column peak)] of the columns at or above
+    ``JAC_F32_BOUND``)."""
     import torch
 
     col_peak = k64.abs().max(dim=0).values
-    live = col_peak > 0
+    live = col_peak >= torch.finfo(torch.float32).tiny
     col_err = torch.where(
         live, (k32.double() - k64).abs().max(dim=0).values
         / torch.where(live, col_peak, 1.0), 0.0).cpu().numpy()
@@ -2587,6 +2611,18 @@ def jacobian_column_misses(k32, k64, entries) -> tuple:
                float(f"{rel_peak[c]:.3g}"))
               for c in range(col_err.shape[0]) if col_err[c] >= JAC_F32_BOUND]
     return col_err, misses
+
+
+def float32_unheld_columns(k64) -> list:
+    """The nonzero columns of a float64 Jacobian whose peak lies below
+    float32's smallest normal number (1.2e-38): float32 holds no value of
+    theirs (on jupiter_limb the columns of the levels under the lowest
+    tangent, 1e-42 to 1e-129 of the largest column's peak)."""
+    import torch
+
+    col_peak = k64.abs().max(dim=0).values
+    unheld = (col_peak > 0) & (col_peak < torch.finfo(torch.float32).tiny)
+    return torch.nonzero(unheld).flatten().tolist()
 
 
 def phase_scattering_retrieval(profile: bool = False):
@@ -3480,6 +3516,357 @@ def phase_models(card: str, profile: bool = False):
     return int(launches[0]), int(launches[1])
 
 
+
+# --- phase 19: the limb, disc-averaged and combined geometries
+
+LIMB_DECK = "tests/fixtures/jupiter_limb"
+LIMB_GOLDEN = "tests/goldens/jupiter_limb_fm.npz"
+DISC_GOLDEN = "tests/goldens/jupiter_disc_fm.npz"
+# the limb columns held to the port's CPU run (1e-10 of their peaks) on
+# the card: temperature levels inside the weighting functions
+LIMB_JVP_COLUMNS = (20, 30, 45)
+# the three angles of the combined multi-angle copy of jupiter_scatter
+C_ANGLES = (10.0, 35.0, 60.0)
+GEOM_EVAL_RUNS = 3
+
+
+def blocks_deck(src: str, base: str, names) -> str:
+    """A copy of the deck ``src`` under ``base`` whose .apr holds the model
+    fixture blocks ``names`` (``tests/fixtures/models``) and nothing else:
+    a state vector of a few elements, whose Jacobian fits the CPU."""
+    deck = copy_deck(src, base)
+    with open(os.path.join(deck, "cirstest.apr"), "w") as f:
+        f.write(f"*** {os.path.basename(src)} with {', '.join(names)} ***\n")
+        f.write(f"{len(names)}\n")
+        f.write("".join(_apr_block(n) for n in names))
+    return deck
+
+
+def c_angle_deck(base: str, angles) -> str:
+    """A copy of jupiter_scatter under ``base`` whose .spx holds one
+    geometry per emission angle of ``angles`` (the deck's own channels,
+    measurement and FOV point otherwise)."""
+    deck = copy_deck(SCAT_DECK, base)
+    spx = os.path.join(deck, "cirstest.spx")
+    with open(spx) as f:
+        lines = f.read().splitlines()
+    head = lines[0].split()
+    nconv = int(lines[1].split()[0])
+    fov = lines[3].split()
+    rows = lines[4:4 + nconv]
+    out = [" ".join(head[:3] + [str(len(angles))])]
+    for ang in angles:
+        fov[3] = f"{float(ang):.5f}"
+        out += [lines[1], lines[2], " ".join(fov)] + rows
+    with open(spx, "w") as f:
+        f.write("\n".join(out) + "\n")
+    return deck
+
+
+def _primal_launches(fn):
+    """(result of fn(), kernel-1 launches it made), counted from 0."""
+    import torch
+
+    from archnemesis_tpu_torch.ops.overlap_cuda import combine_pair
+
+    combine_pair.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, combine_pair.launches
+
+
+def _geometry_launches(name: str, setup, x):
+    """The main path of a geometry, counted on its own: one forward (kernel
+    1) and one forward-plus-Jacobian evaluation (kernel 1t), each exactly
+    6 launches. Returns (y, (yn, kk), primal, fused)."""
+    import torch
+
+    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
+
+    y, primal = _primal_launches(lambda: setup.forward_fn(x))
+    if primal != 6:
+        raise AssertionError(f"{name}: {primal} primal launches, expected 6")
+    yk, fused = _fused_launches(
+        lambda: forward_and_jacobian(setup.forward_fn, x))
+    if fused != 6:
+        raise AssertionError(f"{name}: {fused} fused launches, expected 6")
+    if not torch.isfinite(yk[1]).all():
+        raise AssertionError(f"{name}: Jacobian not finite")
+    torch.testing.assert_close(yk[0], y, rtol=1e-12, atol=0)
+    return y, yk, primal, fused
+
+
+def _limb_case(card: str):
+    """jupiter_limb as committed through ``make_retrieval_setup_limb`` on
+    the card. Returns (primal launches of one forward, fused launches of
+    one evaluation)."""
+    import torch
+
+    from archnemesis_tpu_torch.retrievals import (
+        make_retrieval_setup_limb,
+        retrieval_nemesis,
+    )
+
+    s64 = make_retrieval_setup_limb(LIMB_DECK, "cirstest", device="cuda")
+    cpu = make_retrieval_setup_limb(LIMB_DECK, "cirstest", device="cpu")
+    nx, ny = s64.sv.nx, s64.y.shape[0]
+    xa = torch.as_tensor(s64.sv.xa, device="cuda")
+    y, (_, kk), primal, fused = _geometry_launches("limb", s64, xa)
+    y64 = y.cpu().numpy()
+
+    # the reference golden at tests/test_forward_limb.py's tolerances
+    d = np.load(LIMB_GOLDEN)
+    golden = np.asarray(d["SPECONV"])
+    np.testing.assert_allclose(y64.reshape(len(d["TANHE"]), -1).T, golden,
+                               rtol=2e-5,
+                               atol=np.median(np.abs(golden)) * 1e-6)
+    # the port's CPU run of the same set-up: forward and three columns
+    y_cpu = cpu.forward_fn(cpu.sv.xa).numpy()
+    np.testing.assert_allclose(y64, y_cpu, rtol=1e-10, atol=0)
+    cols = list(LIMB_JVP_COLUMNS)
+    k_cpu = _cpu_jacobian_columns(cpu, cols).numpy()
+    k_card = kk.cpu().numpy()[:, cols]
+    col_err = np.abs(k_card - k_cpu).max(axis=0) / np.abs(k_cpu).max(axis=0)
+    if not col_err.max() < 1e-10:
+        raise AssertionError(f"limb: Jacobian columns {cols} off the CPU "
+                             f"by {col_err} of their peaks")
+    _print(f"limb (jupiter_limb: NX={nx}, NY={ny}, 3 tangent heights on 6 "
+           f"tangent paths of up to 126 layers) float64 on the card: "
+           f"golden within rtol 2e-5 (max rel "
+           f"{np.abs(y64.reshape(3, -1).T / golden - 1).max():.3e}); the "
+           f"CPU's forward within 1e-10 (max rel "
+           f"{np.abs(y64 / y_cpu - 1).max():.3e}); columns {cols} within "
+           f"{col_err.max():.3e} of their peaks; {primal} primal launches "
+           f"per forward, {fused} fused launches per evaluation")
+
+    s32 = make_retrieval_setup_limb(LIMB_DECK, "cirstest", device="cuda",
+                                    dtype=torch.float32)
+    y32, (_, k32), _, _ = _geometry_launches("limb float32", s32, xa.float())
+    r = rel_err(y32.double().cpu().numpy(), y64)
+    col_err, misses = jacobian_column_misses(k32, kk, s64.sv.entries)
+    _print(f"limb float32 vs float64: spectrum max rel {r.max():.3e}, "
+           f"median {np.median(r):.3e} (gates {F32_BOUNDS[0]:.0e} / "
+           f"{F32_BOUNDS[1]:.0e}); Jacobian max error over column peak "
+           f"{col_err.max():.3e} (gate {JAC_F32_BOUND:.0e}); columns outside "
+           f"the gate: {misses if misses else 'none'}; columns whose float64 "
+           f"peak float32 cannot hold: {float32_unheld_columns(kk)}")
+    if not (r.max() < F32_BOUNDS[0] and np.median(r) < F32_BOUNDS[1]):
+        raise AssertionError("limb: float32 spectrum outside 1e-4 / 1e-5")
+    if misses:
+        raise AssertionError(f"limb: float32 Jacobian columns outside "
+                             f"{JAC_F32_BOUND:.0e} of their peaks: {misses}")
+    del kk, k32
+    for dtype_name, setup, x in (("float64", s64, xa),
+                                 ("float32", s32, xa.float())):
+        med, lo, hi, peak_gib = _time_evaluations(setup, x, GEOM_EVAL_RUNS)
+        _print(f"forward-plus-Jacobian on jupiter_limb (NX={nx}, "
+               f"{dtype_name}, {card}): median {med:.3f} ms over "
+               f"{GEOM_EVAL_RUNS} runs (min {lo:.3f}, max {hi:.3f}); peak "
+               f"memory {peak_gib:.3f} GiB")
+    del s32
+    with tempfile.TemporaryDirectory() as base:
+        deck = copy_deck(LIMB_DECK, base)
+        t0 = time.perf_counter()
+        res = retrieval_nemesis(deck, "cirstest", niter=3, nemesis_l=True,
+                                write_outputs=False, device="cuda")
+        wall = time.perf_counter() - t0
+    if not (np.all(np.isfinite(res.xn))
+            and res.phi_history[-1] <= res.phi_history[0]):
+        raise AssertionError(f"limb retrieval: phi {res.phi_history}")
+    _print(f"retrieval_nemesis(nemesis_l=True, niter=3) on jupiter_limb "
+           f"({card}): {wall:.3f} s, phi {res.phi_history[0]:.6e} -> "
+           f"{res.phi_history[-1]:.6e}")
+    return primal, fused
+
+
+def _disc_case(card: str):
+    """The disc set-up on jupiter_nadir on the card at nmu = 3 against the
+    golden, its launches, and an evaluation at nmu = 3 and 5. Returns
+    (primal launches of one forward, fused launches of one evaluation)."""
+    import torch
+
+    from archnemesis_tpu_torch.retrievals import make_retrieval_setup_disc
+
+    launches = None
+    for nmu in (3, 5):
+        setup = make_retrieval_setup_disc(DECK, "cirstest", nmu=nmu,
+                                          device="cuda")
+        xa = torch.as_tensor(setup.sv.xa, device="cuda")
+        y, _, primal, fused = _geometry_launches(f"disc nmu={nmu}", setup,
+                                                 xa)
+        if nmu == 3:
+            d = np.load(DISC_GOLDEN)
+            want = d["SPECONV"]
+            np.testing.assert_allclose(y.cpu().numpy(), want, rtol=1e-5,
+                                       atol=np.abs(want).max() * 1e-8)
+            launches = (primal, fused)
+            _print(f"disc nmu=3 (jupiter_nadir, 16 rays) float64 on the "
+                   f"card: golden within rtol 1e-5 (max rel "
+                   f"{np.abs(y.cpu().numpy() / want - 1).max():.3e}); "
+                   f"{primal} primal launches per forward, {fused} fused "
+                   f"launches per evaluation")
+        med, lo, hi, peak_gib = _time_evaluations(setup, xa, GEOM_EVAL_RUNS)
+        fwd = _time_forward_ms(lambda: setup.forward_fn(xa))
+        _print(f"disc nmu={nmu} (NX={setup.sv.nx}, float64, {card}): "
+               f"forward {fwd:.3f} ms; forward-plus-Jacobian median "
+               f"{med:.3f} ms over {GEOM_EVAL_RUNS} runs (min {lo:.3f}, max "
+               f"{hi:.3f}); peak memory {peak_gib:.3f} GiB")
+        del setup
+    return launches
+
+
+def _time_forward_ms(fn, runs: int = 5) -> float:
+    """Median host ms of ``fn()`` ending in a synchronise, after one
+    warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _combined_case():
+    """``make_retrieval_setup_c`` on the card: equal to the nadir set-up on
+    jupiter_scatter, and a three-angle copy equal to three single-angle
+    copies. Returns the primal launches of one forward."""
+    import torch
+
+    from archnemesis_tpu_torch.retrievals import (
+        make_retrieval_setup,
+        make_retrieval_setup_c,
+    )
+
+    sc = make_retrieval_setup_c(SCAT_DECK, "cirstest", device="cuda")
+    sn = make_retrieval_setup(SCAT_DECK, "cirstest", device="cuda")
+    xa = torch.as_tensor(sc.sv.xa, device="cuda")
+    y_c, primal = _primal_launches(lambda: sc.forward_fn(xa))
+    y_n = sn.forward_fn(xa)
+    torch.testing.assert_close(y_c, y_n, rtol=1e-10, atol=0)
+    with tempfile.TemporaryDirectory() as base:
+        three = make_retrieval_setup_c(
+            c_angle_deck(os.path.join(base, "all"), C_ANGLES), "cirstest",
+            device="cuda")
+        y3 = three.forward_fn(xa)
+        singles = torch.cat([
+            make_retrieval_setup_c(
+                c_angle_deck(os.path.join(base, f"a{i}"), [ang]),
+                "cirstest", device="cuda").forward_fn(xa)
+            for i, ang in enumerate(C_ANGLES)])
+    torch.testing.assert_close(y3, singles, rtol=1e-10, atol=0)
+    _print(f"combined set-up on the card: jupiter_scatter equal to the nadir "
+           f"set-up (max rel {rel_err(y_c.cpu().numpy(), y_n.cpu().numpy()).max():.3e}, "
+           f"{primal} primal launches per forward); {len(C_ANGLES)} angles "
+           f"{C_ANGLES} in one path batch equal to three single-angle "
+           f"set-ups (max rel "
+           f"{rel_err(y3.cpu().numpy(), singles.cpu().numpy()).max():.3e})")
+    return primal
+
+
+def phase_geometries(card: str):
+    """Phase 19: the limb, disc-averaged and combined geometries on the
+    card. Returns (kernel-1 launches, kernel-1t launches) of their main
+    paths."""
+    limb = _limb_case(card)
+    disc = _disc_case(card)
+    comb = _combined_case()
+    return limb[0] + disc[0] + comb, limb[1] + disc[1]
+
+
+# --- phase 20: nested sampling
+
+NS_BATCHES = (64, 400)
+
+
+def phase_nested(card: str):
+    """Phase 20: nested sampling on the full jupiter_fdret on the card: the
+    chunked batched likelihood against a loop of ``forward_fn``, the
+    3-parameter posterior against OE (the JAX package's slow
+    tests/test_nested_deck.py check), logZ, likelihood count and rate.
+    Returns the kernel-1 launches of the main path (the sampler's run)."""
+    import dataclasses
+
+    import torch
+
+    from archnemesis_tpu_torch.retrieval.nested import (
+        STATE_CHUNK,
+        batched_loglike,
+        run_setup_ns,
+        setup_loglike,
+    )
+    from archnemesis_tpu_torch.retrieval.oe import coreret_oe
+    from archnemesis_tpu_torch.retrievals import make_retrieval_setup
+
+    setup = make_retrieval_setup(FDRET, "cirstest", device="cuda")
+    loglike, transform, ndim = setup_loglike(setup)
+    u = np.random.default_rng(0).uniform(size=(max(NS_BATCHES), ndim))
+    batched = batched_loglike(loglike, transform, device="cuda")
+    for n in NS_BATCHES:
+        t0 = time.perf_counter()
+        got, primal = _primal_launches(lambda: batched(u[:n]))
+        batch_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = np.array([
+            float(loglike(transform(torch.as_tensor(row, device="cuda"))))
+            for row in u[:n]])
+        loop_s = time.perf_counter() - t0
+        np.testing.assert_allclose(got, want, rtol=1e-10, atol=0)
+        chunks = -(-n // STATE_CHUNK)
+        if primal != 6 * chunks:
+            raise AssertionError(f"batched likelihood of {n}: {primal} "
+                                 f"primal launches, expected {6 * chunks}")
+        _print(f"batched likelihood, {n} states in chunks of {STATE_CHUNK} "
+               f"({card}): "
+               f"{batch_s:.3f} s ({primal} primal launches) against "
+               f"{loop_s:.3f} s for a loop of forward_fn; equal within "
+               f"1e-10 (max rel {np.abs(got / want - 1).max():.3e})")
+
+    # the 3-parameter posterior against OE
+    sv = setup.sv
+    nx = sv.nx
+    vary = np.zeros(nx, bool)
+    vary[[2, nx // 2, nx - 3]] = True
+    sa = np.asarray(sv.sa).copy()
+    sa[:] = np.diag(np.where(vary, np.diag(sa), 1e-12))
+    setup = dataclasses.replace(setup, sv=dataclasses.replace(sv, sa=sa))
+    oe = coreret_oe(setup.forward_fn, sv.xa, sa, setup.y, setup.se, sv.lx,
+                    niter=4, philimit=0.1, device="cuda")
+    x_oe = np.asarray(oe.xn)
+    s_oe = np.sqrt(np.diag(np.asarray(oe.st)))
+    t0 = time.perf_counter()
+    ns, launches = _primal_launches(lambda: run_setup_ns(
+        setup, n_live=30, evidence_tolerance=0.5, seed=3, batch=30))
+    wall = time.perf_counter() - t0
+    sig = np.sqrt(np.diag(sa))
+    tol = 2.0 * np.maximum(s_oe, sig)
+    err = np.abs(ns.means - x_oe)
+    y = np.asarray(setup.y)
+    inv_e2 = 1.0 / np.diag(np.asarray(setup.se))
+
+    def chi2(x):
+        yn = setup.forward_fn(x).cpu().numpy()
+        return float(np.sum((yn - y) ** 2 * inv_e2))
+
+    best = ns.samples[np.argmax(ns.logl)]
+    chi_ns, chi_oe = chi2(best), chi2(x_oe)
+    _print(f"nested sampling on jupiter_fdret (3 of {nx} parameters, n_live "
+           f"30, batch 30, {card}): logZ {ns.logz:.6f} +- "
+           f"{ns.logz_err:.6f}, {ns.n_iter} iterations, {ns.n_like} "
+           f"likelihoods in {wall:.3f} s ({ns.n_like / wall:.1f} per s, "
+           f"{launches} primal launches); posterior means off OE by "
+           f"{err[vary]} (2 sigma {tol[vary]}); best chi2 {chi_ns:.3f} "
+           f"against OE's {chi_oe:.3f}")
+    if not (np.isfinite(ns.logz) and np.all(err[vary] < tol[vary])
+            and chi_ns < 3.0 * chi_oe + 1e-6):
+        raise AssertionError("nested sampling: posterior off the OE result")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3509,13 +3896,16 @@ def main() -> int:
     scat_launches, _ = phase_scattering_headline(profile=profile)
     scat_tan_launches = phase_scattering_retrieval(profile=profile)
     model_launches, model_tan_launches = phase_models(card, profile=profile)
+    geom_launches, geom_tan_launches = phase_geometries(card)
+    ns_launches = phase_nested(card)
 
     kernels = [dict(
         name="overlap_combine",
         route="cuda",
         source="archnemesis_tpu_torch/csrc/overlap_combine.cu",
         replaces="archnemesis_tpu/ops/overlap_pallas.py:398",
-        launches=launches + scat_launches + model_launches,
+        launches=(launches + scat_launches + model_launches + geom_launches
+                  + ns_launches),
         max_abs_err=record["max_abs_err"],
         ms=record["ms"],
         plain_ms=record["plain_ms"],
@@ -3527,7 +3917,8 @@ def main() -> int:
         route="cuda",
         source="archnemesis_tpu_torch/csrc/overlap_combine.cu",
         replaces="archnemesis_tpu/ops/overlap_pallas.py:292",
-        launches=tan_launches + scat_tan_launches + model_tan_launches,
+        launches=(tan_launches + scat_tan_launches + model_tan_launches
+                  + geom_tan_launches),
         max_abs_err=tan_record["max_abs_err"],
         ms=tan_record["ms"],
         plain_ms=tan_record["plain_ms"],

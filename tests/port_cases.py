@@ -8,6 +8,7 @@ carried across with ``archnemesis_tpu_torch.convert``.
 
 import contextlib
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -236,6 +237,27 @@ def copy_deck(tmp_path_factory, name, deck=FDRET):
     (the deck's .kls names them by relative path); returns the deck
     directory."""
     return chip_smoke.copy_deck(deck, str(tmp_path_factory.mktemp(name)))
+
+
+def thin_fdret(base, nchan: int = 32, nlay: int = 16) -> str:
+    """A copy of ``jupiter_fdret`` under ``base`` thinned as the JAX
+    package's ``tests/test_nested_deck.py:_thin_deck`` thins it (its first
+    ``nchan`` channels, ``nlay`` layers; the same pipeline and file
+    formats); returns the deck directory."""
+    import re
+
+    deck = chip_smoke.copy_deck(FDRET, str(base))
+    spx = os.path.join(deck, "cirstest.spx")
+    lines = open(spx).read().splitlines()
+    nconv = int(float(lines[1].split()[0]))
+    head, chans = lines[:4], lines[4:4 + nconv]
+    head[1] = f"        {nchan}"
+    open(spx, "w").write("\n".join(head + chans[:nchan]) + "\n")
+    st_path = os.path.join(deck, "cirstest.set")
+    st = re.sub(r"(Number of atm layers :)\s*\d+", rf"\1  {nlay}",
+                open(st_path).read())
+    open(st_path, "w").write(st)
+    return deck
 
 
 # --- the runtime line-by-line slice

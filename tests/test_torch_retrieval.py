@@ -179,14 +179,27 @@ def test_unported_branches_raise(tmp_path_factory):
     lines = open(inp).read().splitlines()
     lines[7] = "2"  # IFORM = TransitDepth, a unit of the transit set-up
     open(inp, "w").write("\n".join(lines) + "\n")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
         make_retrieval_setup(d, "cirstest", device="cpu")
+
+
+def test_limb_fov_point_runs(tmp_path_factory):
+    """A limb FOV point (EMISS_ANG < 0; it raised before limb paths were ported)
+    goes through ``forward_limb`` at its tangent height SOL_ANG: finite,
+    positive radiances, and the JAX set-up's on the same copy in
+    tests/test_torch_limb_setups.py."""
+    import os
+
+    from port_cases import copy_deck
+
     d = copy_deck(tmp_path_factory, "limbdeck")
     spx = os.path.join(d, "cirstest.spx")
     toks = open(spx).read().split("\n")
     geo = toks[3].split()
-    geo[3] = "-1.0"  # EMISS_ANG < 0: a limb FOV point
+    geo[2], geo[3] = "30.0", "-1.0"  # a limb FOV point at 30 km
     toks[3] = " ".join(geo)
     open(spx, "w").write("\n".join(toks))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        make_retrieval_setup(d, "cirstest", device="cpu")
+    s = make_retrieval_setup(d, "cirstest", device="cpu")
+    y = s.forward_fn(s.sv.xa)
+    assert y.shape == s.y.shape and torch.all(torch.isfinite(y))
+    assert torch.all(y > 0)

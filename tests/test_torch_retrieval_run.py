@@ -156,14 +156,50 @@ def test_run_retrieval(result):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(nemesis_so=True), "item 5"), (dict(nemesis_l=True), "item 5"),
-    (dict(nemesis_pt=True), "item 5"), (dict(nemesis_disc=True), "item 5"),
-    (dict(nemesis_c=True), "item 5"), (dict(retrieval_method=1), "item 6"),
+    (dict(nemesis_so=True), "item 5b"), (dict(nemesis_pt=True), "item 5b"),
 ])
 def test_unported_setups_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         retrieval_nemesis("tests/fixtures/jupiter_fdret", "cirstest",
                           device="cpu", **kw)
+
+
+class _Dispatched(Exception):
+    pass
+
+
+@pytest.mark.parametrize("kw,target", [
+    (dict(nemesis_l=True), "make_retrieval_setup_limb"),
+    (dict(nemesis_disc=True), "make_retrieval_setup_disc"),
+    (dict(nemesis_c=True), "make_retrieval_setup_c"),
+    (dict(retrieval_method=1), "run_setup_ns"),
+])
+def test_geometry_flags_and_nested_sampling_dispatch(monkeypatch, kw,
+                                                     target):
+    """Each flag reaches its set-up (and method 1 the sampler) with the
+    device and dtype given to ``retrieval_nemesis``, as the JAX package
+    dispatches them
+    (retrievals.py:1295-1301, :1363); the set-ups and the sampler run in
+    tests/test_torch_{limb,limb_setups,disc,retrieval_c,nested}.py."""
+    from archnemesis_tpu_torch import retrievals
+    from archnemesis_tpu_torch.retrieval import nested
+
+    seen = {}
+
+    def stop(*args, **kwargs):
+        seen.update(kwargs)
+        raise _Dispatched
+
+    module = nested if target == "run_setup_ns" else retrievals
+    monkeypatch.setattr(module, target, stop)
+    with pytest.raises(_Dispatched):
+        retrieval_nemesis("tests/fixtures/jupiter_fdret", "cirstest",
+                          device="cpu", write_outputs=False,
+                          ns_kwargs=dict(seed=7), **kw)
+    if target == "run_setup_ns":
+        assert seen["seed"] == 7
+    else:
+        assert seen["device"] == "cpu"
 
 
 def test_itr_writer_format(tmp_path):
