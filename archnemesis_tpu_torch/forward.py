@@ -1,12 +1,13 @@
 """Forward model: components -> synthetic spectra.
 
-Port of the JAX package's ``forward.py`` for the nadir, limb and
-disc-averaged geometries, with correlated-k, line-by-line table and runtime
-line-by-line gas opacity (reference ``ForwardModel_0`` nemesisfm :437,
-nemesisLfm :1254, nemesisdiscfm :1609 + CIRSrad :4376): a static
-``ForwardConfig`` is built once on the host (gas index mappings, enums,
-quadrature constants), and every forward is a plain function of the
-component structures.
+Port of the JAX package's ``forward.py`` for the nadir, limb,
+disc-averaged, solar-occultation (with AOTF orders) and primary-transit
+geometries, with correlated-k, line-by-line table and runtime line-by-line
+gas opacity (reference ``ForwardModel_0`` nemesisfm :437, nemesisSOfm
+:783, nemesisLfm :1254, nemesisdiscfm :1609, nemesisPTfm :1838 + CIRSrad
+:4376): a static ``ForwardConfig`` is built once on the host (gas index
+mappings, enums, quadrature constants), and every forward is a plain
+function of the component structures.
 """
 
 from __future__ import annotations
@@ -646,6 +647,130 @@ def forward_limb_batch(
         return specmod, {"layers": layers, "paths": paths, **taus,
                          "spec_paths": spec}
     return specmod
+
+
+def forward_so(
+    atm: Atmosphere,
+    laycfg: LayerConfig,
+    ktab: KTables,
+    cia: Optional[CIATables],
+    aero: Optional[AerosolOptics],
+    cfg: ForwardConfig,
+    geo: dict,
+    return_diagnostics: bool = False,
+    tanhe_shift=None,
+    solflux=None,
+    device=None,
+):
+    """Solar-occultation forward model: one transmission spectrum per
+    measured tangent height (reference nemesisSOfm ForwardModel_0.py:783 +
+    calc_path_SO :3181). Returns (NWAVE, NGEOM).
+
+    ONE layering at 90 degrees and one ``layer_optical_depths`` feed every
+    tangent path of ``geo`` (``so_geometry``); the path transmissions go
+    through ``tangent_stencil`` to the measured tangent heights (with
+    ``tanhe_shift``, km, a tensor that model 777 retrieves: the
+    differentiable search). ``solflux`` (NWAVE,) multiplies the
+    transmission for IFORM=Atmospheric_transmission (reference
+    calculate_transmission_spectrum ForwardModel_0.py:4114-4122).
+    ``device`` as in ``forward_nadir``."""
+    device = resolve_device(device)
+    atm, ktab, cia, aero = _structures_to(device, atm, ktab, cia, aero)
+    layers = apply_dust_renorm(build_layers(atm, laycfg, layang=90.0), atm)
+    paths = limb_paths(layers, atm.radius, atm.h[-1], geo["itanhe"],
+                       imod=PathCalc.PLANCK_FUNCTION_AT_BIN_CENTRE)
+    wave, del_g = _calc_grid(ktab, layers)
+    taus = layer_optical_depths(cfg, layers, wave, ktab, cia, aero)
+    spec = path_spectrum(cfg, wave, taus["tautot"], paths, None,
+                         del_g)  # (NWAVE, NPATH) transmission
+    specmod = tangent_stencil(spec, geo, tanhe_shift)
+    if solflux is not None:
+        specmod = specmod * solflux[:, None]
+    if return_diagnostics:
+        return specmod, {"layers": layers, "paths": paths, **taus,
+                         "spec_paths": spec}
+    return specmod
+
+
+def forward_so_aotf(
+    atm: Atmosphere,
+    laycfg: LayerConfig,
+    ktab_orders,
+    cia: Optional[CIATables],
+    aero: Optional[AerosolOptics],
+    cfg_orders,
+    geo: dict,
+    conv_orders,
+    trans_aotf,
+    device=None,
+):
+    """AOTF multi-diffraction-order solar occultation (reference nemesisSOfm
+    AOTF branch, ForwardModel_0.py:825-907): the TRANS_AOTF-weighted sum of
+    per-order ``forward_so`` spectra, each on its own windowed tables
+    (``ktab_orders``, ``cfg_orders``) and through its own instrument
+    function (``conv_orders``: callables ``(wave, specmod) -> (NCONV,
+    NGEOM)``), normalised by the summed weights (:901-907).
+    ``trans_aotf``: (NCONV, NGEOM, NORDERS). The tangent geometry ``geo``
+    does not depend on the wave range and serves every order.
+
+    As in the JAX package, one frozen atmosphere feeds every order: the
+    reference's loop re-applies its profile scalings to one mutable
+    atmosphere in every order (ForwardModel_0.py:835, model_2.py:133),
+    compounding them across orders; the port does not."""
+    device = resolve_device(device)
+    atm, cia, aero = _to_device(device, atm, cia, aero)
+    weights = torch.as_tensor(np.asarray(trans_aotf), dtype=atm.t.dtype,
+                              device=device)
+    combined = 0.0
+    for o, (kt, cfg_o, conv) in enumerate(zip(ktab_orders, cfg_orders,
+                                              conv_orders)):
+        kt = kt.to(device)
+        specmod = forward_so(atm, laycfg, kt, cia, aero, cfg_o, geo,
+                             device=device)
+        combined = combined + conv(kt.wave, specmod) * weights[:, :, o]
+    return combined / torch.sum(weights, dim=2)
+
+
+def forward_transit(
+    atm: Atmosphere,
+    laycfg: LayerConfig,
+    ktab: KTables,
+    cia: Optional[CIATables],
+    aero: Optional[AerosolOptics],
+    cfg: ForwardConfig,
+    stellar_radius_km,
+    return_diagnostics: bool = False,
+    device=None,
+):
+    """Primary-transit depth spectrum (NWAVE,) in percent (reference
+    nemesisPTfm ForwardModel_0.py:1838 + calc_path_PT :3697): limb
+    transmission paths through the NLAY - 1 layer bases (90 degrees) in
+    ONE ``layer_optical_depths``; the absorbing area is the trapezoid
+    integral of (1 - T) 2 pi (R + h) over the tangent heights, and the
+    depth 100 (A_abs + A_disk) / A_star. ``device`` as in
+    ``forward_nadir``."""
+    device = resolve_device(device)
+    atm, ktab, cia, aero = _structures_to(device, atm, ktab, cia, aero)
+    layers = apply_dust_renorm(build_layers(atm, laycfg, layang=90.0), atm)
+    nlay = laycfg.nlay
+    paths = limb_paths(layers, atm.radius, atm.h[-1], list(range(nlay - 1)),
+                       imod=PathCalc.PLANCK_FUNCTION_AT_BIN_CENTRE)
+    wave, del_g = _calc_grid(ktab, layers)
+    taus = layer_optical_depths(cfg, layers, wave, ktab, cia, aero)
+    trans = path_spectrum(cfg, wave, taus["tautot"], paths, None,
+                          del_g)  # (NWAVE, NLAY - 1) per tangent layer base
+    baseh = layers.baseh[: nlay - 1]
+    ann = (1.0 - trans) * (2.0 * np.pi) * (baseh + atm.radius)[None, :]
+    dh = baseh[1:] - baseh[:-1]
+    area_abs = 0.5 * torch.sum((ann[:, :-1] + ann[:, 1:]) * dh[None, :],
+                               dim=1)
+    area_disk = np.pi * (atm.radius + baseh[0]) ** 2
+    area_star = np.pi * (float(stellar_radius_km) * 1.0e3) ** 2
+    depth = (area_abs + area_disk) / area_star * 100.0
+    if return_diagnostics:
+        return depth, {"layers": layers, "paths": paths, **taus,
+                       "trans": trans}
+    return depth
 
 
 def forward_disc(

@@ -1,7 +1,9 @@
-"""CIA table reader (.tab Fortran binary).
+"""CIA table readers (.tab Fortran binary and .h5).
 
-Mirrors reference CIA_0.read_ciatable_tab (CIA_0.py:455). Units are
-converted from cm^-1 amagat^-2 to cm^5 molecule^-2 on read.
+Mirrors reference CIA_0.read_ciatable_tab (CIA_0.py:455) and
+read_ciatable_hdf5 (:585). Units are converted from cm^-1 amagat^-2 to
+cm^5 molecule^-2 on read (.tab only; .h5 tables store cm^5 already).
+``h5py`` is imported only to read a ``.h5`` table.
 """
 
 import numpy as np
@@ -56,13 +58,44 @@ def read_cia_tab(path: str, dnu: float, npara: int,
     k = np.transpose(k, (3, 2, 1, 0))  # (NPAIR, NPARA1, NT, NWAVE)
     k = k / AMAGAT**2
 
+    return _tables(waven, temps, frac, k, g1, g2, inormalt, npara, inormal,
+                   device)
+
+
+def read_cia_h5(path: str, inormal=ParaH2Ratio.EQUILIBRIUM,
+                device=None) -> CIATables:
+    """Read a .h5 CIA table (reference read_ciatable_hdf5 CIA_0.py:585)
+    into float64 tensors on ``device`` (None = CUDA)."""
+    import h5py
+
+    device = resolve_device(device)
+    if not path.endswith(".h5"):
+        path += ".h5"
+    with h5py.File(path, "r") as f:
+        npara = int(np.asarray(f.get("NPARA", 0)))
+        g1 = tuple(int(x) for x in f["IPAIRG1"][()])
+        g2 = tuple(int(x) for x in f["IPAIRG2"][()])
+        inormalt = tuple(int(x) for x in f["INORMALT"][()])
+        waven = f["WAVEN"][()].astype(np.float64)
+        temp = f["TEMP"][()].astype(np.float64)
+        frac = (f["FRAC"][()].astype(np.float64) if npara != 0
+                else np.zeros(1))
+        k = f["K_CIA"][()].astype(np.float64)
+    if k.ndim == 3:
+        k = k[:, None, :, :]
+    return _tables(waven, temp, frac, k, g1, g2, inormalt, npara, inormal,
+                   device)
+
+
+def _tables(waven, temp, frac, k, g1, g2, inormalt, npara, inormal,
+            device) -> CIATables:
     def dev(x):
         return torch.as_tensor(np.ascontiguousarray(x, dtype=np.float64),
                                device=device)
 
     return CIATables(
         waven=dev(waven),
-        temp=dev(temps),
+        temp=dev(temp),
         frac=dev(frac),
         k_cia=dev(k),
         pair_gas1=g1,

@@ -9,8 +9,7 @@ read_spx; Scatter_0.py:559 read_xsc; CIA_0.py:323 read_cia). The loader is
 host-only: the structures it returns hold float64 CPU tensors (a runtime
 line-by-line deck's ``RuntimeLBL``, float64 numpy), and the entry points
 that compute (``retrievals.make_retrieval_setup``) move them to the card.
-The ``.lta`` line-by-line table ``.lls`` branch raises until its slice is
-ported; ``read_drv``/``write_drv`` wait.
+``read_drv``/``write_drv`` wait (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -41,8 +40,8 @@ from archnemesis_tpu_torch.enums import (
     SpectralCalculationMode,
     WaveUnit,
 )
-from archnemesis_tpu_torch.io.cia import read_cia_tab
-from archnemesis_tpu_torch.io.ktables import read_kls
+from archnemesis_tpu_torch.io.cia import read_cia_h5, read_cia_tab
+from archnemesis_tpu_torch.io.ktables import read_kls, read_lls
 from archnemesis_tpu_torch.io.linedata import read_lls_runtime
 from archnemesis_tpu_torch.rt.atmosphere import (
     calc_grav,
@@ -405,8 +404,7 @@ def read_cia_file(path, inormal) -> CIATables:
         npara = int(f.readline().split()[0])
     table = find_table(name, "cia", os.path.dirname(os.path.abspath(path)))
     if name.endswith(".h5"):
-        raise NotImplementedError(
-            "HDF5 CIA tables come with io/hdf5.py (ROADMAP Queue 1 item 4)")
+        return read_cia_h5(table, inormal=inormal, device="cpu")
     return read_cia_tab(table, dnu=dnu, npara=npara, inormal=inormal,
                         device="cpu")
 
@@ -483,9 +481,10 @@ def load_deck(deck_dir: str, runname: str) -> Deck:
         elif ilbl == SpectralCalculationMode.LINE_BY_LINE_TABLES and os.path.exists(
             runname + ".lls"
         ):
-            raise NotImplementedError(
-                "line-by-line .lta tables (.lls): not ported yet (ROADMAP "
-                "Queue 1 item 4)")
+            ktab = KTables.from_tables(
+                read_lls(runname + ".lls"),
+                ilbl=SpectralCalculationMode.LINE_BY_LINE_TABLES,
+                device="cpu")
         elif ilbl == SpectralCalculationMode.LINE_BY_LINE_RUNTIME and os.path.exists(
             runname + ".lls"
         ):

@@ -6,7 +6,8 @@ file formats: ``.sol`` run files in both reference variants (named
 Data/stellar file, or ``-1`` inline spectrum; Stellar_0.read_sol:305) and
 the stellar-spectrum data file layout itself, plus blackbody luminosity
 (calc_luminosity_blackbody:448) and flux-at-planet conversion
-(calc_solar_flux:429). The HDF5 ``Stellar`` group comes with ``io/hdf5.py``.
+(calc_solar_flux:429), and the HDF5 ``Stellar`` group (Stellar_0.read_hdf5
+:290) of a run file or of its ``.npz`` export (``io/hdf5.py``).
 """
 
 from __future__ import annotations
@@ -90,6 +91,36 @@ def write_sol(path: str, spec: StellarSpec):
         f.write(f"{float(spec.radius):.6e}\n")
         for w, s in zip(_np(spec.wave), _np(spec.solspec)):
             f.write(f"{w:.8e} {s:.8e}\n")
+
+
+def read_stellar_hdf5(h5path: str) -> StellarSpec | None:
+    """HDF5 ``Stellar`` group of a run file (or of its ``.npz`` export,
+    ``io.hdf5.export_deck_hdf5``) -> StellarSpec (reference read_hdf5:290).
+    Returns None when the group is absent or SOLEXIST is false."""
+    from archnemesis_tpu_torch.io.hdf5 import read_run_groups
+
+    return stellar_from_group(read_run_groups(h5path).get("Stellar"))
+
+
+def stellar_from_group(g) -> StellarSpec | None:
+    """A ``Stellar`` group (a dict of host arrays) -> StellarSpec as float64
+    CPU tensors, or None when it is absent or SOLEXIST is false."""
+    if g is None:
+        return None
+    solexist = bool(np.asarray(g["SOLEXIST"][()])) if "SOLEXIST" in g else False
+    if not solexist:
+        return None
+    dist = float(g["DIST"][()]) if "DIST" in g else 0.0
+    radius = float(g["RADIUS"][()]) if "RADIUS" in g else 0.0
+    return StellarSpec(
+        wave=torch.as_tensor(np.asarray(g["WAVE"][()], dtype=np.float64)),
+        solspec=torch.as_tensor(np.asarray(g["SOLSPEC"][()],
+                                           dtype=np.float64)),
+        dist=torch.as_tensor(dist, dtype=torch.float64),
+        radius=torch.as_tensor(radius, dtype=torch.float64),
+        solexist=True,
+        ispace=int(g["ISPACE"][()]) if "ISPACE" in g else 0,
+    )
 
 
 def _np(x):

@@ -14,16 +14,20 @@ single scattering with nadir and limb FOV points, every instrument function
 of the nadir set-up (channel interpolation, the static ILS and filter
 weights, the double-Gaussian ILS of models 228-230, filter integration with
 a retrieved Doppler shift), the limb (``make_retrieval_setup_limb``),
-combined multi-angle (``make_retrieval_setup_c``) and disc-averaged
-(``make_retrieval_setup_disc``) set-ups, LIN 0-3 chaining, resume, and
-nested sampling (``retrieval_method=1``). Telluric transmission, HDF5
-decks and the SO and transit set-ups raise ``NotImplementedError`` naming
-the ``ROADMAP.md`` item that brings them.
+solar-occultation (``make_retrieval_setup_so``), primary-transit
+(``make_retrieval_setup_transit``), combined multi-angle
+(``make_retrieval_setup_c``) and disc-averaged
+(``make_retrieval_setup_disc``) set-ups, HDF5 run files (or their ``.npz``
+export) for the set-ups that read them, LIN 0-3 chaining, resume, and
+nested sampling (``retrieval_method=1``). Telluric transmission and the
+``/Retrieval`` output group of an HDF5 run raise ``NotImplementedError``
+naming the ``ROADMAP.md`` item that brings them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -45,9 +49,13 @@ from archnemesis_tpu_torch.forward import (
     forward_nadir,
     forward_scattering_nadir,
     forward_singlescat_nadir,
+    forward_so,
+    forward_transit,
     make_forward_config,
     so_geometry,
+    solar_flux,
 )
+from archnemesis_tpu_torch.io.hdf5 import load_deck_hdf5
 from archnemesis_tpu_torch.io.legacy import Deck, load_deck
 from archnemesis_tpu_torch.io.linedata import RuntimeLBL
 from archnemesis_tpu_torch.ops.convolution import (
@@ -211,16 +219,27 @@ def _iform_xfac(iform, atm, stellar, wave):
 
 
 def _load_setup_deck(deck_dir: str, runname: str, atm_override, dtype,
-                     hdf5_item: bool = False) -> Deck:
+                     hdf5: bool = False, deck_file=None) -> Deck:
     """The deck of a set-up in the run's type, on the host:
     ``atm_override`` in place of its atmosphere, the float32 table fixes
-    (``_attach_logk``) and the cast. ``hdf5_item``: a set-up whose JAX
-    counterpart reads an HDF5 deck when there is one raises for it."""
+    (``_attach_logk``) and the cast.
+
+    ``hdf5``: a set-up whose JAX counterpart reads an HDF5 run file when
+    there is one reads ``deck_file`` (None = ``<deck_dir>/<runname>.h5``;
+    its ``.npz`` export where h5py is missing), its relative table paths
+    resolved against ``deck_dir``, with the ``.apr`` beside the deck;
+    where that file is absent, the legacy deck."""
     import os
 
-    if hdf5_item and os.path.exists(os.path.join(deck_dir, runname + ".h5")):
-        _not_ported("HDF5 decks", "io/hdf5.py, ROADMAP Queue 1 item 4")
-    deck = load_deck(deck_dir, runname)
+    if deck_file is None:
+        deck_file = os.path.join(deck_dir, runname + ".h5")
+    if hdf5 and os.path.exists(deck_file):
+        deck = load_deck_hdf5(deck_file, base_dir=deck_dir)
+        apr = os.path.join(deck_dir, runname + ".apr")
+        if os.path.exists(apr):
+            deck = dataclasses.replace(deck, apr_path=os.path.abspath(apr))
+    else:
+        deck = load_deck(deck_dir, runname)
     if atm_override is not None:
         deck = dataclasses.replace(deck, atmosphere=atm_override)
     return _typed_deck(deck, dtype)
@@ -293,6 +312,19 @@ def _shared_window(deck: Deck, geom, st, widen_doppler: bool):
     if isinstance(deck.ktables, RuntimeLBL):
         return deck.ktables.windowed(vmin, vmax)
     return _windowed_ktab(deck, vmin, vmax)
+
+
+def _typed_window(deck: Deck, geom, st, dtype, device, widen_doppler: bool):
+    """(the float64 host deck in the run's type on ``device``, its tables
+    windowed by ``_shared_window``; the window's host float64 calc grid).
+    The window is taken on the float64 grid before the cast, so that both
+    types compute on the same waves and the instrument function's weights
+    come from the exact grid (a float32 grid near 4,000 cm-1 keeps 0.5e-3
+    cm-1, and a 0.16 cm-1 Gaussian ILS sampled there is 3e-4 off)."""
+    ktw = _shared_window(deck, geom, st, widen_doppler=widen_doppler)
+    wave_host = _host_wave(ktw)
+    deck = dataclasses.replace(deck, ktables=ktw)
+    return _deck_to(_typed_deck(deck, dtype), device), wave_host
 
 
 def _ils_weights(geom, st, wave, vconv, intfilter: bool, ktab_quad: bool,
@@ -412,8 +444,9 @@ def make_retrieval_setup(
         # Atmospheric_transmission (SO set-up) come with the other
         # geometries
         raise NotImplementedError(
-            f"IFORM={deck.settings.iform!r} is not a nadir radiance unit "
-            "(the SO and transit set-ups: ROADMAP Queue 1 item 5b)"
+            f"IFORM={deck.settings.iform!r} is not a nadir radiance unit: "
+            "Atmospheric_transmission is make_retrieval_setup_so's, "
+            "TransitDepth make_retrieval_setup_transit's"
         )
     if (deck.settings.iform == SpectraUnit.Normalised_radiance
             and deck.settings.vnorm is None):
@@ -648,7 +681,7 @@ def make_retrieval_setup(
 
 def make_retrieval_setup_limb(
     deck_dir: str, runname: str, atm_override=None, sv_override=None,
-    device=None, dtype=torch.float64,
+    device=None, dtype=torch.float64, deck_file=None,
 ) -> RetrievalSetup:
     """Limb thermal-emission retrieval set-up (reference nemesisLfm,
     ForwardModel_0.py:1254 + calc_path_L :3375): one layering for every
@@ -656,17 +689,46 @@ def make_retrieval_setup_limb(
     ``layer_optical_depths`` (``forward_limb_batch``), the tangent-height
     stencil to the measured TANHE, then each geometry's ILS (or filter
     integration for IFORM=Integrated_radiance) on one shared calc grid.
-    ``device`` and ``dtype`` as in ``make_retrieval_setup``."""
+    ``device`` and ``dtype`` as in ``make_retrieval_setup``; an HDF5 run
+    file is read as ``_load_setup_deck`` says (``deck_file``)."""
+    return _tangent_setup(deck_dir, runname, atm_override, sv_override,
+                          device, dtype, deck_file, occultation=False)
+
+
+def make_retrieval_setup_so(
+    deck_dir: str, runname: str, atm_override=None, sv_override=None,
+    device=None, dtype=torch.float64, deck_file=None,
+) -> RetrievalSetup:
+    """Solar-occultation (limb transmission) retrieval set-up (reference
+    nemesisSOfm, ForwardModel_0.py:783): one layering for every tangent
+    height with the layer heights frozen (``adjust_hydrostat=False``,
+    ForwardModel_0.py:855), every tangent path through one
+    ``layer_optical_depths`` (``forward_so``), the tangent-height stencil
+    (model 777 through ``apply_domain``), the solar flux for
+    IFORM=Atmospheric_transmission, then each geometry's ILS on one shared
+    calc grid. ``device``, ``dtype`` and ``deck_file`` as in
+    ``make_retrieval_setup_limb``."""
+    return _tangent_setup(deck_dir, runname, atm_override, sv_override,
+                          device, dtype, deck_file, occultation=True)
+
+
+def _tangent_setup(deck_dir, runname, atm_override, sv_override, device,
+                   dtype, deck_file, occultation: bool) -> RetrievalSetup:
+    """The limb (thermal emission) and solar-occultation (transmission)
+    set-ups: they differ in the path physics, the stencil's bracket
+    (nemesisLfm's, ``so_geometry(lfm_bracket=True)``), the solar flux and
+    the filter integration, which only the limb takes."""
+    what = "SO" if occultation else "limb"
     device = resolve_device(device)
     deck = _load_setup_deck(deck_dir, runname, atm_override, torch.float64,
-                            hdf5_item=True)
+                            hdf5=True, deck_file=deck_file)
     st = deck.settings
     geom = deck.geometry
     if geom.tanhe is None:
-        raise ValueError("limb retrieval needs tangent heights (TANHE, "
+        raise ValueError(f"{what} retrieval needs tangent heights (TANHE, "
                          "i.e. EMISS_ANG<0 in the .spx)")
     tanhe = np.asarray(geom.tanhe)
-    if tanhe.ndim == 2:
+    if tanhe.ndim == 2:  # (NGEOM, NAV) -> one tangent height per geometry
         tanhe = tanhe[:, 0]
 
     sv = (sv_override if sv_override is not None
@@ -674,29 +736,38 @@ def make_retrieval_setup_limb(
     # the stencil from the unperturbed layering in float64, whatever the
     # run's type, so that both types take the same tangent paths
     geo = so_geometry(deck.atmosphere, deck.layer_config, tanhe,
-                      lfm_bracket=True)
-    deck = _deck_to(_typed_deck(deck, dtype), device)
-
-    # one calc range over every geometry (nemesisLfm builds the ILS and
-    # the wave range once, ForwardModel_0.py:1282-1288)
-    ktw = _shared_window(deck, geom, st, widen_doppler=True)
+                      lfm_bracket=not occultation)
+    # one calc range over every geometry (nemesisSOfm and nemesisLfm build
+    # the ILS and the wave range once, ForwardModel_0.py:918-923,
+    # :1282-1288)
+    deck, wave_host = _typed_window(deck, geom, st, dtype, device,
+                                    widen_doppler=True)
+    ktw = deck.ktables
     has_447 = any(e.model_id == 447 for e in sv.entries)
     has_777 = any(e.model_id == 777 for e in sv.entries)
     dev = _to_run(dtype, device)
-    wave_host = _host_wave(ktw)
     wavecorr = doppler_corrected_wave(wave_host, st.v_doppler, st.ispace)
-    ils = [_ils_weights(geom, st, wavecorr, vc, intfilter=True,
+    ils = [_ils_weights(geom, st, wavecorr, vc, intfilter=not occultation,
                         ktab_quad=False) for vc in _vconv_list(geom)]
     ils = [None if w is None else dev(w) for w in ils]
     if has_447 and any(w is not None for w in ils):
+        # static weights freeze the Doppler correction at st.v_doppler; a
+        # retrieved 447 velocity would be a silent no-op (reference
+        # conv/lblconv re-correct Wave per call, Measurement_0.py:2149)
         raise NotImplementedError(
-            "model 447 (retrieved Doppler) in a limb run needs the "
+            f"model 447 (retrieved Doppler) in an {what} run needs the "
             "differentiable convolution path (FWHM=0 channel "
             "interpolation); FWHM>0 / .fil / filter-integration weights "
             "are static")
 
     cfg = make_forward_config(deck.atmosphere, ktw, deck.cia, iray=st.iray,
                               ispace=st.ispace, gasgiant=True)
+    solflux = None
+    if occultation and st.iform == SpectraUnit.Atmospheric_transmission:
+        if deck.stellar is None:
+            raise ValueError("IFORM=Atmospheric_transmission requires a "
+                             "stellar spectrum")
+        solflux = solar_flux(deck.stellar, ktw.wave)
     wave_dev = dev(wave_host if has_447 else wavecorr)
     vconvs = [dev(vc) for vc in _vconv_list(geom)]
 
@@ -705,10 +776,17 @@ def make_retrieval_setup_limb(
         atm = apply_state(deck.atmosphere, xn, sv, adjust_hydrostat=False)
         meas = apply_domain(sv, xn, "measurement",
                             {"v_doppler": st.v_doppler, "tanhe_shift": 0.0})
-        spec = forward_limb_batch(
-            atm, deck.layer_config, ktw, deck.cia, deck.aerosol, cfg, geo,
-            tanhe_shift=meas["tanhe_shift"] if has_777 else None,
-            device=device)  # (NWAVE, NGEOM)
+        shift = meas["tanhe_shift"] if has_777 else None
+        if occultation:
+            spec = forward_so(
+                atm, deck.layer_config, ktw, deck.cia, deck.aerosol, cfg,
+                geo, tanhe_shift=shift, solflux=solflux, device=device)
+        else:
+            spec = forward_limb_batch(
+                atm, deck.layer_config, ktw, deck.cia, deck.aerosol, cfg,
+                geo, tanhe_shift=shift, device=device)  # (NWAVE, NGEOM)
+        # observer-frame grid, differentiable in the velocity for model
+        # 447 (reference lblconv corrects Wave first, Measurement_0.py:2149)
         wave_obs = (doppler_corrected_wave(wave_dev, meas["v_doppler"],
                                            st.ispace)
                     if has_447 else wave_dev)
@@ -717,20 +795,74 @@ def make_retrieval_setup_limb(
     return _setup(deck, sv, geom, forward_fn, device, dtype)
 
 
+def make_retrieval_setup_transit(
+    deck_dir: str, runname: str, atm_override=None, sv_override=None,
+    device=None, dtype=torch.float64, deck_file=None,
+) -> RetrievalSetup:
+    """Primary-transit retrieval set-up (reference nemesisPTfm,
+    ForwardModel_0.py:1838): IFORM=TransitDepth, limb transmission over
+    every layer base in one ``layer_optical_depths`` (``forward_transit``),
+    the annulus trapezoid integral, then each geometry's ILS. The
+    hydrostatic rebalance stays ON inside the differentiated state map
+    (ForwardModel_0.py:1899). ``device``, ``dtype`` and ``deck_file`` as in
+    ``make_retrieval_setup_limb``."""
+    device = resolve_device(device)
+    deck = _load_setup_deck(deck_dir, runname, atm_override, torch.float64,
+                            hdf5=True, deck_file=deck_file)
+    st = deck.settings
+    if st.iform != SpectraUnit.TransitDepth:
+        raise ValueError(
+            "transit retrievals need IFORM=TransitDepth "
+            "(reference nemesisPTfm check, ForwardModel_0.py:1882)")
+    if deck.stellar is None or float(deck.stellar.radius) <= 0:
+        raise ValueError("transit retrievals need a stellar radius")
+    geom = deck.geometry
+    sv = (sv_override if sv_override is not None
+          else read_apr(deck.apr_path, deck.atmosphere))
+    deck, wave_host = _typed_window(deck, geom, st, dtype, device,
+                                    widen_doppler=True)
+    ktw = deck.ktables
+    cfg = make_forward_config(deck.atmosphere, ktw, deck.cia, iray=st.iray,
+                              ispace=st.ispace, gasgiant=True)
+    dev = _to_run(dtype, device)
+    # the lineshape weights for FWHM > 0 on the rest-frame grid, else
+    # channel interpolation, as the JAX package's transit set-up takes them
+    ils = [dev(ils_weights_lbl(wave_host, vc, geom.fwhm,
+                               InstrumentLineshape(st.ishape)))
+           if geom.fwhm > 0.0 else None for vc in _vconv_list(geom)]
+    # StellarSpec.radius is in km (reference Stellar_0: "Radius of the
+    # star (km)")
+    r_star_km = float(deck.stellar.radius)
+    wave_dev = dev(wave_host)
+    vconvs = [dev(vc) for vc in _vconv_list(geom)]
+
+    def forward_fn(xn):
+        xn = _as_state(xn, dev)
+        atm = apply_state(deck.atmosphere, xn, sv, adjust_hydrostat=True)
+        depth = forward_transit(atm, deck.layer_config, ktw, deck.cia,
+                                deck.aerosol, cfg, stellar_radius_km=r_star_km,
+                                device=device)
+        # the one depth spectrum serves every geometry
+        return _convolve_geoms(sv, xn, depth[:, None].expand(-1, len(ils)),
+                               ils, vconvs, wave_dev)
+
+    return _setup(deck, sv, geom, forward_fn, device, dtype)
+
+
 def make_retrieval_setup_c(
     deck_dir: str, runname: str, atm_override=None, sv_override=None,
-    device=None, dtype=torch.float64,
+    device=None, dtype=torch.float64, deck_file=None,
 ) -> RetrievalSetup:
     """Combined multi-angle scattering set-up (reference nemesisCfm
     ForwardModel_0.py:1526 + calc_path_C :3571): an up- or down-looking
     instrument observing one atmosphere and surface at NGEOM viewing
     angles. One layering and one adding-doubling evaluation serve every
     geometry: the geometries' (emiss, sol, azi) angles are one path batch
-    of ``forward_scattering_nadir``. ``device`` and ``dtype`` as in
-    ``make_retrieval_setup``."""
+    of ``forward_scattering_nadir``. ``device``, ``dtype`` and
+    ``deck_file`` as in ``make_retrieval_setup_limb``."""
     device = resolve_device(device)
     deck = _load_setup_deck(deck_dir, runname, atm_override, dtype,
-                            hdf5_item=True)
+                            hdf5=True, deck_file=deck_file)
     st = deck.settings
     geom = deck.geometry
     if ScatteringCalculationMode(st.iscat) != (
@@ -938,6 +1070,7 @@ def retrieval_nemesis(
     ns_kwargs: Optional[dict] = None,
     device=None,
     dtype=torch.float64,
+    deck_file=None,
 ):
     """Full retrieval (reference retrieval_nemesis Retrievals.py:31):
     load deck, optional LIN chaining from <runname>.pre, OE retrieval, and
@@ -955,9 +1088,12 @@ def retrieval_nemesis(
     resume=True restarts the OE loop from the last .itr checkpoint record
     (reference OptimalEstimation_0.from_itr:55).
 
-    The ``nemesis_l``, ``nemesis_disc`` and ``nemesis_c`` flags pick the
-    limb, disc-averaged and combined multi-angle set-ups;
-    ``nemesis_so`` and ``nemesis_pt`` are not ported yet and raise.
+    The ``nemesis_so``, ``nemesis_l``, ``nemesis_pt``, ``nemesis_disc`` and
+    ``nemesis_c`` flags pick the solar-occultation, limb, primary-transit,
+    disc-averaged and combined multi-angle set-ups (reference dispatch
+    Retrievals.py:298-307). An HDF5 run's ``/Retrieval`` output group is
+    not written yet: ``write_outputs=True`` raises for it after the legacy
+    files (ROADMAP Queue 1 item 9).
 
     retrieval_method: 0 = optimal estimation (coreretOE), 1 = nested
     sampling (reference dispatch Retrievals.py:298-307;
@@ -969,25 +1105,27 @@ def retrieval_nemesis(
     Jacobian is one batched forward evaluation on the card.
 
     device: None = the CUDA card (raises without one); "cpu" runs on the
-    CPU. dtype: the run's floating type.
+    CPU. dtype: the run's floating type. deck_file: the HDF5 run file (or
+    its ``.npz`` export) of a set-up that reads one (SO, limb, transit,
+    combined), as ``make_retrieval_setup_limb`` takes it.
     """
     import os
 
     del ncores  # parity-only (see docstring)
 
-    for flag, name in ((nemesis_so, "nemesis_so"),
-                       (nemesis_pt, "nemesis_pt")):
-        if flag:
-            _not_ported(f"{name}=True",
-                        "the SO and transit set-ups, ROADMAP Queue 1 item 5b")
     if retrieval_method not in (0, 1):
         raise ValueError(f"unknown retrieval_method {retrieval_method}")
     make_setup = (
-        make_retrieval_setup_limb if nemesis_l
+        make_retrieval_setup_so if nemesis_so
+        else make_retrieval_setup_limb if nemesis_l
+        else make_retrieval_setup_transit if nemesis_pt
         else make_retrieval_setup_disc if nemesis_disc
         else make_retrieval_setup_c if nemesis_c
         else make_retrieval_setup
     )
+
+    if deck_file is not None:
+        make_setup = functools.partial(make_setup, deck_file=deck_file)
 
     def _setup_fn(**kw):
         return make_setup(deck_dir, runname, device=device, dtype=dtype,

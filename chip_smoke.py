@@ -208,6 +208,33 @@ without them. Phases, each of which fails the run on its own:
     ``tests/test_nested_deck.py`` against OE (means within 2 sigma, the
     best chi2 within 3x OE's); logZ, iterations, likelihoods, wall time and
     likelihoods per second;
+21. solar occultation, AOTF, transit and the Titan FOV deck
+    ("occultation"): the Mars SO deck read from its ``.npz`` export
+    (``archnemesis_tpu_torch/data/mars_solocc.npz``: the card's machine
+    has no h5py, and h5py must not be imported by the phase), the goldens
+    ``mars_so_fm`` and ``mars_so_aotf_fm`` (rtol 1e-6, atol 1e-10),
+    ``mars_transit_fm`` and ``titan_fov_fm`` (rtol 1e-5) in float64
+    (``occultation_golden_cases``); the SO set-up on the export and the
+    transit set-up on a copy of it made a transit run
+    (``transit_deck_file``): the float64 forward against the port's CPU
+    run (1e-10), float32 against float64 (spectrum within 1e-4, each
+    Jacobian column within ``JAC_F32_BOUND`` of its peak), median time and
+    peak memory of a forward-plus-Jacobian evaluation in both types; the
+    wall-clock of ``retrieval_nemesis(nemesis_so=True, niter=3)`` on the
+    export;
+22. table generation on kernel 2 ("tablegen"): ``generate_lbltable``,
+    ``generate_ktable`` and ``generate_ktable_chunked`` (1 and 3 chunks)
+    against the reference's ``tests/fixtures/tablegen/co_ref.{lta,kta}``
+    (rtol 3e-7; log k within 2e-3, chunked 2e-2); kernel 2 at the table
+    shape (50,000 waves x 200 (P, T) columns) against its plain version
+    (float64 at rtol 1e-10, float32 at phase 7's bound, float32 against
+    float64 no further off than the plain float32 version plus that
+    bound), its time beside its bound; then the production grid from the
+    CO export (``TABLE_*``: 2000-2250 cm-1 at 0.005 cm-1, 20 pressures x 10
+    temperatures; the k-table in 250 1 cm-1 bins, NG = 20, 4 chunks):
+    wall time, launches (1 and 4), peak memory, the tables written and
+    read back, kernel 2's share of the k-table's device time and its
+    device time beside its bound summed over the chunks;
 
 then a JSON line of the kernels (launches on the main paths, error, times,
 bound, library time) and, last, ``{"ok": true, "device": {...}}``. ``--profile`` adds
@@ -3867,6 +3894,598 @@ def phase_nested(card: str):
     return launches
 
 
+# --- phase 21: solar occultation, AOTF, transit and the Titan FOV deck
+
+SO_DECK = "tests/fixtures/mars_so"
+SO_RUN = "mars_solocc"
+# the .npz export of the deck's HDF5 run file (the card's machine has no
+# h5py; tests/port_cases.write_deck_export writes it)
+SO_EXPORT = "archnemesis_tpu_torch/data/mars_solocc.npz"
+SO_GOLDEN = "tests/goldens/mars_so_fm.npz"
+AOTF_GOLDEN = "tests/goldens/mars_so_aotf_fm.npz"
+TRANSIT_GOLDEN = "tests/goldens/mars_transit_fm.npz"
+TITAN_DECK = "tests/fixtures/titan_fov"
+TITAN_GOLDEN = "tests/goldens/titan_fov_fm.npz"
+# the Stellar group that tests/test_retrieval_transit.py adds to the SO
+# deck to make it a transit run (RADIUS in km, as Stellar_0 stores it)
+TRANSIT_STELLAR = dict(SOLEXIST=True, DIST=1.5, RADIUS=6.957e5, ISPACE=0,
+                       WAVE=np.linspace(3000.0, 4000.0, 32),
+                       SOLSPEC=np.full(32, 1.0e20))
+OCC_EVAL_RUNS = 5
+
+
+def so_deck(deck_file: str = SO_EXPORT):
+    """The Mars solar-occultation deck read from its run file (by default
+    the ``.npz`` export), table locations against the deck's directory."""
+    from archnemesis_tpu_torch.io.hdf5 import load_deck_hdf5
+
+    return load_deck_hdf5(deck_file, base_dir=SO_DECK)
+
+
+def transit_deck_file(path: str, src: str = SO_EXPORT) -> str:
+    """Write to ``path`` the SO export made a transit run as
+    tests/test_retrieval_transit.py makes the ``.h5`` one: IFORM =
+    TransitDepth and a ``Stellar`` group (``TRANSIT_STELLAR``), edited as
+    a dict of the export's datasets."""
+    from archnemesis_tpu_torch.enums import SpectraUnit
+
+    with np.load(src, allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files}
+    flat["Measurement/IFORM"] = np.asarray(int(SpectraUnit.TransitDepth))
+    for key, value in TRANSIT_STELLAR.items():
+        flat[f"Stellar/{key}"] = np.asarray(value)
+    np.savez(path, **flat)
+    return path
+
+
+def golden_tables(kt, wave, pad: float = 0.0):
+    """The deck's tables on a golden's wave grid, selected as the JAX
+    tests select them (the grids agree within 1e-5 cm-1)."""
+    import torch
+
+    kw = kt.wave.detach().cpu().numpy()
+    sel = np.where((kw >= wave.min() - pad) & (kw <= wave.max() + pad))[0]
+    np.testing.assert_allclose(kw[sel], wave, rtol=0, atol=1e-5)
+    idx = torch.as_tensor(sel, device=kt.k.device)
+    return kt.replace(wave=kt.wave[idx], k=kt.k[:, idx])
+
+
+def _so_state(deck, device, ones: bool = False, hydrostat: bool = False):
+    """The deck's atmosphere on ``device`` with its .apr a priori applied
+    (unit scalings where ``ones``: the AOTF golden's state)."""
+    import torch
+
+    from archnemesis_tpu_torch.retrieval.statevector import (
+        apply_state,
+        read_apr,
+    )
+
+    sv = read_apr(f"{SO_DECK}/{SO_RUN}.apr", deck.atmosphere)
+    x = np.ones_like(sv.xa) if ones else sv.xa
+    return apply_state(deck.atmosphere.to(device),
+                       torch.as_tensor(x, device=device), sv,
+                       adjust_hydrostat=hydrostat)
+
+
+def _lbl_ils(deck, wave, vconv, like):
+    from archnemesis_tpu_torch.enums import InstrumentLineshape
+    from archnemesis_tpu_torch.ops.convolution import ils_weights_lbl
+
+    return like.new_tensor(ils_weights_lbl(
+        wave, vconv, deck.geometry.fwhm,
+        InstrumentLineshape(deck.settings.ishape)))
+
+
+def so_golden_spectrum(deck, device, tanhe_shift=None):
+    """(convolved (NCONV, NGEOM) spectrum, golden, forward diagnostics) of
+    the SO forward as tests/test_forward_so.py computes it."""
+    from archnemesis_tpu_torch.forward import (
+        forward_so,
+        make_forward_config,
+        so_geometry,
+    )
+    from archnemesis_tpu_torch.ops.convolution import apply_ils
+
+    d = np.load(SO_GOLDEN)
+    atm = _so_state(deck, device)
+    ktw = golden_tables(deck.ktables, d["WAVE"])
+    cfg = make_forward_config(atm, ktw, None, iray=deck.settings.iray,
+                              ispace=deck.settings.ispace, gasgiant=True)
+    geo = so_geometry(atm, deck.layer_config, d["TANHE"])
+    spec, diag = forward_so(atm, deck.layer_config, ktw, None, deck.aerosol,
+                            cfg, geo, return_diagnostics=True,
+                            tanhe_shift=tanhe_shift, device=device)
+    nconv = int(d["NCONV"][0])
+    conv = apply_ils(_lbl_ils(deck, d["WAVE"], d["VCONV"][:nconv, 0], spec),
+                     spec)
+    return conv, d["SPECONV"][:nconv, :], diag
+
+
+def aotf_golden_spectrum(deck, device):
+    """(combined (NCONV, NGEOM) spectrum, golden) of the 3-order AOTF
+    forward as tests/test_forward_so_aotf.py computes it (unit scalings:
+    the reference compounds the orders' scalings, see ``forward_so_aotf``)."""
+    import functools
+
+    from archnemesis_tpu_torch.forward import (
+        forward_so_aotf,
+        make_forward_config,
+        so_geometry,
+    )
+    from archnemesis_tpu_torch.ops.convolution import apply_ils
+
+    d = np.load(AOTF_GOLDEN)
+    atm = _so_state(deck, device, ones=True)
+    nconv = int(d["NCONV"][0])
+    ktabs, cfgs, convs = [], [], []
+    for o in range(d["VCONV_AOTF"].shape[2]):
+        wave_o = d[f"WAVE_O{o}"]
+        ktw = golden_tables(deck.ktables, wave_o, pad=1e-9)
+        ktabs.append(ktw)
+        cfgs.append(make_forward_config(atm, ktw, None,
+                                        iray=deck.settings.iray,
+                                        ispace=deck.settings.ispace,
+                                        gasgiant=True))
+        w = _lbl_ils(deck, wave_o, d["VCONV_AOTF"][:nconv, 0, o],
+                     atm.t).to(device)
+        convs.append(functools.partial(lambda wv, s, w: apply_ils(w, s),
+                                       w=w))
+    geo = so_geometry(atm, deck.layer_config, d["TANHE"])
+    spec = forward_so_aotf(atm, deck.layer_config, ktabs, None, deck.aerosol,
+                           cfgs, geo, convs, d["TRANS_AOTF"], device=device)
+    return spec, d["SPECONV"][:nconv, :]
+
+
+def transit_golden_spectrum(deck, device):
+    """(convolved transit depth (NCONV,), golden, transmissions) as
+    tests/test_disc_transit.py computes them: the .apr state with the
+    hydrostatic rebalance, as nemesisPTfm applies it."""
+    from archnemesis_tpu_torch.forward import (
+        forward_transit,
+        make_forward_config,
+    )
+    from archnemesis_tpu_torch.ops.convolution import apply_ils
+
+    d = np.load(TRANSIT_GOLDEN)
+    atm = _so_state(deck, device, hydrostat=True)
+    ktw = golden_tables(deck.ktables, d["WAVE"])
+    cfg = make_forward_config(atm, ktw, deck.cia, iray=deck.settings.iray,
+                              ispace=deck.settings.ispace, gasgiant=True)
+    depth, diag = forward_transit(
+        atm, deck.layer_config, ktw, deck.cia, None, cfg,
+        stellar_radius_km=float(d["STELLAR_RADIUS_KM"]),
+        return_diagnostics=True, device=device)
+    conv = apply_ils(_lbl_ils(deck, d["WAVE"], d["VCONV"], depth), depth)
+    return conv, d["SPECONV"][:, 0], diag["trans"]
+
+
+def titan_golden_spectrum(device):
+    """(forward_fn(xa), golden, the set-up) of the Titan FOV deck through
+    ``make_retrieval_setup``, as tests/test_forward_titan_fov.py runs it."""
+    from archnemesis_tpu_torch.retrievals import make_retrieval_setup
+
+    setup = make_retrieval_setup(TITAN_DECK, "ch3cn", device=device)
+    d = np.load(TITAN_GOLDEN)
+    nconv = int(d["NCONV"][0])
+    np.testing.assert_allclose(setup.sv.xa, d["XA"], rtol=1e-10)
+    return setup.forward_fn(setup.sv.xa), d["SPECONV"][:nconv, 0], setup
+
+
+def occultation_golden_cases() -> dict:
+    """name -> check(deck, device): the four goldens of the slice at the
+    JAX tests' tolerances (rtol, atol); each check raises on a miss and
+    returns the largest relative error."""
+    def held(got, want, rtol, atol, name):
+        got = got.detach().cpu().double().numpy()
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                                   err_msg=name)
+        return float(np.max(np.abs(got - want)
+                            / np.maximum(np.abs(want), 1e-300)))
+
+    return {
+        "mars_so_fm": lambda deck, device: held(
+            *so_golden_spectrum(deck, device)[:2], 1e-6, 1e-10, "mars_so_fm"),
+        "mars_so_aotf_fm": lambda deck, device: held(
+            *aotf_golden_spectrum(deck, device), 1e-6, 1e-10,
+            "mars_so_aotf_fm"),
+        "mars_transit_fm": lambda deck, device: held(
+            *transit_golden_spectrum(deck, device)[:2], 1e-5, 0.0,
+            "mars_transit_fm"),
+        "titan_fov_fm": lambda deck, device: held(
+            *titan_golden_spectrum(device)[:2], 1e-5, 0.0, "titan_fov_fm"),
+    }
+
+
+def occultation_setups(transit_file: str) -> dict:
+    """name -> make(device, dtype): the SO set-up on the export and the
+    transit set-up on ``transit_file`` (``transit_deck_file``)."""
+    from archnemesis_tpu_torch.retrievals import (
+        make_retrieval_setup_so,
+        make_retrieval_setup_transit,
+    )
+
+    return {
+        "SO": lambda device, dtype: make_retrieval_setup_so(
+            SO_DECK, SO_RUN, deck_file=SO_EXPORT, device=device,
+            dtype=dtype),
+        "transit": lambda device, dtype: make_retrieval_setup_transit(
+            SO_DECK, SO_RUN, deck_file=transit_file, device=device,
+            dtype=dtype),
+    }
+
+
+def _time_jacobians(setup, x, runs: int):
+    """(median, min, max ms, peak GiB) of ``forward_and_jacobian`` over
+    ``runs`` runs after a warm-up, host clock ending in a synchronise."""
+    import torch
+
+    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
+
+    forward_and_jacobian(setup.forward_fn, x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        forward_and_jacobian(setup.forward_fn, x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return (float(np.median(times)), min(times), max(times),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_occultation(card: str):
+    """Phase 21: solar occultation, AOTF, transit and the Titan FOV deck
+    on the card, the Mars deck read from its ``.npz`` export."""
+    import torch
+
+    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
+    from archnemesis_tpu_torch.retrievals import retrieval_nemesis
+
+    deck = so_deck()
+    for name, check in occultation_golden_cases().items():
+        err = check(deck, "cuda")
+        _print(f"{name} float64 on the card: golden held (max rel "
+               f"{err:.3e})")
+    with tempfile.TemporaryDirectory() as tmp:
+        transit_file = transit_deck_file(os.path.join(tmp, "transit.npz"))
+        for name, make in occultation_setups(transit_file).items():
+            s64 = make("cuda", torch.float64)
+            s32 = make("cuda", torch.float32)
+            cpu = make("cpu", torch.float64)
+            x = torch.as_tensor(s64.sv.xa, device="cuda")
+            y64, k64 = forward_and_jacobian(s64.forward_fn, x)
+            y32, k32 = forward_and_jacobian(s32.forward_fn, x.float())
+            y_cpu = cpu.forward_fn(cpu.sv.xa).numpy()
+            np.testing.assert_allclose(y64.cpu().numpy(), y_cpu, rtol=1e-10,
+                                       atol=0, err_msg=name)
+            r = rel_err(y32.double().cpu().numpy(), y64.cpu().numpy())
+            col_err, misses = jacobian_column_misses(k32, k64,
+                                                     s64.sv.entries)
+            _print(f"{name} set-up (NX={s64.sv.nx}, NY={s64.y.shape[0]}) on "
+                   f"the card: float64 forward equal to the CPU's within "
+                   f"1e-10; float32 vs float64: spectrum max rel "
+                   f"{r.max():.3e}, median {np.median(r):.3e} (gate "
+                   f"{F32_BOUNDS[0]:.0e}); Jacobian columns' errors over "
+                   f"their peaks {np.array2string(col_err, precision=3)} "
+                   f"(gate {JAC_F32_BOUND:.0e}); columns whose float64 "
+                   f"peak float32 cannot hold: "
+                   f"{float32_unheld_columns(k64)}")
+            if not r.max() < F32_BOUNDS[0]:
+                raise AssertionError(f"{name}: float32 spectrum outside "
+                                     f"{F32_BOUNDS[0]:.0e}")
+            if misses:
+                raise AssertionError(f"{name}: float32 Jacobian columns "
+                                     f"outside {JAC_F32_BOUND:.0e}: {misses}")
+            for dtype_name, setup, xs in (("float64", s64, x),
+                                          ("float32", s32, x.float())):
+                med, lo, hi, peak = _time_jacobians(setup, xs,
+                                                    OCC_EVAL_RUNS)
+                _print(f"forward-plus-Jacobian of the {name} set-up "
+                       f"({dtype_name}, {card}): median {med:.3f} ms over "
+                       f"{OCC_EVAL_RUNS} runs (min {lo:.3f}, max "
+                       f"{hi:.3f}); peak memory {peak:.3f} GiB")
+    # write_outputs=False: the run writes nothing into the deck directory
+    t0 = time.perf_counter()
+    res = retrieval_nemesis(SO_DECK, SO_RUN, nemesis_so=True, niter=3,
+                            write_outputs=False, device="cuda",
+                            deck_file=SO_EXPORT)
+    wall = time.perf_counter() - t0
+    if not (np.all(np.isfinite(res.xn))
+            and res.phi_history[-1] <= res.phi_history[0]):
+        raise AssertionError(f"SO retrieval: phi {res.phi_history}")
+    _print(f"retrieval_nemesis(nemesis_so=True, niter=3) on the export "
+           f"({card}): {wall:.3f} s, phi {res.phi_history[0]:.6e} -> "
+           f"{res.phi_history[-1]:.6e}")
+    if "h5py" in sys.modules:
+        raise AssertionError("phase 21 imported h5py")
+
+
+# --- phase 22: table generation on kernel 2
+
+TABLEGEN_FIX = "tests/fixtures/tablegen"
+# the production grid: CO's fundamental band at 0.005 cm-1 (50,000 waves),
+# 20 pressures from 1e-6 to 10 atm, 10 temperatures from 70 to 400 K;
+# the k-table in 1 cm-1 bins (250) with 20 g ordinates
+TABLE_WAVE = 2000.0 + 0.005 * np.arange(50_000)
+TABLE_PRESS = np.logspace(-6.0, 1.0, 20)
+TABLE_TEMP = np.linspace(70.0, 400.0, 10)
+TABLE_BINS = 2000.5 + np.arange(250.0)
+TABLE_NG = 20
+TABLE_CHUNKS = 4
+TABLE_KERNEL_RUNS = 3
+
+
+def tablegen_golden_cases() -> dict:
+    """name -> check(ll, device): the table generator against the
+    reference's tables ``co_ref.{lta,kta}`` at tests/test_tablegen.py's
+    tolerances; each check raises on a miss and returns its largest
+    error (relative for the LBL table, in log k for the k-tables)."""
+    from archnemesis_tpu_torch.io.ktables import read_kta, read_lta
+    from archnemesis_tpu_torch.ops.tablegen import (
+        generate_ktable,
+        generate_ktable_chunked,
+        generate_lbltable,
+    )
+
+    def lbl(ll, device):
+        ref = read_lta(f"{TABLEGEN_FIX}/co_ref.lta")
+        k = generate_lbltable(ll, ref.press, ref.temp, ref.wave,
+                              amb_frac=0.9, wn_calc_window=25.0,
+                              wn_approx_window=75.0, device=device)
+        k = k.cpu().numpy()
+        want = ref.k[:, 0, :, :]
+        np.testing.assert_allclose(k, want, rtol=3e-7, atol=1e-30)
+        return float(np.max(np.abs(k / want - 1.0)))
+
+    def ktable(chunks):
+        def check(ll, device):
+            ref = read_kta(f"{TABLEGEN_FIX}/co_ref.kta")
+            kw = dict(ng=ref.g_ord.size, amb_frac=0.9, wn_calc_window=5.0,
+                      wn_approx_window=10.0, device=device)
+            if chunks:
+                k_g, g_ord, del_g = generate_ktable_chunked(
+                    ll, ref.press, ref.temp, ref.wave, n_chunks=chunks, **kw)
+            else:
+                k_g, g_ord, del_g = generate_ktable(ll, ref.press, ref.temp,
+                                                   ref.wave, **kw)
+            np.testing.assert_allclose(g_ord, ref.g_ord, rtol=1e-6)
+            np.testing.assert_allclose(del_g, ref.del_g, rtol=1e-6)
+            err = np.abs(np.log(k_g.cpu().numpy()) - np.log(ref.k))
+            # the chunked pipeline's one fine grid (the finest of the
+            # (P, T) grid) is resolution-sensitive at the ~1e-2 log level
+            # near steep k(g) edges (tests/test_tablegen.py)
+            tol = 2e-2 if chunks else 2e-3
+            if not err.max() <= tol:
+                raise AssertionError(f"k-table (chunks {chunks}): log k off "
+                                     f"by {err.max():.3e} > {tol}")
+            return float(err.max())
+        return check
+
+    return {"co_ref.lta": lbl, "co_ref.kta": ktable(0),
+            "co_ref.kta, 1 chunk": ktable(1),
+            "co_ref.kta, 3 chunks": ktable(3)}
+
+
+# float64 kernel against its plain version at the table shape: phase 7's
+# rtol 1e-10 down to TABLE_F64_DEPTH of each column's peak, and
+# TABLE_F64_RTOL below it. In the Doppler far wings of the 1e-6 and
+# 2.3e-6 atm columns (Voigt y ~ 1e-5 at |x| up to ~1e4) the real part of
+# the Faddeeva function cancels by ~x / y, and the two versions' rounding
+# differs there by up to 3.0e-10 (measured on an H100), at 1.6e-11 of
+# the column's peak; above 1e-6 of the peak they agree within 4.3e-11.
+TABLE_F64_DEPTH = 1.0e-6
+TABLE_F64_RTOL = 1.0e-9
+
+
+def table_f64_check(k, ref, what: str):
+    """float64 ``k`` against ``ref`` (NWAVE, NCOL): within
+    ``LBL_F64_RTOL`` at or above ``TABLE_F64_DEPTH`` of each column's
+    peak, within ``TABLE_F64_RTOL`` everywhere."""
+    err = (k - ref).abs() / ref.abs().clamp_min(1e-300)
+    deep = ref.abs() < TABLE_F64_DEPTH * ref.abs().max(dim=0).values
+    upper = err.masked_fill(deep, 0.0).max().item()
+    worst = err.max().item()
+    ok = upper <= LBL_F64_RTOL and worst <= TABLE_F64_RTOL
+    _print(f"{what}: float64 max rel {upper:.3e} at or above "
+           f"{TABLE_F64_DEPTH:.0e} of each column's peak (gate "
+           f"{LBL_F64_RTOL:.0e}), {worst:.3e} everywhere (gate "
+           f"{TABLE_F64_RTOL:.0e}; {int(deep.sum())} deeper elements) "
+           f"({'ok' if ok else 'FAIL'})")
+    if not ok:
+        raise AssertionError(f"{what}: float64 outside its gates")
+
+
+def table_kernel_case(ll, device, dtype):
+    """(lines, blocks, (t, p, amb) columns) of the production LBL table's
+    synthesis: kernel 2's shape in table generation, the 200 (P, T) pairs
+    as its layers."""
+    import torch
+
+    from archnemesis_tpu_torch.io.linedata import _slice_lines
+    from archnemesis_tpu_torch.ops.lbl import build_blocks
+    from archnemesis_tpu_torch.ops.tablegen import _pt_columns
+
+    lines = _slice_lines(ll, TABLE_WAVE.min(), TABLE_WAVE.max())
+    blocks = build_blocks(TABLE_WAVE, lines.nu)
+    pcol, tcol = _pt_columns(TABLE_PRESS, TABLE_TEMP)
+    cols = tuple(torch.as_tensor(c, dtype=dtype, device=device)
+                 for c in (tcol, pcol, np.ones_like(pcol)))
+    return lines, blocks, cols
+
+
+def _table_kernel_vs_plain(ll, card: str) -> dict:
+    """Kernel 2 against its plain version at the table-generation shape
+    (50,000 waves x 200 columns), in float64 and float32, and its time
+    beside its bound; returns the numbers."""
+    import torch
+
+    from archnemesis_tpu_torch.ops import lbl_cuda
+    from archnemesis_tpu_torch.ops.lbl import lbl_cross_section_plain
+
+    lines, blocks, cols = table_kernel_case(ll, "cuda", torch.float64)
+    k64, plain64 = lbl_kernel_and_plain(lines, blocks, *cols)
+    table_f64_check(k64, plain64, "table shape kernel vs plain")
+    cols32 = tuple(c.float() for c in cols)
+    k32, plain32 = lbl_kernel_and_plain(lines, blocks, *cols32)
+    _lbl_f32_check(k32, plain32, "table shape kernel vs plain (float32)")
+    # the float32 synthesis against float64 at 1e-6 atm and 70 K: held no
+    # further off than the plain float32 version plus phase 7's bound
+    r_kernel = rel_err(k32.double().cpu().numpy(), k64.cpu().numpy())
+    r_plain = rel_err(plain32.double().cpu().numpy(), k64.cpu().numpy())
+    _print(f"table shape float32 vs float64: kernel max rel "
+           f"{r_kernel.max():.3e} (median {np.median(r_kernel):.3e}), plain "
+           f"float32 version {r_plain.max():.3e} (median "
+           f"{np.median(r_plain):.3e})")
+    if not r_kernel.max() <= r_plain.max() + LBL_F32_BOUNDS[0]:
+        raise AssertionError("table shape: float32 kernel further off "
+                             "float64 than the plain float32 version plus "
+                             f"{LBL_F32_BOUNDS[0]:.0e}")
+    del plain32, k32
+    spec = lbl_cuda.make_spec(lines, blocks)
+    static = lbl_cuda.static_inputs(spec, torch.float64,
+                                    torch.device("cuda"))
+    ms = _cuda_ms(lambda: lbl_cuda._launch(spec, static, *cols),
+                  reps=TABLE_KERNEL_RUNS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lbl_cross_section_plain(lines, blocks, *cols)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    host = [c.cpu().numpy() for c in cols]
+    bound_ms, bound_by, ops = lbl_bound_ms(lines, blocks, *host, itemsize=8)
+    _print(f"kernel 2 at the table shape ({TABLE_WAVE.size} waves x "
+           f"{lines.n_lines} lines x {len(host[0])} (P, T) columns, float64, "
+           f"{card}): {ms:.4f} ms against its bound {bound_ms:.4f} ms "
+           f"({bound_by}, {ops:.4g} operations; {ms / bound_ms:.2f}x); the "
+           f"plain version {plain_ms:.3f} ms")
+    return dict(ms=ms, bound_ms=bound_ms, plain_ms=plain_ms)
+
+
+def _ktable_chunk_bounds(ll) -> float:
+    """Kernel 2's bound (ms) summed over the production k-table's chunk
+    syntheses, from their inputs."""
+    from archnemesis_tpu_torch.ops.lbl import build_blocks
+    from archnemesis_tpu_torch.ops.tablegen import chunk_grid
+
+    total = 0.0
+    for idx in np.array_split(np.arange(TABLE_BINS.size), TABLE_CHUNKS):
+        ll_c, wavecalc, pcol, tcol, *_ = chunk_grid(
+            ll, TABLE_PRESS, TABLE_TEMP, TABLE_BINS[idx], 1.0, 75.0,
+            2_000_000)
+        blocks = build_blocks(wavecalc, ll_c.nu)
+        total += lbl_bound_ms(ll_c, blocks, tcol, pcol, np.ones_like(pcol),
+                              itemsize=8)[0]
+    return total
+
+
+def _launched(fn):
+    """(fn(), kernel-2 launches it made, host ms to its end on the card)."""
+    import torch
+
+    from archnemesis_tpu_torch.ops import lbl_cuda
+
+    torch.cuda.synchronize()
+    lbl_cuda.lbl_cross_section.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, lbl_cuda.lbl_cross_section.launches,
+            (time.perf_counter() - t0) * 1e3)
+
+
+def phase_tablegen(card: str):
+    """Phase 22: table generation on kernel 2. The reference's tables, the
+    kernel against its plain version at the table shape, then one
+    production grid (an LBL table and a k-table). Returns (kernel-2
+    launches of the production grid, the table-shape numbers)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from archnemesis_tpu_torch.io.ktables import (
+        read_kta,
+        read_lta,
+        write_kta,
+        write_lta,
+    )
+    from archnemesis_tpu_torch.io.linedata import read_ans_linedata
+    from archnemesis_tpu_torch.ops.tablegen import (
+        generate_ktable_chunked,
+        generate_lbltable,
+    )
+
+    ll = read_ans_linedata(LINEDATA_NPZ, gas_id=5, iso_id=1)
+    for name, check in tablegen_golden_cases().items():
+        _print(f"{name} float64 on the card: reference table held (max "
+               f"error {check(ll, 'cuda'):.3e})")
+    shape = _table_kernel_vs_plain(ll, card)
+
+    def lbl_table():
+        return generate_lbltable(ll, TABLE_PRESS, TABLE_TEMP, TABLE_WAVE,
+                                 device="cuda")
+
+    def k_table():
+        return generate_ktable_chunked(ll, TABLE_PRESS, TABLE_TEMP,
+                                       TABLE_BINS, ng=TABLE_NG,
+                                       n_chunks=TABLE_CHUNKS, device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    k_lbl, lbl_launches, lbl_ms = _launched(lbl_table)
+    lbl_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    (k_g, g_ord, del_g), kta_launches, kta_ms = _launched(k_table)
+    kta_peak = torch.cuda.max_memory_allocated() / 2**30
+    if lbl_launches != 1 or kta_launches != TABLE_CHUNKS:
+        raise AssertionError(f"table generation: {lbl_launches} / "
+                             f"{kta_launches} launches, expected 1 / "
+                             f"{TABLE_CHUNKS}")
+    if not (torch.isfinite(k_lbl).all() and (k_lbl >= 0).all()
+            and torch.isfinite(k_g).all() and (k_g > 0).all()
+            and (k_g.diff(dim=1) >= 0).all()):
+        raise AssertionError("table generation: tables not finite, "
+                             "negative or unsorted along g")
+    with tempfile.TemporaryDirectory() as tmp:
+        write_lta(os.path.join(tmp, "co"), 5, 1, TABLE_PRESS, TABLE_TEMP,
+                  float(TABLE_WAVE[0]), 0.005, k_lbl)
+        write_kta(os.path.join(tmp, "co"), 5, 1, g_ord, del_g, TABLE_PRESS,
+                  TABLE_TEMP, TABLE_BINS, k_g)
+        back_lbl = read_lta(os.path.join(tmp, "co.lta"))
+        back_kta = read_kta(os.path.join(tmp, "co.kta"))
+    np.testing.assert_allclose(back_lbl.k[:, 0], k_lbl.cpu().numpy(),
+                               rtol=3e-7, atol=1e-37)
+    np.testing.assert_allclose(back_kta.k, k_g.cpu().numpy(), rtol=3e-7,
+                               atol=1e-37)
+    np.testing.assert_allclose(back_lbl.wave, TABLE_WAVE, rtol=0, atol=1e-3)
+
+    # the kernel's share of the k-table's device time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        k_table()
+        torch.cuda.synchronize()
+    by_kernel = {e.key: e.self_device_time_total / 1e3
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+    device_ms = sum(by_kernel.values())
+    kernel_ms = sum(v for k, v in by_kernel.items()
+                    if "line_kernel" in k or "pair_kernel" in k)
+    bound = _ktable_chunk_bounds(ll)
+    _print(f"production LBL table ({TABLE_WAVE.size} waves x "
+           f"{TABLE_PRESS.size} pressures x {TABLE_TEMP.size} temperatures, "
+           f"float64, {card}): {lbl_ms:.3f} ms, {lbl_launches} launch, peak "
+           f"memory {lbl_peak:.3f} GiB")
+    _print(f"production k-table ({TABLE_BINS.size} bins x {TABLE_NG} g x "
+           f"{TABLE_PRESS.size * TABLE_TEMP.size} (P, T), {TABLE_CHUNKS} "
+           f"chunks, float64, {card}): {kta_ms:.3f} ms, {kta_launches} "
+           f"launches, peak memory {kta_peak:.3f} GiB; device time "
+           f"{device_ms:.3f} ms of which kernel 2 {kernel_ms:.3f} ms (share "
+           f"{kernel_ms / device_ms:.4f}) against its bound {bound:.4f} ms "
+           f"summed over the chunks ({kernel_ms / bound:.2f}x); "
+           f"{sum(1 for _ in by_kernel)} kernel names")
+    _print(f"table generation: kernel 2 at the table shape {shape['ms']:.4f}"
+           f" ms (bound {shape['bound_ms']:.4f} ms)")
+    return lbl_launches + kta_launches, shape
+
+
 def main() -> int:
     import torch
 
@@ -3898,6 +4517,8 @@ def main() -> int:
     model_launches, model_tan_launches = phase_models(card, profile=profile)
     geom_launches, geom_tan_launches = phase_geometries(card)
     ns_launches = phase_nested(card)
+    phase_occultation(card)
+    table_launches, _ = phase_tablegen(card)
 
     kernels = [dict(
         name="overlap_combine",
@@ -3930,7 +4551,7 @@ def main() -> int:
         route="cuda",
         source="archnemesis_tpu_torch/csrc/lbl_cross_section.cu",
         replaces="archnemesis_tpu/ops/lbl_pallas.py:228",
-        launches=lbl_launches,
+        launches=lbl_launches + table_launches,
         max_abs_err=lbl_record["max_abs_err"],
         ms=lbl_record["ms"],
         plain_ms=lbl_record["plain_ms"],

@@ -210,6 +210,45 @@ def np64(x):
 
 FDRET = "tests/fixtures/jupiter_fdret"
 
+# computed on read (molwt, gravity radius, unit conversions, cia amagat
+# scaling); everything else is parsed text and must be equal
+COMPUTED = {"molwt", "radius", "k_cia"}
+
+
+def assert_same_structure(got, want, name):
+    """A port structure (tensors) field by field against the JAX package's
+    (numpy): equal, or within rtol 1e-12 for the fields in ``COMPUTED``;
+    nested structures (Hapke blocks) compared the same way."""
+    if want is None:
+        assert got is None, name
+        return
+    for f in dataclasses.fields(want):
+        w = getattr(want, f.name)
+        if not hasattr(got, f.name):
+            assert w is None, f"{name}.{f.name} not carried"
+            continue
+        g = getattr(got, f.name)
+        label = f"{name}.{f.name}"
+        if w is None:
+            assert g is None, label
+        elif dataclasses.is_dataclass(w):
+            assert_same_structure(g, w, label)
+        elif isinstance(g, torch.Tensor) or isinstance(w, np.ndarray) \
+                or hasattr(w, "__array__"):
+            g, w = np64(g), np.asarray(w, dtype=np.float64)
+            assert g.shape == w.shape, label
+            if f.name in COMPUTED:
+                np.testing.assert_allclose(g, w, rtol=1e-12, err_msg=label)
+            else:
+                np.testing.assert_array_equal(g, w, err_msg=label)
+        elif isinstance(w, (tuple, list)) and w and hasattr(w[0], "__array__"):
+            for gi, wi in zip(g, w):
+                np.testing.assert_array_equal(np64(gi), np.asarray(wi))
+        else:
+            # enums compare by value across the two packages
+            assert (int(g) if hasattr(g, "value") else g) == \
+                (int(w) if hasattr(w, "value") else w), label
+
 
 def flat_deck(deck) -> dict:
     """A JAX ``Deck``'s fields for ``convert.deck``: the component
@@ -277,6 +316,18 @@ def write_linedata_export(path: str = LINEDATA_NPZ):
     from archnemesis_tpu_torch.io.linedata import export_ans_linedata
 
     export_ans_linedata(LINE_H5, path, gas_id=5, iso_id=1, ambient="AIR")
+
+
+SO_H5 = "tests/fixtures/mars_so/mars_solocc.h5"
+
+
+def write_deck_export(path: str = chip_smoke.SO_EXPORT):
+    """Write the ``.npz`` export of the Mars solar-occultation run file
+    (``archnemesis_tpu_torch/data/mars_solocc.npz``, read on machines
+    without h5py) from the HDF5 fixture."""
+    from archnemesis_tpu_torch.io.hdf5 import export_deck_hdf5
+
+    export_deck_hdf5(SO_H5, path)
 
 
 def lbl_voigt_grid(n: int = 4000, seed: int = 0):

@@ -4,7 +4,6 @@ rtol 1e-12 for what is computed on read), the carried-across deck of
 ``convert.deck``, and the branches that raise until their slices are
 ported."""
 
-import dataclasses
 import os
 
 import numpy as np
@@ -17,39 +16,13 @@ from archnemesis_tpu_torch import convert
 from archnemesis_tpu_torch.io import legacy
 from archnemesis_tpu_torch.io.ktables import _resolve_path
 from archnemesis_tpu_torch.utils import datafiles, path_redirect
-from port_cases import DECK, FDRET, copy_deck, flat_deck, np64
-
-# computed on read (molwt, gravity radius, unit conversions, cia amagat
-# scaling); everything else is parsed text and must be equal
-COMPUTED = {"molwt", "radius", "k_cia"}
-
-
-def _assert_same_structure(got, want, name):
-    for f in dataclasses.fields(want):
-        w = getattr(want, f.name)
-        if not hasattr(got, f.name):
-            assert w is None, f"{name}.{f.name} not carried"
-            continue
-        g = getattr(got, f.name)
-        label = f"{name}.{f.name}"
-        if w is None:
-            assert g is None, label
-        elif isinstance(g, torch.Tensor) or isinstance(w, np.ndarray) \
-                or hasattr(w, "__array__"):
-            g, w = np64(g), np.asarray(w, dtype=np.float64)
-            assert g.shape == w.shape, label
-            if f.name in COMPUTED:
-                np.testing.assert_allclose(g, w, rtol=1e-12, err_msg=label)
-            else:
-                np.testing.assert_array_equal(g, w, err_msg=label)
-        elif isinstance(w, (tuple, list)) and w and hasattr(w[0], "__array__"):
-            for gi, wi in zip(g, w):
-                np.testing.assert_array_equal(np64(gi), np.asarray(wi))
-        else:
-            # enums compare by value across the two packages
-            assert (int(g) if hasattr(g, "value") else g) == \
-                (int(w) if hasattr(w, "value") else w), label
-
+from port_cases import (
+    DECK,
+    FDRET,
+    assert_same_structure as _assert_same_structure,
+    copy_deck,
+    flat_deck,
+)
 
 @pytest.fixture(scope="module", params=[DECK, FDRET],
                 ids=["jupiter_nadir", "jupiter_fdret"])
@@ -137,21 +110,31 @@ def test_sur_and_vpf_blocks(tmp_path_factory):
 
 
 def test_unported_branches_raise(tmp_path_factory):
-    """A ``.lls`` of ``.lta`` tables raises with its ROADMAP item under
-    ILBL=2; under ILBL=1 the file is read as a runtime ``.lls`` and, having
-    no WAVE line, refused as the JAX package refuses it."""
+    """A ``.lls`` of ``.lta`` tables (ILBL = 2, which raised before item 4
+    was ported): the Titan deck's line-by-line table read as the JAX
+    package reads it, every field of the deck. Under ILBL = 1 the same
+    kind of file is read as a runtime ``.lls`` and, having no WAVE line,
+    refused as the JAX package refuses it; ``read_drv`` is still
+    unported (item 9)."""
+    got = legacy.load_deck("tests/fixtures/titan_fov", "ch3cn")
+    want = jax_load_deck("tests/fixtures/titan_fov", "ch3cn")
+    assert int(got.settings.ilbl) == 2 and got.ktables.k.shape[2] == 1
+    for part in ("atmosphere", "layer_config", "geometry", "settings",
+                 "ktables", "cia", "aerosol", "surface"):
+        _assert_same_structure(getattr(got, part), getattr(want, part), part)
+    assert got.table_locations == want.table_locations
+    assert got.ktables.k.device.type == "cpu"
+
     d = copy_deck(tmp_path_factory, "lbldeck")
     inp = os.path.join(d, "cirstest.inp")
     lines = open(inp).read().splitlines()
     first = lines[0].split()
-    for ilbl, error, match in ((1, ValueError, "must define WAVE"),
-                               (2, NotImplementedError, "Queue 1 item 4")):
-        first[2] = str(ilbl)
-        lines[0] = " ".join(first)
-        open(inp, "w").write("\n".join(lines) + "\n")
-        open(os.path.join(d, "cirstest.lls"), "w").write("x.lta\n")
-        with pytest.raises(error, match=match):
-            legacy.load_deck(d, "cirstest")
+    first[2] = "1"
+    lines[0] = " ".join(first)
+    open(inp, "w").write("\n".join(lines) + "\n")
+    open(os.path.join(d, "cirstest.lls"), "w").write("x.lta\n")
+    with pytest.raises(ValueError, match="must define WAVE"):
+        legacy.load_deck(d, "cirstest")
     assert not hasattr(legacy, "read_drv")
 
 

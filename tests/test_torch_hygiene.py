@@ -48,6 +48,33 @@ def test_source_imports_no_jax(path):
     assert not _imported_roots(path.read_text()) & FORBIDDEN
 
 
+def _module_level_roots(source):
+    """Top-level names imported outside any function body."""
+    roots = set()
+
+    def visit(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                roots.update(a.name.split(".")[0] for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                roots.add(child.module.split(".")[0])
+            visit(child)
+
+    visit(ast.parse(source))
+    return roots
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_h5py_only_inside_functions(path):
+    """The card's machine has no h5py: the port imports it only inside the
+    functions that read a ``.h5`` file."""
+    assert "h5py" not in _module_level_roots(path.read_text())
+
+
 def test_scan_sees_forbidden_imports():
     src = ("import jax.numpy\nfrom archnemesis_tpu.ops import x\n"
            "import archnemesis_tpu_torch.ops\n")
@@ -124,6 +151,37 @@ def test_retrieval_entry_points_raise_without_cuda(no_cuda, tmp_path):
     setup = make_retrieval_setup(deck, "cirstest", device="cpu")
     assert setup.device.type == "cpu"
     assert setup.deck.ktables.k.device.type == "cpu"
+
+
+def test_slice_entry_points_raise_without_cuda(no_cuda):
+    """The SO and transit set-ups and table generation run on the card
+    unless asked for the CPU; the HDF5 loader is host-only."""
+    import chip_smoke
+    from archnemesis_tpu_torch.io.hdf5 import load_deck_hdf5
+    from archnemesis_tpu_torch.io.linedata import read_ans_linedata
+    from archnemesis_tpu_torch.ops.tablegen import (
+        generate_ktable,
+        generate_ktable_chunked,
+        generate_lbltable,
+    )
+    from archnemesis_tpu_torch.retrievals import (
+        make_retrieval_setup_so,
+        make_retrieval_setup_transit,
+    )
+
+    deck, run = chip_smoke.SO_DECK, chip_smoke.SO_RUN
+    for entry in (make_retrieval_setup_so, make_retrieval_setup_transit):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(deck, run, deck_file=chip_smoke.SO_EXPORT)
+    ll = read_ans_linedata(chip_smoke.LINEDATA_NPZ, 5, 1)
+    grid = (np.array([0.1]), np.array([200.0]), np.arange(2140.0, 2141.0,
+                                                          0.5))
+    for entry, kw in ((generate_lbltable, {}), (generate_ktable, {"ng": 2}),
+                      (generate_ktable_chunked, {"ng": 2})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(ll, *grid, **kw)
+    loaded = load_deck_hdf5(chip_smoke.SO_EXPORT, base_dir=deck)
+    assert loaded.ktables.k.device.type == "cpu"
 
 
 def test_forward_nadir_on_numpy_inputs(no_cuda):

@@ -1,10 +1,10 @@
 """The limb set-ups of the PyTorch port beyond ``jupiter_limb`` itself
 (``tests/test_torch_limb.py``): a limb FOV point (EMISS_ANG < 0) of the
 nadir set-up against the JAX package's set-up on the same deck, its
-scattering and HDF5 guards, and ``retrieval_nemesis(nemesis_l=True)``."""
+scattering guard, the limb set-up on an HDF5 run file, and
+``retrieval_nemesis(nemesis_l=True)``."""
 
 import os
-import shutil
 
 import jax
 import jax.numpy as jnp
@@ -79,8 +79,27 @@ def test_limb_retrieval_one_iteration(tmp_path_factory):
 
 
 def test_hdf5_limb_deck_raises(tmp_path_factory):
+    """An HDF5 run file (which raised before item 4 was ported): the JAX
+    package's ``write_deck_hdf5`` of ``jupiter_limb`` in a copy of the
+    deck. Both packages read it alike, field by field, and the limb set-up
+    on it gives the legacy deck's spectrum (held to the JAX set-up in
+    tests/test_torch_limb.py) within 1e-12."""
+    from archnemesis_tpu.io.hdf5 import load_deck_hdf5 as jax_load_h5
+    from archnemesis_tpu.io.hdf5 import write_deck_hdf5
+    from archnemesis_tpu.io.legacy import load_deck as jax_load_deck
+    from archnemesis_tpu_torch.io.hdf5 import load_deck_hdf5
+    from port_cases import assert_same_structure
+
     d = copy_deck(tmp_path_factory, "limbh5", deck=DECK)
-    shutil.copy(os.path.join(d, "cirstest.spx"),
-                os.path.join(d, "cirstest.h5"))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        make_retrieval_setup_limb(d, "cirstest", device="cpu")
+    h5 = os.path.join(d, "cirstest.h5")
+    write_deck_hdf5(h5, jax_load_deck(d, "cirstest"))
+    got, want = load_deck_hdf5(h5), jax_load_h5(h5)
+    for part in ("atmosphere", "layer_config", "geometry", "settings",
+                 "ktables", "cia", "aerosol", "surface", "stellar"):
+        assert_same_structure(getattr(got, part), getattr(want, part), part)
+    setup = make_retrieval_setup_limb(d, "cirstest", device="cpu")
+    assert setup.deck.apr_path == os.path.join(d, "cirstest.apr")
+    legacy = make_retrieval_setup_limb(DECK, "cirstest", device="cpu")
+    np.testing.assert_allclose(setup.forward_fn(setup.sv.xa).numpy(),
+                               legacy.forward_fn(legacy.sv.xa).numpy(),
+                               rtol=1e-12, atol=0)

@@ -179,7 +179,8 @@ def test_unported_branches_raise(tmp_path_factory):
     lines = open(inp).read().splitlines()
     lines[7] = "2"  # IFORM = TransitDepth, a unit of the transit set-up
     open(inp, "w").write("\n".join(lines) + "\n")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
+    with pytest.raises(NotImplementedError,
+                       match="make_retrieval_setup_transit"):
         make_retrieval_setup(d, "cirstest", device="cpu")
 
 

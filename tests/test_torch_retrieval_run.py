@@ -10,6 +10,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from archnemesis_tpu.retrieval import output as jax_out
 from archnemesis_tpu_torch.retrieval import output as port_out
@@ -155,17 +156,37 @@ def test_run_retrieval(result):
     assert setup.deck.settings.niter == -1 and res.n_iter == 0
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(nemesis_so=True), "item 5b"), (dict(nemesis_pt=True), "item 5b"),
-])
-def test_unported_setups_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        retrieval_nemesis("tests/fixtures/jupiter_fdret", "cirstest",
-                          device="cpu", **kw)
-
-
 class _Dispatched(Exception):
     pass
+
+
+@pytest.mark.parametrize("kw,target", [
+    (dict(nemesis_so=True), "make_retrieval_setup_so"),
+    (dict(nemesis_pt=True), "make_retrieval_setup_transit"),
+])
+def test_unported_setups_raise(monkeypatch, kw, target):
+    """``nemesis_so`` and ``nemesis_pt`` (which raised before item 5b was
+    ported) reach the SO and transit set-ups, as the JAX package dispatches
+    them (retrievals.py:1295-1297), with the device, the dtype and the run
+    file (``deck_file``); the set-ups run in
+    tests/test_torch_{so,transit}.py."""
+    from archnemesis_tpu_torch import retrievals
+
+    seen = {}
+
+    def stop(*args, **kwargs):
+        seen.update(kwargs)
+        raise _Dispatched
+
+    monkeypatch.setattr(retrievals, target, stop)
+    with pytest.raises(_Dispatched):
+        retrieval_nemesis("tests/fixtures/mars_so", "mars_solocc",
+                          device="cpu", dtype=torch.float32,
+                          write_outputs=False, deck_file="run.npz", **kw)
+    assert seen == dict(device="cpu", dtype=torch.float32,
+                        deck_file="run.npz")
+
+
 
 
 @pytest.mark.parametrize("kw,target", [
