@@ -21,6 +21,7 @@ import enum
 import numpy as np
 import torch
 
+from archnemesis_tpu_torch.core.emissions import EmissionTables
 from archnemesis_tpu_torch.core.spectra import (
     AerosolOptics,
     CIATables,
@@ -30,7 +31,11 @@ from archnemesis_tpu_torch.core.spectra import (
     SurfaceSpec,
 )
 from archnemesis_tpu_torch.core.types import Atmosphere, LayerConfig
-from archnemesis_tpu_torch.enums import RayleighScatteringMode, WaveUnit
+from archnemesis_tpu_torch.enums import (
+    EmissionType,
+    RayleighScatteringMode,
+    WaveUnit,
+)
 from archnemesis_tpu_torch.forward import ForwardConfig
 from archnemesis_tpu_torch.io.legacy import Deck, Geometry, RunSettings
 from archnemesis_tpu_torch.io.linedata import LineList, RuntimeLBL
@@ -38,6 +43,7 @@ from archnemesis_tpu_torch.models.base import ModelEntry, ProfileTarget
 from archnemesis_tpu_torch.ops.lbl import LblBlocks
 from archnemesis_tpu_torch.ops.pseudo_continuum import PseudoContinuum
 from archnemesis_tpu_torch.retrieval.statevector import StateVector
+from archnemesis_tpu_torch.rt.telluric import Telluric
 from archnemesis_tpu_torch.utils.device import resolve_device
 from archnemesis_tpu_torch.utils.pytree import tensor_fields
 
@@ -70,6 +76,39 @@ def _build(cls, fields: dict, device):
 
 def atmosphere(fields: dict, device=None) -> Atmosphere:
     return _build(Atmosphere, fields, device)
+
+
+def stacked_atmosphere(fields: dict, device=None) -> Atmosphere:
+    """A multi-location Atmosphere (the JAX package's
+    ``core.types.stack_atmospheres``: a leading (NLOCATIONS,) axis on every
+    profile field) of the port; every set field must carry that axis."""
+    atm = atmosphere(fields, device=device)
+    nloc = {tuple(getattr(atm, n).shape[:1])
+            for n in tensor_fields(Atmosphere) if getattr(atm, n) is not None}
+    if len(nloc) != 1 or atm.h.ndim != 2:
+        raise ValueError(f"not a stacked atmosphere: leading axes {nloc}")
+    return atm
+
+
+def emission_tables(fields: dict, device=None) -> EmissionTables:
+    """EmissionTables of the port; the emission types and the spectral
+    unit are rebuilt as the port's enums."""
+    fields = dict(fields)
+    fields["emtype"] = tuple(EmissionType(int(t)) for t in fields["emtype"])
+    return _build(EmissionTables, fields, device)
+
+
+def telluric(fields: dict, device=None) -> Telluric:
+    """Telluric of the port from the JAX one's fields: its Earth
+    atmosphere and k-tables (JAX structures or dicts of their fields)
+    carried across, the altitude and angle as host numbers."""
+    return Telluric(
+        atm=atmosphere(_fields_of(fields["atm"]), device=device),
+        ktables=ktables(_fields_of(fields["ktables"]), device=device),
+        altitude=float(np.asarray(fields["altitude"])),
+        emiss_ang=float(np.asarray(fields["emiss_ang"])),
+        nlay=int(fields.get("nlay", 31)),
+    )
 
 
 def layer_config(fields: dict) -> LayerConfig:
@@ -216,6 +255,7 @@ def deck(fields: dict, device=None) -> Deck:
     makers = dict(
         atmosphere=atmosphere, ktables=ktables, cia=cia_tables,
         aerosol=aerosol_optics, surface=surface_spec, stellar=stellar_spec,
+        telluric=telluric,
     )
     kw = {}
     for name, v in fields.items():

@@ -63,6 +63,33 @@ class Atmosphere:
         return self.dust.shape[1]
 
 
+def stack_atmospheres(atms) -> Atmosphere:
+    """Stack single-location Atmospheres into one multi-location
+    Atmosphere with a leading (NLOCATIONS,) axis on every profile field
+    (the reference's NLOCATIONS mode, Atmosphere_0.py:164-182, 2D (NP,
+    NLOCATIONS) arrays): ``multiloc.forward_nadir_multiloc`` vmaps the
+    forward over that axis, and model 1002 scales along it. The host
+    metadata must match across locations."""
+    import dataclasses
+
+    import torch
+
+    from archnemesis_tpu_torch.utils.pytree import tensor_fields
+
+    a0 = atms[0]
+    for a in atms[1:]:
+        if (a.gas_id, a.iso_id, a.planet, a.amform) != (
+                a0.gas_id, a0.iso_id, a0.planet, a0.amform):
+            raise ValueError("atmospheres must share static metadata")
+    stacked = {}
+    for name in tensor_fields(Atmosphere):
+        values = [getattr(a, name) for a in atms]
+        stacked[name] = (None if values[0] is None
+                         else torch.stack([torch.as_tensor(v)
+                                           for v in values]))
+    return dataclasses.replace(a0, **stacked)
+
+
 @tensor_dataclass
 class LayerConfig:
     """Layering scheme (reference ``Layer_0`` settings); all host metadata."""

@@ -187,7 +187,9 @@ def make_forward_config(
         elif g == 2 and s in (0, 1):
             ico2 = i
 
-    del_g = torch.as_tensor(ktab.del_g).detach().cpu().numpy()
+    # .tolist(): a host read that also works inside torch.func transforms
+    # (the telluric transmission builds its configuration there)
+    del_g = torch.as_tensor(ktab.del_g).detach().cpu().tolist()
     return ForwardConfig(
         ispace=WaveUnit(ispace),
         iray=RayleighScatteringMode(iray),
@@ -379,9 +381,14 @@ def path_spectrum(
     path: Paths,
     surf: Optional[SurfaceSpec],
     del_g,
+    emission_layer=None,
 ):
     """LOS accumulation + IMOD dispatch + g integration (reference CIRSrad
-    ForwardModel_0.py:4376-4508). Returns (NWAVE, NPATH)."""
+    ForwardModel_0.py:4376-4508). Returns (NWAVE, NPATH).
+
+    ``emission_layer``: optional (NWAVE, NLAY) non-LTE per-layer emitted
+    radiance (``ops.emissions.layer_emission``), gathered onto the path as
+    tau is (reference EMITOT_LAYINC ForwardModel_0.py:4095)."""
     tau_layinc = (
         tautot[:, :, path.layinc] * path.scale[None, None, :, :]
     )  # (NWAVE, NG, NLAYIN, NPATH)
@@ -393,6 +400,10 @@ def path_spectrum(
         else:
             emissivity = torch.zeros_like(wave)
             tsurf = wave.new_tensor(-1.0)
+        emission_path = None
+        if emission_layer is not None:
+            emission_path = (emission_layer[:, path.layinc]
+                             * path.scale[None, :, :])  # (NWAVE, NLAYIN, NPATH)
         spec = thermal_emission_spectrum(
             wave,
             tau_layinc,
@@ -403,6 +414,7 @@ def path_spectrum(
             path.surface_visible,
             cfg.gasgiant,
             ispace=cfg.ispace,
+            emission_path=emission_path,
         )
     elif PathCalc.ABSORBTION in path.imod:
         # 1 - transmission, useful for small transmissions (reference
@@ -450,12 +462,20 @@ def forward_nadir(
     emiss_ang,
     sol_ang=180.0,
     azi_ang=0.0,
+    emis=None,
+    emis_gas_cols=(),
+    emis_dist=None,
     return_diagnostics: bool = False,
     device=None,
 ):
     """One nadir-geometry thermal-emission forward evaluation on the
     k-table (or runtime line-by-line) wave grid (reference nemesisfm for a
     single (IGEOM, IAV) + CIRSrad). Returns the (NWAVE, 1) spectrum.
+
+    ``emis``/``emis_gas_cols``/``emis_dist``: optional non-LTE emission
+    tables (``core.emissions.EmissionTables``), the atmosphere column of
+    each emission's gas (``ops.emissions.locate_emission_gases``) and the
+    planet-star distance in AU (None without a stellar spectrum).
 
     Wave-sharded tables (``parallel/mesh.py:shard_ktables_by_wave``,
     ``parallel/sharded.py:shard_runtime_lbl``) run every per-wave stage on
@@ -467,8 +487,8 @@ def forward_nadir(
     host and its synthesis runs on ``device``.
     """
     device = resolve_device(device)
-    atm, ktab, cia, aero, surf = _structures_to(device, atm, ktab, cia, aero,
-                                                surf)
+    atm, ktab, cia, aero, surf, emis = _structures_to(device, atm, ktab, cia,
+                                                      aero, surf, emis)
 
     layers = apply_dust_renorm(build_layers(atm, laycfg, layang=0.0), atm)
     path = nadir_path(
@@ -482,7 +502,15 @@ def forward_nadir(
     )
     wave, del_g = _calc_grid(ktab, layers)
     taus = layer_optical_depths(cfg, layers, wave, ktab, cia, aero)
-    spec = path_spectrum(cfg, wave, taus["tautot"], path, surf, del_g)
+    emission_layer = None
+    if emis is not None:
+        from archnemesis_tpu_torch.ops.emissions import layer_emission
+
+        emission_layer = layer_emission(emis, wave, layers.temp,
+                                        layers.amount, emis_gas_cols,
+                                        dist=emis_dist)
+    spec = path_spectrum(cfg, wave, taus["tautot"], path, surf, del_g,
+                         emission_layer=emission_layer)
     if ktab.wave_slice is not None:
         # wave-sharded tables: every stage above ran on this rank's waves;
         # the spectrum is gathered once, before the instrument function

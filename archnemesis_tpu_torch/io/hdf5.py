@@ -2,14 +2,14 @@
 layout, one group per component: Files.read_input_files_hdf5 Files.py:114
 and the per-class read_hdf5 methods, e.g. Atmosphere_0.py:490).
 
-Port of the read side of the JAX package's ``io/hdf5.py``. Units in the
-HDF5 format are SI already (H in m, P in Pa), unlike the legacy text decks.
-The loader is host-only and returns float64 CPU tensors, as
-``io.legacy.load_deck`` does.
+Port of the JAX package's ``io/hdf5.py``. Units in the HDF5 format are SI
+already (H in m, P in Pa), unlike the legacy text decks. The loader is
+host-only and returns float64 CPU tensors, as ``io.legacy.load_deck`` does.
 
 A machine without ``h5py`` reads the ``.npz`` export of a run file
 (``export_deck_hdf5``: every dataset under its ``Group/NAME`` key, the
-table locations as written); ``h5py`` is imported only to read a ``.h5``.
+table locations as written); ``h5py`` is imported only to read or write a
+``.h5`` (``write_deck_hdf5`` needs it).
 """
 
 from __future__ import annotations
@@ -38,11 +38,13 @@ from archnemesis_tpu_torch.io.cia import read_cia_h5, read_cia_tab
 from archnemesis_tpu_torch.io.ktables import _resolve_path, read_kta, read_lta
 from archnemesis_tpu_torch.io.legacy import Deck, Geometry, RunSettings
 from archnemesis_tpu_torch.io.stellar import stellar_from_group
+from archnemesis_tpu_torch.models.base import host_array
 from archnemesis_tpu_torch.rt.atmosphere import (
     calc_grav,
     calc_molwt,
     gas_molwt_per_column,
 )
+from archnemesis_tpu_torch.rt.telluric import Telluric
 from archnemesis_tpu_torch.utils.datafiles import data_path
 
 
@@ -232,6 +234,19 @@ def _read_surface(su) -> SurfaceSpec:
     )
 
 
+def _read_telluric(tg, base_dir):
+    """Telluric group (reference Telluric_0.read_hdf5:141): a nested
+    Atmosphere and Spectroscopy, the observatory's ALTITUDE [m] and
+    EMISS_ANG; the tables resolve against ``base_dir`` as the run's do."""
+    ktab, _ = _read_tables(tg["Spectroscopy"], base_dir)
+    return Telluric(
+        atm=_read_atmosphere_group(tg["Atmosphere"]),
+        ktables=ktab,
+        altitude=_scalar(tg, "ALTITUDE", float, 0.0),
+        emiss_ang=_scalar(tg, "EMISS_ANG", float, 180.0),
+    )
+
+
 def load_deck_hdf5(path: str, base_dir: str | None = None) -> Deck:
     """Load a ``runname.h5`` run, or its ``.npz`` export, into the port's
     structures as float64 CPU tensors. Relative table and CIA locations
@@ -240,10 +255,6 @@ def load_deck_hdf5(path: str, base_dir: str | None = None) -> Deck:
     f = read_run_groups(path)
     if base_dir is None:
         base_dir = os.path.dirname(os.path.abspath(path))
-    if "Telluric" in f:
-        raise NotImplementedError(
-            "the HDF5 Telluric group (telluric transmission): not ported "
-            "yet (rt/telluric.py, ROADMAP Queue 1 item 9)")
 
     atm = _read_atmosphere_group(f["Atmosphere"])
     ly = f["Layer"]
@@ -268,6 +279,9 @@ def load_deck_hdf5(path: str, base_dir: str | None = None) -> Deck:
         kext = _floats(sc, "KEXT")
         aero = AerosolOptics(wave=_t(_floats(sc, "WAVE")), kext=_t(kext),
                              ksca=_t(_floats(sc, "SGLALB") * kext))
+    telluric = None
+    if "Telluric" in f:
+        telluric = _read_telluric(f["Telluric"], base_dir)
     surf = _read_surface(f.get("Surface"))
     rt = f.get("Retrieval")
     stellar = stellar_from_group(f.get("Stellar"))
@@ -294,6 +308,113 @@ def load_deck_hdf5(path: str, base_dir: str | None = None) -> Deck:
     return Deck(
         atmosphere=atm, layer_config=laycfg, geometry=geom,
         settings=settings, ktables=ktab, cia=cia, aerosol=aero,
-        surface=surf, stellar=stellar, apr_path=None,
+        surface=surf, stellar=stellar, apr_path=None, telluric=telluric,
         table_locations=_locations(f["Spectroscopy"]), cia_table=cia_table,
     )
+
+
+def write_deck_hdf5(path: str, deck: Deck) -> None:
+    """Write a Deck as a single ``runname.h5`` run file that
+    ``load_deck_hdf5`` of either package reads: the legacy->HDF5
+    conversion (reference Files.write_input_files_hdf5 through the
+    per-class write_hdf5 methods, e.g. Atmosphere_0.write_hdf5:414,
+    Measurement_0.write_hdf5:475); the JAX package's ``write_deck_hdf5``
+    group for group. Spectral tables and CIA stay external files; the run
+    file stores their locations. Needs h5py."""
+    import h5py
+
+    from archnemesis_tpu_torch.io.stellar import write_stellar_hdf5
+
+    st = deck.settings
+    atm = deck.atmosphere
+    g = deck.geometry
+    lc = deck.layer_config
+    with h5py.File(path, "w") as f:
+        a = f.create_group("Atmosphere")
+        a["H"] = host_array(atm.h)
+        a["P"] = host_array(atm.p)
+        a["T"] = host_array(atm.t)
+        a["VMR"] = host_array(atm.vmr)
+        if atm.ndust > 0:
+            a["DUST"] = host_array(atm.dust)
+        a["ID"] = np.asarray(atm.gas_id, dtype=np.int32)
+        a["ISO"] = np.asarray(atm.iso_id, dtype=np.int32)
+        a["AMFORM"] = int(atm.amform)
+        if int(atm.amform) == 0:
+            a["MOLWT"] = host_array(atm.molwt)
+        a["IPLANET"] = int(atm.planet)
+        a["LATITUDE"] = float(host_array(atm.latitude))
+
+        ly = f.create_group("Layer")
+        ly["NLAY"] = int(lc.nlay)
+        ly["LAYTYP"] = int(lc.laytyp)
+        ly["LAYINT"] = int(lc.layint)
+        ly["LAYHT"] = float(lc.layht)
+        if lc.h_base is not None:
+            ly["H_base"] = host_array(lc.h_base)
+        if lc.p_base is not None:
+            ly["P_base"] = host_array(lc.p_base)
+
+        m = f.create_group("Measurement")
+        m["NGEOM"] = int(g.ngeom)
+        m["NCONV"] = np.asarray(g.nconv, dtype=np.int32)
+        m["NAV"] = np.asarray(g.nav, dtype=np.int32)
+        # VCONV already carries any .spx offset; WOFF=0 keeps a round trip
+        # from applying it twice
+        m["WOFF"] = 0.0
+        for key, v in (("VCONV", g.vconv), ("MEAS", g.meas),
+                       ("ERRMEAS", g.errmeas), ("FLAT", g.flat),
+                       ("FLON", g.flon), ("SOL_ANG", g.sol_ang),
+                       ("EMISS_ANG", g.emiss_ang), ("AZI_ANG", g.azi_ang),
+                       ("WGEOM", g.wgeom)):
+            m[key] = host_array(v)
+        if g.tanhe is not None:
+            m["TANHE"] = host_array(g.tanhe)
+        m["FWHM"] = float(g.fwhm)
+        m["LATITUDE"] = float(g.latitude)
+        m["LONGITUDE"] = float(g.longitude)
+        m["ISHAPE"] = int(st.ishape)
+        m["ISPACE"] = int(st.ispace)
+        m["IFORM"] = int(st.iform)
+        m["V_DOPPLER"] = float(st.v_doppler)
+        if st.vnorm is not None:
+            m["VNORM"] = float(st.vnorm)
+
+        sp = f.create_group("Spectroscopy")
+        sp["ILBL"] = int(st.ilbl)
+        sp["LOCATION"] = np.asarray(
+            [s.encode() for s in (deck.table_locations or ())])
+
+        if deck.cia_table is not None:
+            cg = f.create_group("CIA")
+            name, dnu, npara = deck.cia_table
+            cg["CIATABLE"] = name.encode()
+            cg["DNU"] = float(dnu)
+            cg["NPARA"] = int(npara)
+            cg["INORMAL"] = int(st.inormal)
+
+        sc = f.create_group("Scatter")
+        for key in ("iray", "imie", "iscat", "nmu", "nf", "nphi"):
+            sc[key.upper()] = int(getattr(st, key))
+        if deck.aerosol is not None:
+            sc["WAVE"] = host_array(deck.aerosol.wave)
+            kext = host_array(deck.aerosol.kext)
+            ksca = host_array(deck.aerosol.ksca)
+            sc["KEXT"] = kext
+            with np.errstate(invalid="ignore", divide="ignore"):
+                sc["SGLALB"] = np.where(kext > 0, ksca / kext, 0.0)
+
+        if deck.surface is not None:
+            su = f.create_group("Surface")
+            su["TSURF"] = float(host_array(deck.surface.tsurf))
+            su["VEM"] = host_array(deck.surface.vem)
+            su["EMISSIVITY"] = host_array(deck.surface.emissivity)
+            su["GALB"] = float(host_array(deck.surface.galb))
+            su["LOWBC"] = int(deck.surface.lowbc)
+
+        rt = f.create_group("Retrieval")
+        rt["NITER"] = int(st.niter)
+        rt["PHILIMIT"] = float(st.philimit)
+
+    if deck.stellar is not None:
+        write_stellar_hdf5(path, deck.stellar)

@@ -9,7 +9,8 @@ read_spx; Scatter_0.py:559 read_xsc; CIA_0.py:323 read_cia). The loader is
 host-only: the structures it returns hold float64 CPU tensors (a runtime
 line-by-line deck's ``RuntimeLBL``, float64 numpy), and the entry points
 that compute (``retrievals.make_retrieval_setup``) move them to the card.
-``read_drv``/``write_drv`` wait (ROADMAP Queue 1 item 9).
+``read_drv``/``write_drv`` read and write Fortran-NEMESIS path
+files (host code).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from archnemesis_tpu_torch.enums import (
 from archnemesis_tpu_torch.io.cia import read_cia_h5, read_cia_tab
 from archnemesis_tpu_torch.io.ktables import read_kls, read_lls
 from archnemesis_tpu_torch.io.linedata import read_lls_runtime
+from archnemesis_tpu_torch.models.base import host_array
 from archnemesis_tpu_torch.rt.atmosphere import (
     calc_grav,
     calc_molwt,
@@ -576,3 +578,187 @@ def load_deck(deck_dir: str, runname: str) -> Deck:
         )
     finally:
         os.chdir(cwd)
+
+
+def read_drv(path):
+    """Read a Fortran-NEMESIS ``.drv`` path file (reference
+    Files.py:873 read_drv): layering, per-path LAYINC/EMTEMP/SCALE and the
+    calculation list. Returns a dict of host numpy arrays in the file's
+    units (km, atm, cm^-2); LAYINC is converted to 0-based indexing as the
+    reference does."""
+    with open(path) as f:
+        lines = iter(f.read().splitlines())
+
+    def nxt():
+        return next(lines).split()
+
+    nxt()  # header
+    nxt()  # var1
+    nxt()  # var2
+    nxt()  # linkey
+    iconv, flagh2p, ncont, flagc = (int(x) for x in nxt()[:4])
+    nxt()  # xsc file name
+    v = nxt()
+    nlayer, npath, ngas = int(v[0]), int(v[1]), int(v[2])
+
+    gas_id = np.zeros(ngas, dtype=np.int32)
+    iso_id = np.zeros(ngas, dtype=np.int32)
+    iproc = np.zeros(ngas, dtype=np.int32)
+    for i in range(ngas):
+        gas_id[i] = int(nxt()[0])
+        v = nxt()
+        iso_id[i], iproc[i] = int(v[0]), int(v[1])
+
+    for _ in range(4):  # layer table headers
+        nxt()
+
+    def read_wrapped(n):
+        """n values possibly wrapped over ceil(n/6) lines (Fortran list
+        output wraps at 6 columns)."""
+        vals = []
+        while len(vals) < n:
+            vals.extend(float(x) for x in nxt())
+        return np.asarray(vals[:n])
+
+    baseh, delh, basep, baset, totam, press, temp, doppler = (
+        np.zeros(nlayer) for _ in range(8))
+    par_coldens = np.zeros((nlayer, ngas))
+    par_press = np.zeros((nlayer, ngas))
+    cont_coldens = np.zeros((nlayer, ncont))
+    hfp = np.zeros(nlayer)
+    hfc = np.zeros((nlayer, ncont))
+    for i in range(nlayer):
+        v = nxt()
+        (baseh[i], delh[i], basep[i], baset[i], totam[i], press[i],
+         temp[i], doppler[i]) = (float(x) for x in v[1:9])
+        gv = read_wrapped(2 * ngas)
+        par_coldens[i] = gv[0::2]
+        par_press[i] = gv[1::2]
+        if ncont > 0:
+            cont_coldens[i] = read_wrapped(ncont)
+        if flagh2p == 1:
+            hfp[i] = float(nxt()[0])
+        if flagc == 1:
+            hfc[i] = read_wrapped(ncont)
+
+    nlayin = np.zeros(npath, dtype=np.int32)
+    imod = np.zeros(npath, dtype=np.int32)
+    errlim = np.zeros(npath)
+    layinc = np.zeros((npath, 2 * nlayer), dtype=np.int32)
+    emtemp = np.zeros((npath, 2 * nlayer))
+    scale = np.zeros((npath, 2 * nlayer))
+    for i in range(npath):
+        v = nxt()
+        nlayin[i], imod[i], errlim[i] = int(v[0]), int(v[1]), float(v[2])
+        for j in range(nlayin[i]):
+            v = nxt()
+            layinc[i, j] = int(v[1]) - 1  # Fortran 1-based
+            emtemp[i, j] = float(v[2])
+            scale[i, j] = float(v[3])
+
+    nfilt = int(nxt()[0])
+    filt = np.zeros(nfilt)
+    vfilt = np.zeros(nfilt)
+    for i in range(nfilt):
+        v = nxt()
+        filt[i], vfilt[i] = float(v[0]), float(v[1])
+    nxt()  # output file name
+
+    ncalc = int(nxt()[0])
+    itype = np.zeros(ncalc, dtype=np.int32)
+    nintp = np.zeros(ncalc, dtype=np.int32)
+    nrealp = np.zeros(ncalc, dtype=np.int32)
+    nchp = np.zeros(ncalc, dtype=np.int32)
+    icald = np.zeros((ncalc, 10), dtype=np.int32)
+    rcald = np.zeros((ncalc, 10))
+    for i in range(ncalc):
+        v = nxt()
+        itype[i], nintp[i], nrealp[i], nchp[i] = (int(x) for x in v[:4])
+        for j in range(nintp[i]):
+            icald[i, j] = int(nxt()[0])
+        for j in range(nrealp[i]):
+            rcald[i, j] = float(nxt()[0])
+        for j in range(nchp[i]):
+            nxt()
+
+    return dict(
+        iconv=iconv, flagh2p=flagh2p, ncont=ncont, flagc=flagc,
+        nlayer=nlayer, npath=npath, ngas=ngas,
+        gas_id=gas_id, iso_id=iso_id, iproc=iproc,
+        baseh=baseh, delh=delh, basep=basep, baset=baset, totam=totam,
+        press=press, temp=temp, doppler=doppler,
+        par_coldens=par_coldens, par_press=par_press,
+        cont_coldens=cont_coldens, hfp=hfp, hfc=hfc,
+        nlayin=nlayin, imod=imod, errlim=errlim,
+        layinc=layinc, emtemp=emtemp, scale=scale,
+        nfilt=nfilt, filt=filt, vfilt=vfilt,
+        ncalc=ncalc, itype=itype, nintp=nintp, nrealp=nrealp, nchp=nchp,
+        icald=icald, rcald=rcald,
+    )
+
+
+def write_drv(path, runname, layers, paths, gas_id, iso_id,
+              iconv=0, flagh2p=0, ncont=0, flagc=0, errlim=0.0):
+    """Write a Fortran-NEMESIS ``.drv`` path file from the port's
+    layering and path structures (the reference only reads .drv; writing
+    one lets legacy Fortran NEMESIS consume this layering). Layer
+    quantities follow the reference's units (km, atm, cm^-2); the file is
+    the JAX package's ``write_drv``'s for the same numbers."""
+    baseh = host_array(layers.baseh) / 1.0e3
+    delh = host_array(layers.delh) / 1.0e3
+    basep = host_array(layers.basep) / 101325.0
+    baset = host_array(layers.baset)
+    totam = host_array(layers.totam) * 1.0e-4
+    press = host_array(layers.press) / 101325.0
+    temp = host_array(layers.temp)
+    amount = host_array(layers.amount) * 1.0e-4  # (NLAY, NVMR) cm^-2
+    pp = host_array(layers.pp) / 101325.0
+    nlayer = baseh.shape[0]
+    ngas = len(gas_id)
+
+    layinc = np.asarray(paths.layinc.detach().cpu()
+                        if isinstance(paths.layinc, torch.Tensor)
+                        else paths.layinc)
+    scale = host_array(paths.scale)
+    emtemp = host_array(paths.emtemp)
+    mask = host_array(paths.mask)
+    npath = layinc.shape[1]
+
+    with open(path, "w") as f:
+        f.write(f"{runname} - archnemesis_tpu path driver\n")
+        f.write("0\n0\n.key\n")
+        f.write(f"{iconv} {flagh2p} {ncont} {flagc}\n")
+        f.write(f"{runname}.xsc\n")
+        f.write(f"{nlayer} {npath} {ngas}\n")
+        for i in range(ngas):
+            f.write(f"{int(gas_id[i])}\n")
+            f.write(f"{int(iso_id[i])} 0\n")
+        f.write("layer baseH delH baseP baseT totam press temp doppler\n")
+        f.write("-\n-\n-\n")
+        for i in range(nlayer):
+            f.write(
+                f"{i+1} {baseh[i]:.6e} {delh[i]:.6e} {basep[i]:.6e} "
+                f"{baset[i]:.6e} {totam[i]:.6e} {press[i]:.6e} "
+                f"{temp[i]:.6e} 0.0\n"
+            )
+            vals = []
+            for j in range(ngas):
+                vals += [amount[i, j], pp[i, j]]
+            for k in range(0, len(vals), 6):
+                f.write(" ".join(f"{v:.6e}" for v in vals[k:k+6]) + "\n")
+            if ncont > 0:
+                cont = host_array(layers.cont)[i, :ncont] * 1.0e-4
+                for k in range(0, ncont, 6):
+                    f.write(" ".join(f"{v:.6e}" for v in cont[k:k+6])
+                            + "\n")
+        for ip in range(npath):
+            nin = int(mask[:, ip].sum())
+            f.write(f"{nin} {int(paths.imod)} {errlim:.6e}\n")
+            for j in range(nin):
+                f.write(
+                    f"{j+1} {int(layinc[j, ip])+1} {emtemp[j, ip]:.6e} "
+                    f"{scale[j, ip]:.6e}\n"
+                )
+        f.write("0\n")
+        f.write(f"{runname}.out\n")
+        f.write("0\n")

@@ -102,6 +102,25 @@ def read_stellar_hdf5(h5path: str) -> StellarSpec | None:
     return stellar_from_group(read_run_groups(h5path).get("Stellar"))
 
 
+def write_stellar_hdf5(h5path: str, spec: StellarSpec):
+    """StellarSpec -> the run file's ``Stellar`` group (reference
+    write_hdf5:175); needs h5py."""
+    import h5py
+
+    with h5py.File(h5path, "a") as f:
+        if "Stellar" in f:
+            del f["Stellar"]
+        g = f.create_group("Stellar")
+        g["SOLEXIST"] = bool(spec.solexist)
+        g["DIST"] = float(_np(spec.dist))
+        if spec.solexist:
+            g["ISPACE"] = int(spec.ispace)
+            g["RADIUS"] = float(_np(spec.radius))
+            g["NWAVE"] = int(_np(spec.wave).shape[0])
+            g["WAVE"] = np.asarray(_np(spec.wave), dtype=float)
+            g["SOLSPEC"] = np.asarray(_np(spec.solspec), dtype=float)
+
+
 def stellar_from_group(g) -> StellarSpec | None:
     """A ``Stellar`` group (a dict of host arrays) -> StellarSpec as float64
     CPU tensors, or None when it is absent or SOLEXIST is false."""

@@ -1,11 +1,8 @@
 """Model parameterisations: importing the package registers the ported
 models in ``base.MODEL_REGISTRY``: -1, 0, 1, 2, 3, 4, 9, 20, 32, 43, 45,
-47, 49, 50, 51, 62, 110 and 111 (``profile_models``); 228, 229, 230, 231,
+47, 49, 50, 51, 62, 110, 111 and 1002 (``profile_models``); 228, 229, 230, 231,
 232, 233, 447, 555, 556, 666, 667, 777, 887 and 999 (``domain_models``);
-444, 446 and 500 (``optics_models``). That is 35 of the JAX package's 37
-ids: 202 (telluric profile scaling) and 1002 (per-location scaling) come
-with the telluric and multi-location modules (``ROADMAP.md`` Queue 1
-item 9)."""
+202, 444, 446 and 500 (``optics_models``): all 37 of the JAX package's ids."""
 
 from archnemesis_tpu_torch.models import domain_models  # noqa: F401
 from archnemesis_tpu_torch.models import optics_models  # noqa: F401

@@ -6,8 +6,8 @@ Port of the JAX package's optics-model module. These act on the "scatter"
 (``AerosolOptics``) and "cia" (``CIATables``) domains. For model 444,
 Kramers-Kronig and the Mie chain run inside the forward, so Jacobians come
 from ``torch.func.jacfwd`` instead of the reference's finite differences.
-Model 202 (telluric profile scaling) comes with the telluric structure
-(``ROADMAP.md`` Queue 1 item 9).
+Model 202 scales a profile of the telluric (Earth) atmosphere
+(``rt/telluric.py``), in the "telluric" domain.
 """
 
 from __future__ import annotations
@@ -315,3 +315,43 @@ class Model444:
             kext=set_column(aero.kext, idust, kextx.to(aero.kext.dtype)),
             ksca=set_column(aero.ksca, idust, kscax.to(aero.ksca.dtype)),
         )
+
+
+@register_model
+class Model202:
+    """Constant scaling of a telluric atmospheric profile (reference
+    model_202.py): varident[0]==0 scales the Earth temperature profile,
+    varident[0]>0 scales the VMR of gas (varident[0], varident[1])."""
+
+    id = 202
+    domain = "telluric"
+
+    @staticmethod
+    def from_apr(f, varident, ix, ctx) -> AprParseResult:
+        t = f.readline().rsplit("!", 1)[0].split()
+        x0, err = float(t[0]), float(t[1])
+        return AprParseResult(
+            entry=_entry(varident, 202, ix, 1),
+            x0=np.array([x0]),
+            sx_diag=np.array([err**2]),
+            lx=np.zeros(1, dtype=int),
+            inum=np.ones(1, dtype=int),
+        )
+
+    @staticmethod
+    def apply_telluric(entry, tel, x, **_kw):
+        if tel is None:
+            return tel
+        varid1, varid2 = entry.varident[0], entry.varident[1]
+        atm = tel.atm
+        if varid1 == 0:
+            return tel.replace(atm=atm.replace(t=atm.t * x[0]))
+        jvmr = None
+        for j, (g, s) in enumerate(zip(atm.gas_id, atm.iso_id)):
+            if g == varid1 and s == varid2:
+                jvmr = j
+        if jvmr is None:
+            raise ValueError(
+                f"model 202: gas {varid1}/{varid2} not in telluric atmosphere")
+        return tel.replace(atm=atm.replace(
+            vmr=set_column(atm.vmr, jvmr, atm.vmr[:, jvmr] * x[0])))

@@ -14,8 +14,8 @@ The two level recurrences the JAX package runs as ``jax.lax.scan``
 (``_knee_profile`` and model 9) are closed forms here: a fixed number of
 tensor operations whatever NPRO, with no read of a value on the host, so
 ``torch.func.jacfwd`` goes through them and the card sees no per-level
-launches. Model 1002 (per-location scaling) comes with the multi-location
-atmosphere (``ROADMAP.md`` Queue 1 item 9).
+launches. Model 1002 scales a profile per location of a multi-location
+atmosphere (``multiloc.py``).
 """
 
 from __future__ import annotations
@@ -1055,3 +1055,77 @@ class Model111:
         )
         vmr = set_column(atm.vmr, entry.extra[0], so2)
         return atm.replace(dust=dust, vmr=vmr)
+
+
+@register_model
+class Model1002:
+    """Per-location scaling of the reference profile at NLOCATIONS planet
+    locations (reference Models/PreRTModels/model_1002.py).
+
+    The multi-location Atmosphere carries a leading location axis on its
+    profile fields (``core.types.stack_atmospheres``) and the forward is
+    vmapped over it (``multiloc.forward_nadir_multiloc``); this model
+    scales the target profile by one factor per location. The a-priori
+    covariance carries the exponential angular-distance correlation
+    between locations (model_1002.py:208-221).
+    """
+
+    id = 1002
+
+    @staticmethod
+    def from_apr(f, varident, ix, ctx) -> AprParseResult:
+        fname = f.readline().split()[0]
+        with open(fname) as fh:
+            toks = fh.read().split()
+        nlocs = int(float(toks[0]))
+        clen = float(toks[1])
+        dat = np.array([float(x) for x in toks[2:2 + 4 * nlocs]]).reshape(
+            nlocs, 4)
+        lats, lons, sfactor, efactor = dat.T
+        nloc_ctx = ctx.get("nlocations")
+        if nloc_ctx is not None and nlocs != nloc_ctx:
+            raise ValueError(
+                "model 1002: locations must match the Atmosphere's")
+
+        var = efactor**2
+        sx = np.diag(var).astype(float)
+        # exponential angular-distance correlation (model_1002.py:208-221)
+        s = np.sin(np.deg2rad(lats))
+        c = np.cos(np.deg2rad(lats))
+        for j in range(nlocs):
+            c3 = np.cos(np.deg2rad(lons[j] - lons))
+            cospsi = np.clip(s[j] * s + c[j] * c * c3, -1.0, 1.0)
+            psi = np.rad2deg(np.arccos(cospsi))
+            xfac = np.exp(-np.abs(psi / clen))
+            for k in range(nlocs):
+                if xfac[k] > 0.001 and k != j:
+                    sx[j, k] = np.sqrt(var[j] * var[k]) * xfac[k]
+                    sx[k, j] = sx[j, k]
+
+        entry = _mk_entry(varident, 1002, ix, nlocs, ctx,
+                          extra=(("nlocations", nlocs),))
+        return AprParseResult(
+            entry=entry,
+            x0=sfactor,
+            sx_diag=var,
+            lx=np.zeros(nlocs, dtype=int),
+            inum=np.zeros(nlocs, dtype=int),
+            corr=sx,
+        )
+
+    @staticmethod
+    def apply(entry: ModelEntry, atm, x):
+        """The atmosphere's profile fields carry a leading (NLOC,) axis; x
+        is the per-location scale vector."""
+        t = entry.target
+        scf = x.reshape(-1, 1)  # (NLOC, 1), broadcast over the levels
+        if t == ProfileTarget.TEMPERATURE:
+            return atm.replace(t=atm.t * scf)
+        if t in (ProfileTarget.GAS_VMR, ProfileTarget.AEROSOL):
+            name = "vmr" if t == ProfileTarget.GAS_VMR else "dust"
+            mat, col = getattr(atm, name), entry.target_idx
+            return atm.replace(**{name: set_column(mat, col,
+                                                   mat[..., col] * scf)})
+        if t == ProfileTarget.PARAH2:
+            return atm.replace(parah2=atm.parah2 * scf)
+        raise NotImplementedError(f"target {t}")

@@ -6,8 +6,9 @@ arrays of the set-up and the result). Formats re-implemented from
 observation of the reference writers (OptimalEstimation_0.py:
 write_mre:722, write_cov:873, write_raw:1043, the .itr records
 :1388-1396). The .raw layout is compatible with the reference's read_pre,
-enabling LIN retrieval chaining in either direction. The HDF5 dump comes
-with ``io/hdf5.py``.
+enabling LIN retrieval chaining in either direction. The ``/Retrieval``
+group of an HDF5 run file (``write_output_hdf5``, ``read_output_hdf5``)
+needs h5py.
 """
 
 from __future__ import annotations
@@ -282,6 +283,86 @@ def write_itr(path, setup, records):
             for i in range(sv.nx):
                 for j in range(ny):
                     f.write(f"{kk[j, i]:09.4E}\n")
+
+
+def write_output_hdf5(path, setup, res, write_cov=True):
+    """Write the retrieval results into the run's HDF5 file (reference
+    OptimalEstimation_0.write_output_hdf5:288): /Retrieval with the OE
+    vectors and matrices under Output/OptimalEstimation, and the per-model
+    a-priori and retrieved parameters (unlogged) under Output/Parameters;
+    the JAX package's ``write_output_hdf5`` dataset for dataset. Needs
+    h5py."""
+    import h5py
+
+    sv = setup.sv
+    st = setup.deck.settings
+    with h5py.File(path, "a") as f:
+        if "Retrieval" in f:
+            del f["Retrieval"]
+        grp = f.create_group("Retrieval")
+        grp["NITER"] = int(st.niter)
+        grp["PHILIMIT"] = float(st.philimit)
+        grp["IRET"] = 0  # optimal estimation
+
+        oe = grp.create_group("Output/OptimalEstimation")
+        oe["PHI"] = float(res.phi)
+        oe["CHISQ"] = float(res.chisq)
+        oe["NY"] = int(setup.y.shape[0])
+        oe["Y"] = np.asarray(setup.y, dtype=np.float64)
+        oe["SE"] = np.sqrt(np.diag(np.asarray(setup.se)))
+        oe["YN"] = np.asarray(res.yn, dtype=np.float64)
+        if write_cov:
+            oe["NX"] = int(sv.nx)
+            for key, v in (("XN", res.xn), ("SX", res.st), ("XA", sv.xa),
+                           ("SA", sv.sa), ("KK", res.kk), ("AA", res.aa),
+                           ("DD", res.dd)):
+                oe[key] = np.asarray(v, dtype=np.float64)
+
+        # per-model parameters in .apr form (unlogged; reference :368-401)
+        nvar = len(sv.entries)
+        nxmax = max(e.nx for e in sv.entries)
+        apr, apr_err, ret, ret_err = (np.zeros((nxmax, nvar))
+                                      for _ in range(4))
+        for iv, e in enumerate(sv.entries):
+            for i in range(e.nx):
+                ix = e.ix + i
+                xa1 = sv.xa[ix]
+                ea1 = np.sqrt(abs(sv.sa[ix, ix]))
+                xn1 = res.xn[ix]
+                en1 = np.sqrt(abs(res.st[ix, ix]))
+                if sv.lx[ix] == 1:
+                    xa1 = np.exp(xa1)
+                    ea1 = xa1 * ea1
+                    xn1 = np.exp(xn1)
+                    en1 = xn1 * en1
+                apr[i, iv], apr_err[i, iv] = xa1, ea1
+                ret[i, iv], ret_err[i, iv] = xn1, en1
+
+        par = grp.create_group("Output/Parameters")
+        par["NVAR"] = nvar
+        par["NXVAR"] = np.asarray([e.nx for e in sv.entries], dtype=np.int32)
+        par["VARIDENT"] = np.asarray([e.varident for e in sv.entries],
+                                     dtype=np.int32)
+        par["APRPARAM"] = apr
+        par["APRERRPARAM"] = apr_err
+        par["RETPARAM"] = ret
+        par["RETERRPARAM"] = ret_err
+
+
+def read_output_hdf5(path):
+    """Read back a /Retrieval group written by ``write_output_hdf5`` (of
+    either package): a dict of host arrays under lower-case names. Needs
+    h5py."""
+    import h5py
+
+    out = {}
+    with h5py.File(path, "r") as f:
+        for group in ("Retrieval/Output/OptimalEstimation",
+                      "Retrieval/Output/Parameters"):
+            g = f[group]
+            for k in g.keys():
+                out[k.lower()] = np.asarray(g[k][()])
+    return out
 
 
 def read_mre(path):

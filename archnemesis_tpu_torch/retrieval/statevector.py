@@ -32,14 +32,6 @@ from archnemesis_tpu_torch.rt.atmosphere import (
 )
 
 
-# the JAX package's model ids the port does not register yet, with the
-# module each waits for
-_WAITING = {
-    202: "the telluric structure of rt/telluric.py",
-    1002: "the multi-location atmosphere of multiloc.py",
-}
-
-
 @dataclass(frozen=True)
 class StateVector:
     """Static state-vector description + a-priori."""
@@ -100,12 +92,6 @@ def read_apr(path: str, atm: Atmosphere) -> StateVector:
             for _ in range(nvar):
                 varident = [int(v) for v in f.readline().split()[:3]]
                 model_id = varident[2]
-                if model_id in _WAITING:
-                    raise NotImplementedError(
-                        f"model id {model_id} (varident={varident}): not "
-                        f"ported yet ({_WAITING[model_id]}, ROADMAP Queue 1 "
-                        "item 9)"
-                    )
                 if model_id not in MODEL_REGISTRY:
                     raise NotImplementedError(
                         f"model id {model_id} not implemented (varident={varident})"

@@ -18,10 +18,10 @@ solar-occultation (``make_retrieval_setup_so``), primary-transit
 (``make_retrieval_setup_transit``), combined multi-angle
 (``make_retrieval_setup_c``) and disc-averaged
 (``make_retrieval_setup_disc``) set-ups, HDF5 run files (or their ``.npz``
-export) for the set-ups that read them, LIN 0-3 chaining, resume, and
-nested sampling (``retrieval_method=1``). Telluric transmission and the
-``/Retrieval`` output group of an HDF5 run raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item that brings them.
+export) for the set-ups that read them, with the telluric transmission of
+a ground-based run (model 202), LIN 0-3 chaining, resume, nested sampling
+(``retrieval_method=1``) and the ``/Retrieval`` output group of an HDF5
+run.
 """
 
 from __future__ import annotations
@@ -74,6 +74,7 @@ from archnemesis_tpu_torch.ops.ktab import host_log_ktable
 from archnemesis_tpu_torch.retrieval import output as out_mod
 from archnemesis_tpu_torch.retrieval.oe import OEResult, coreret_oe
 from archnemesis_tpu_torch.rt.scattering import ScatterQuadrature
+from archnemesis_tpu_torch.rt.telluric import apply_telluric
 from archnemesis_tpu_torch.retrieval.statevector import (
     StateVector,
     apply_domain,
@@ -148,6 +149,10 @@ def cast_deck_components(deck: Deck, dtype) -> Deck:
         if v is None or isinstance(v, RuntimeLBL):
             continue
         casted[name] = cast_deck(v, dtype)
+    if deck.telluric is not None:
+        tel = deck.telluric
+        casted["telluric"] = tel.replace(atm=cast_deck(tel.atm, dtype),
+                                         ktables=cast_deck(tel.ktables, dtype))
     return dataclasses.replace(deck, **casted)
 
 
@@ -184,6 +189,8 @@ def _deck_to(deck: Deck, device) -> Deck:
              for name in _DECK_COMPONENTS
              if getattr(deck, name) is not None
              and not isinstance(getattr(deck, name), RuntimeLBL)}
+    if deck.telluric is not None:
+        moved["telluric"] = deck.telluric.to(device)
     return dataclasses.replace(deck, **moved)
 
 
@@ -192,10 +199,6 @@ def _host_wave(kt) -> np.ndarray:
     if isinstance(kt, RuntimeLBL):
         return np.asarray(kt.wave, dtype=np.float64)
     return kt.wave.detach().cpu().double().numpy()
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what}: not ported yet ({item})")
 
 
 def _iform_xfac(iform, atm, stellar, wave):
@@ -388,11 +391,18 @@ def _setup(deck: Deck, sv, geom, forward_fn, device, dtype
 def make_retrieval_setup(
     deck_dir: str, runname: str, atm_override=None, sv_override=None,
     wave_pad_multiple: int = 1, ktab_transform=None,
-    device=None, dtype=torch.float64,
+    device=None, dtype=torch.float64, deck_file=None,
 ) -> RetrievalSetup:
     """Build the retrieval setup for a nadir deck: thermal emission
     (ISCAT=0), multiple scattering (1) or plane-parallel single scattering
     (3).
+
+    ``deck_file``: an HDF5 run file (or its ``.npz`` export) to read in
+    place of the legacy deck, its relative table locations resolved
+    against ``deck_dir`` and the ``.apr`` beside the deck; None reads the
+    legacy deck. A run file's ``Telluric`` group multiplies each
+    geometry's FOV-averaged calc-grid spectrum by the Earth's transmission
+    (``rt/telluric.py``), with model 202 retrieving its profiles.
 
     ``atm_override`` replaces the deck's reference atmosphere (LIN=1/3
     chaining bakes the previous retrieval's state into the base profiles,
@@ -414,7 +424,8 @@ def make_retrieval_setup(
     table fixes of ``_attach_logk``). ``forward_fn`` takes ``xn`` as a
     tensor there, or a host array that is put there."""
     device = resolve_device(device)
-    deck = _load_setup_deck(deck_dir, runname, atm_override, dtype)
+    deck = _load_setup_deck(deck_dir, runname, atm_override, dtype,
+                            hdf5=deck_file is not None, deck_file=deck_file)
     st = deck.settings
     iscat = ScatteringCalculationMode(deck.settings.iscat)
     multiple = iscat == ScatteringCalculationMode.MULTIPLE_SCATTERING
@@ -452,10 +463,6 @@ def make_retrieval_setup(
             and deck.settings.vnorm is None):
         raise ValueError("IFORM=Normalised_radiance requires VNORM "
                          "(reference Measurement_0.assess:344)")
-    if deck.telluric is not None:
-        _not_ported("telluric transmission",
-                    "rt/telluric.py, ROADMAP Queue 1 item 9")
-
     sv = (
         sv_override
         if sv_override is not None
@@ -556,12 +563,14 @@ def make_retrieval_setup(
         xfac_g = (dev(_iform_xfac(st.iform, deck.atmosphere, deck.stellar,
                                   wave_host))
                   if st.iform in flux_units else 1.0)
+        # the rest-frame calc grid of the telluric transmission
+        wave_rest = dev(wave_host) if deck.telluric is not None else None
         # the channel centres and the calc grid on the device once: the
         # observer-frame grid where the state does not move it, else the
         # rest-frame grid, corrected per evaluation (model 447)
         geoms.append((ig, vconv, dev(vconv), ktw, wave_host,
                       dev(wave_host if has_447 else wavecorr), ils_w,
-                      xfac_g))
+                      xfac_g, wave_rest))
 
     cfg = make_forward_config(
         deck.atmosphere,
@@ -627,9 +636,13 @@ def make_retrieval_setup(
         v_dop = (apply_domain(sv, xn, "measurement",
                               {"v_doppler": st.v_doppler})["v_doppler"]
                  if has_447 else st.v_doppler)
+        # the Earth's atmosphere of a ground-based run, with its models
+        # (202) applied inside the differentiated map
+        telluric = (apply_domain(sv, xn, "telluric", deck.telluric)
+                    if deck.telluric is not None else None)
         out = []
         for (ig, vconv, vconv_dev, ktw, wave_host, wave_dev, ils_w,
-             xfac_g) in geoms:
+             xfac_g, wave_rest) in geoms:
             spec_sum = 0.0
             iavs = range(geom.nav[ig])
             for iav in iavs:
@@ -649,6 +662,12 @@ def make_retrieval_setup(
             # WITHOUT dividing by the weight total (nemesisfm
             # ForwardModel_0.py:530-535; FOV weights are pre-normalised)
             spec_sum = spec_sum * xfac_g
+            if telluric is not None:
+                # on the rest-frame calc grid, corrected for the target's
+                # Doppler shift inside (ForwardModel_0.py:538-552)
+                spec_sum = apply_telluric(
+                    telluric, wave_rest, spec_sum,
+                    v_doppler=st.v_doppler, ispace=st.ispace)
             vconv_out = vconv_dev
             # observer-frame calc grid (reference corrects Wave by the
             # Doppler shift inside conv/lblconv, Measurement_0.py:2149);
@@ -1091,9 +1110,10 @@ def retrieval_nemesis(
     The ``nemesis_so``, ``nemesis_l``, ``nemesis_pt``, ``nemesis_disc`` and
     ``nemesis_c`` flags pick the solar-occultation, limb, primary-transit,
     disc-averaged and combined multi-angle set-ups (reference dispatch
-    Retrievals.py:298-307). An HDF5 run's ``/Retrieval`` output group is
-    not written yet: ``write_outputs=True`` raises for it after the legacy
-    files (ROADMAP Queue 1 item 9).
+    Retrievals.py:298-307). Where ``<runname>.h5`` sits in the deck
+    directory, ``write_outputs=True`` also writes the OE results into its
+    ``/Retrieval`` group (``retrieval.output.write_output_hdf5``, which
+    needs h5py).
 
     retrieval_method: 0 = optimal estimation (coreretOE), 1 = nested
     sampling (reference dispatch Retrievals.py:298-307;
@@ -1106,8 +1126,8 @@ def retrieval_nemesis(
 
     device: None = the CUDA card (raises without one); "cpu" runs on the
     CPU. dtype: the run's floating type. deck_file: the HDF5 run file (or
-    its ``.npz`` export) of a set-up that reads one (SO, limb, transit,
-    combined), as ``make_retrieval_setup_limb`` takes it.
+    its ``.npz`` export) the set-up reads, as ``make_retrieval_setup``
+    and ``make_retrieval_setup_limb`` take it.
     """
     import os
 
@@ -1219,6 +1239,7 @@ def retrieval_nemesis(
         if res.itr_records:
             out_mod.write_itr(base + ".itr", setup, res.itr_records)
         if os.path.exists(base + ".h5"):
-            _not_ported("the /Retrieval group of an HDF5 run",
-                        "io/hdf5.py, ROADMAP Queue 1 item 9")
+            # the HDF5 run's /Retrieval group (reference
+            # write_output_hdf5, OptimalEstimation_0.py:288)
+            out_mod.write_output_hdf5(base + ".h5", setup, res)
     return res

@@ -224,7 +224,8 @@ def apply_svp_cap(atm: Atmosphere) -> Atmosphere:
 
 
 def set_column(mat, col: int, values):
-    """``mat`` (N, M) with column ``col`` replaced by ``values`` (N,), out
-    of place (a dual or batched ``values`` cannot be written into a plain
-    buffer)."""
-    return torch.cat([mat[:, :col], values[:, None], mat[:, col + 1:]], dim=1)
+    """``mat`` (..., N, M) with column ``col`` replaced by ``values``
+    (..., N), out of place (a dual or batched ``values`` cannot be written
+    into a plain buffer)."""
+    return torch.cat([mat[..., :col], values[..., None], mat[..., col + 1:]],
+                     dim=-1)

@@ -24,6 +24,7 @@ def thermal_emission_spectrum(
     surface_visible: bool,
     gasgiant: bool,
     ispace=0,
+    emission_path=None,
 ):
     """Thermal-emission spectra for all paths at once.
 
@@ -37,6 +38,9 @@ def thermal_emission_spectrum(
     emissivity : (NWAVE,) surface emissivity on the calc grid
     surface_visible : False for limb paths (no ground term)
     gasgiant : True -> radground = Planck(bottom layer T)
+    emission_path : optional (NWAVE, NLAYIN, NPATH) non-LTE emission of
+        each path layer, weighted by the transmission after the layer
+        (the JAX package's ``rt/emission.py:60-63``)
 
     Returns
     -------
@@ -54,6 +58,9 @@ def thermal_emission_spectrum(
     # the levels above the weighting functions
     dtr = trold * (-torch.expm1(-tau_l))
     spec = torch.einsum("wgjp,wjp->wgp", dtr, bb * mask[None, :, :])
+    if emission_path is not None:
+        spec = spec + torch.einsum("wgjp,wjp->wgp", tr,
+                                   emission_path * mask[None, :, :])
 
     if surface_visible:
         tr_tot = tr[:, :, -1, :]  # transmission after full path

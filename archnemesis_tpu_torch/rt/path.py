@@ -80,11 +80,15 @@ def nadir_path(
     (IPZEN=BOTTOM). Mirrors AtmCalc_0 nadir branch (AtmCalc_0.py:358-375)
     + SF (:380-400). One path per ray: the host angles are numbers (one
     path) or 1-D arrays of rays, whose scale factors are one expression
-    over (NPATH, NLAY)."""
+    over (NPATH, NLAY). A tensor angle (a location's under ``vmap``,
+    ``multiloc.forward_nadir_multiloc``) is taken as it is."""
     nlay = layers.nlay
     nuse = nlay - botlay
     like = layers.temp
-    emiss = np.asarray(emiss_ang, dtype=np.float64).reshape(-1)
+    if isinstance(emiss_ang, torch.Tensor):
+        emiss = emiss_ang.reshape(-1).to(like.dtype)
+    else:
+        emiss = np.asarray(emiss_ang, dtype=np.float64).reshape(-1)
     npath = emiss.shape[0]
     uselay = torch.as_tensor(
         np.arange(nlay - 1, botlay - 1, -1), device=like.device
@@ -94,6 +98,8 @@ def nadir_path(
                         layers.baseh[botlay])  # (NPATH, NLAY)
 
     def angle(x):
+        if isinstance(x, torch.Tensor):
+            return x.reshape(-1).to(like.dtype).expand(npath)
         return torch.as_tensor(
             np.broadcast_to(np.asarray(x, dtype=np.float64).reshape(-1),
                             (npath,)).copy(),

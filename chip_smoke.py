@@ -235,6 +235,33 @@ without them. Phases, each of which fails the run on its own:
     wall time, launches (1 and 4), peak memory, the tables written and
     read back, kernel 2's share of the k-table's device time and its
     device time beside its bound summed over the chunks;
+23. non-LTE emissions ("emissions"): the ``jupiter_emissions_fm`` golden
+    in float64 at rtol 1e-5 (the golden deck with the C2H2 and NH3 tables
+    read from their ``.npz`` exports, ``EMISS_EXPORTS``), 6 kernel-1
+    launches per forward; float32 within phase 3's bounds (1e-4 / 1e-5) of
+    float64; the jacfwd of the temperature and the two gases' VMR scales
+    on the C2H2 band (``EMISS_JAC_WINDOW``) against the CPU (spectrum at
+    rtol 1e-10, columns within 1e-10 of their peaks), 6 kernel-1t
+    launches; the forward's and the 3-column evaluation's median time and
+    peak memory with the tables and without them;
+24. telluric transmission and multi-location forwards ("telluric,
+    multiloc"): the telluric run (``TELLURIC_EXPORT``: jupiter_nadir with
+    a Telluric group, models 0 and 202) through ``make_retrieval_setup(...,
+    deck_file=)`` in float64 and float32, 7 launches of each kernel (the
+    planet's 6 pairs and the telluric pair), float32 within 1e-4 / 1e-5 and
+    each Jacobian column within ``JAC_F32_BOUND`` of its peak, the
+    evaluation's time and peak memory; a copy thinned to its 600-700 cm-1
+    channels (``thin_export``) against the CPU (spectrum at 1e-10, the
+    columns of models 202 and 0 within 1e-10 of their peaks); then the
+    headline at three locations (``multiloc_case``) through
+    ``forward_nadir_multiloc``: 6 kernel-1 launches per forward for all
+    locations, equal to three single forwards (float64 at 2e-12, float32
+    at ``MULTILOC_F32_SELF``), float32 within 1e-4 / 1e-5 of float64, the
+    times beside the three single forwards' and the peak memory; model
+    1002's jacfwd of three per-location temperature scales (6 kernel-1t
+    launches, time and peak memory), and at ``MULTILOC_CPU_NWAVE`` waves
+    against the CPU (each column within 1e-10 of its peak); neither phase
+    imports h5py;
 
 then a JSON line of the kernels (launches on the main paths, error, times,
 bound, library time) and, last, ``{"ok": true, "device": {...}}``. ``--profile`` adds
@@ -4114,24 +4141,29 @@ def occultation_setups(transit_file: str) -> dict:
     }
 
 
-def _time_jacobians(setup, x, runs: int):
-    """(median, min, max ms, peak GiB) of ``forward_and_jacobian`` over
-    ``runs`` runs after a warm-up, host clock ending in a synchronise."""
+def _timed(fn, runs: int):
+    """(median, min, max host ms ending in a synchronise, peak GiB) of
+    ``fn()`` over ``runs`` runs after a warm-up."""
     import torch
 
-    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
-
-    forward_and_jacobian(setup.forward_fn, x)
+    fn()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(runs):
         t0 = time.perf_counter()
-        forward_and_jacobian(setup.forward_fn, x)
+        fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return (float(np.median(times)), min(times), max(times),
             torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _time_jacobians(setup, x, runs: int):
+    """``_timed`` of ``forward_and_jacobian`` at ``x``."""
+    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
+
+    return _timed(lambda: forward_and_jacobian(setup.forward_fn, x), runs)
 
 
 def phase_occultation(card: str):
@@ -4486,6 +4518,423 @@ def phase_tablegen(card: str):
     return lbl_launches + kta_launches, shape
 
 
+# --- phases 23-24: non-LTE emissions, telluric transmission, multi-location
+
+PORT_DATA = "archnemesis_tpu_torch/data"
+EM_GOLDEN = "tests/goldens/jupiter_emissions_fm.npz"
+# the two emission tables of tests/fixtures/jupiter_emiss (C2H2 chemical,
+# NH3 fluorescence), in the JAX test's sorted order, as .npz exports
+EMISS_NAMES = ("emiss_c2h2_chem", "emiss_nh3_fluor")
+EMISS_EXPORTS = tuple(f"{PORT_DATA}/{n}.npz" for n in EMISS_NAMES)
+# the telluric run: jupiter_nadir as an HDF5 run file with a Telluric group
+# (tests/port_cases.write_telluric_run), its .npz export and two .kta
+# tables on a coarse grid over the deck's 5-1399 cm-1 window
+TELLURIC_EXPORT = f"{PORT_DATA}/jupiter_telluric.npz"
+TELLURIC_TABLES = (("telluric_h2o.kta", 1), ("telluric_co2.kta", 2))
+TELLURIC_WAVE = np.linspace(0.0, 1428.0, 120)
+TELLURIC_ALTITUDE = 4207.3
+TELLURIC_EMISS_ANG = 160.0
+# model 202: the telluric H2O VMR scale
+TELLURIC_APR_BLOCK = "1 0 202\n1.0 0.1\n"
+
+
+def telluric_deck(base: str, tables_dir: str = PORT_DATA) -> str:
+    """A copy of jupiter_nadir under ``base`` for the telluric run: the two
+    telluric tables beside its files (the run's relative LOCATIONs) and
+    an .apr of model 0 and model 202. The run itself is
+    ``TELLURIC_EXPORT``, read through ``deck_file=``."""
+    deck = copy_deck(DECK, base)
+    for name, _ in TELLURIC_TABLES:
+        shutil.copy(os.path.join(tables_dir, name), deck)
+    _write_apr(deck, [TELLURIC_APR_BLOCK])
+    return deck
+
+
+EMISS_RUNS = 5
+TELLURIC_EVAL_RUNS = 3
+MULTILOC_RUNS = 5
+# the window of the emission Jacobian held to the CPU: the C2H2 band
+EMISS_JAC_WINDOW = (700.0, 800.0)
+# float32 against float64 of the multi-location forward's single-location
+# counterpart: one float32 forward against another, batched or not
+MULTILOC_F32_SELF = 1.0e-6
+MULTILOC_EMISS = (0.0, 30.0, 55.0)
+MULTILOC_LOCS = ("3 40.0\n10.0 20.0 1.0 0.1\n-20.0 35.0 1.05 0.2\n"
+                 "15.0 80.0 0.95 0.15\n")
+# the CPU's width for model 1002's Jacobian (the card's runs at 8192): the
+# plain combine under jacfwd costs ~0.7 s a pair at 64 waves on 3 locations
+MULTILOC_CPU_NWAVE = 32
+
+
+def emission_case(device, dtype=None, window=None):
+    """(deck tuple, emission tables, their atmosphere columns, stellar
+    distance) of the ``jupiter_emissions_fm`` golden on ``device``: the
+    golden deck (``golden_deck``) with both tables read from their
+    ``.npz`` exports (no h5py), in ``dtype`` (None = float64), its
+    k-tables cut to ``window`` (cm-1) where one is given."""
+    from archnemesis_tpu_torch.core.spectra import cast_deck
+    from archnemesis_tpu_torch.io.emissions import read_emission_tables
+    from archnemesis_tpu_torch.ops.emissions import locate_emission_gases
+
+    deck = golden_deck(device)
+    em = read_emission_tables(list(EMISS_EXPORTS)).to(device)
+    if window is not None:
+        atm, laycfg, ktab, cia, aero, surf, cfg = deck
+        sel = ((ktab.wave >= window[0]) & (ktab.wave <= window[1]))
+        ktab = ktab.replace(wave=ktab.wave[sel], k=ktab.k[:, sel])
+        deck = (atm, laycfg, ktab, cia, aero, surf, cfg)
+    if dtype is not None:
+        deck, em = cast(deck, dtype), cast_deck(em, dtype)
+    cols = locate_emission_gases(em, deck[0].gas_id, deck[0].iso_id)
+    d = np.load(EM_GOLDEN)
+    dist = float(d["DIST"]) if bool(d["SOLEXIST"]) else None
+    return deck, em, cols, dist
+
+
+def emission_state_forward(case, device, with_emission: bool = True):
+    """f(x) -> (NWAVE,): the emission case's forward with the temperature
+    profile scaled by x[0] and the two emitting gases' VMRs (C2H2, NH3)
+    by x[1] and x[2]."""
+    from archnemesis_tpu_torch.forward import forward_nadir
+    from archnemesis_tpu_torch.rt.atmosphere import set_column
+
+    (atm, laycfg, ktab, cia, aero, surf, cfg), em, cols, dist = case
+    kw = (dict(emis=em, emis_gas_cols=cols, emis_dist=dist)
+          if with_emission else {})
+
+    def f(x):
+        vmr = atm.vmr
+        for i, c in enumerate(cols):
+            vmr = set_column(vmr, c, vmr[:, c] * x[1 + i])
+        a = atm.replace(t=atm.t * x[0], vmr=vmr)
+        return forward_nadir(a, laycfg, ktab, cia, aero, surf, cfg,
+                             emiss_ang=0.0, sol_ang=180.0, device=device,
+                             **kw)[:, 0]
+
+    return f
+
+
+def phase_emissions(card: str):
+    """Phase 23: non-LTE emissions on the card. Returns (kernel-1 launches
+    of one emission forward, kernel-1t launches of one forward-plus-
+    Jacobian evaluation)."""
+    import torch
+
+    from archnemesis_tpu_torch.ops.convolution import conv_channel_interp
+
+    t0 = time.perf_counter()
+    case = emission_case("cuda")
+    f64 = emission_state_forward(case, "cuda")
+    one = torch.ones(3, dtype=torch.float64, device="cuda")
+    spec, primal = _primal_launches(lambda: f64(one))
+    if primal != 6:
+        raise AssertionError(f"emissions: {primal} primal launches, "
+                             "expected 6")
+    d = np.load(EM_GOLDEN)
+    nconv = int(d["NCONV"][0])
+
+    def speconv(y):
+        return conv_channel_interp(
+            case[0][2].wave.to(y.dtype), y,
+            y.new_tensor(d["VCONV"][:nconv, 0])).double().cpu().numpy()
+
+    got, want = speconv(spec), d["SPECONV"][:nconv, 0]
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    bare = emission_state_forward(case, "cuda", with_emission=False)(one)
+    share = float((1.0 - speconv(bare) / got).max())
+    _print(f"emissions (jupiter_emissions_fm: 559 waves, 698 channels, C2H2 "
+           f"chemical + NH3 fluorescence from the .npz exports) float64 on "
+           f"the card: golden within rtol 1e-5 (max rel "
+           f"{np.abs(got / want - 1).max():.3e}); the emission's largest "
+           f"share of a channel {share:.4f}; {primal} primal launches")
+
+    case32 = emission_case("cuda", torch.float32)
+    f32 = emission_state_forward(case32, "cuda")
+    r = rel_err(speconv(f32(one.float())), got)
+    _print(f"emissions float32 vs float64: max rel {r.max():.3e}, median "
+           f"{np.median(r):.3e} (gates {F32_BOUNDS[0]:.0e} / "
+           f"{F32_BOUNDS[1]:.0e}, phase 3's)")
+    if not (r.max() < F32_BOUNDS[0] and np.median(r) < F32_BOUNDS[1]):
+        raise AssertionError("emissions: float32 outside 1e-4 / 1e-5")
+
+    # forward-plus-Jacobian (3 state elements) on the card against the CPU,
+    # on the C2H2 band
+    win_card = emission_state_forward(
+        emission_case("cuda", window=EMISS_JAC_WINDOW), "cuda")
+    win_cpu = emission_state_forward(
+        emission_case("cpu", window=EMISS_JAC_WINDOW), "cpu")
+    (k_card, y_card), fused = _fused_launches(
+        lambda: torch.func.jacfwd(lambda x: (win_card(x),) * 2,
+                                  has_aux=True)(one))
+    k_cpu, y_cpu = torch.func.jacfwd(lambda x: (win_cpu(x),) * 2,
+                                     has_aux=True)(one.cpu())
+    np.testing.assert_allclose(y_card.cpu().numpy(), y_cpu.numpy(),
+                               rtol=1e-10, atol=0)
+    col_err = ((k_card.cpu() - k_cpu).abs().max(dim=0).values
+               / k_cpu.abs().max(dim=0).values).numpy()
+    if fused != 6 or not col_err.max() < 1e-10:
+        raise AssertionError(f"emissions Jacobian: {fused} fused launches, "
+                             f"column errors {col_err}")
+    _print(f"emission forward-plus-Jacobian (T, C2H2 and NH3 scales, "
+           f"{k_card.shape[0]} waves of 700-800 cm-1) on the card: the CPU's "
+           f"spectrum within 1e-10, columns within {col_err.max():.3e} of "
+           f"their peaks; {fused} fused launches")
+
+    evaluations = {}
+    for label, with_emission in (("with the tables", True),
+                                 ("without", False)):
+        f = emission_state_forward(case, "cuda", with_emission)
+        fwd = _timed(lambda: f(one), EMISS_RUNS)
+        ev = _timed(lambda: torch.func.jacfwd(f)(one), EMISS_RUNS)
+        evaluations[label] = ev
+        _print(f"emission deck {label} (float64, {card}): forward median "
+               f"{fwd[0]:.3f} ms (min {fwd[1]:.3f}, max {fwd[2]:.3f}), peak "
+               f"{fwd[3]:.3f} GiB; forward-plus-Jacobian (3 columns) median "
+               f"{ev[0]:.3f} ms (min {ev[1]:.3f}, max {ev[2]:.3f}), peak "
+               f"{ev[3]:.3f} GiB over {EMISS_RUNS} runs")
+    _, fused_full = _fused_launches(lambda: torch.func.jacfwd(f64)(one))
+    if "h5py" in sys.modules:
+        raise AssertionError("phase 23 imported h5py")
+    _print(f"phase 23: {time.perf_counter() - t0:.1f} s")
+    return primal, fused_full
+
+
+def thin_export(src: str, dst: str, vmin: float, vmax: float) -> str:
+    """A copy of a run file's ``.npz`` export keeping the channels in
+    [vmin, vmax] (the set-up's calc window shrinks with them); written
+    without h5py."""
+    with np.load(src) as z:
+        flat = {k: z[k] for k in z.files}
+    nconv = int(flat["Measurement/NCONV"][0])
+    v = flat["Measurement/VCONV"][:nconv, 0]
+    keep = np.where((v >= vmin) & (v <= vmax))[0]
+    for key in ("VCONV", "MEAS", "ERRMEAS"):
+        flat[f"Measurement/{key}"] = flat[f"Measurement/{key}"][keep]
+    flat["Measurement/NCONV"] = np.asarray([keep.size], dtype=np.int32)
+    np.savez_compressed(dst, **flat)
+    return dst
+
+
+def _telluric_case(card: str, base: str):
+    """The telluric run on the card. Returns (kernel-1 launches of one
+    forward, kernel-1t launches of one evaluation)."""
+    import torch
+
+    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
+    from archnemesis_tpu_torch.retrievals import make_retrieval_setup
+
+    deck = telluric_deck(base)
+    s64 = make_retrieval_setup(deck, "cirstest", device="cuda",
+                               deck_file=TELLURIC_EXPORT)
+    s32 = make_retrieval_setup(deck, "cirstest", device="cuda",
+                               deck_file=TELLURIC_EXPORT,
+                               dtype=torch.float32)
+    nx, ny = s64.sv.nx, s64.y.shape[0]
+    xa = torch.as_tensor(s64.sv.xa, device="cuda")
+    y64, primal = _primal_launches(lambda: s64.forward_fn(xa))
+    (yk, k64), fused = _fused_launches(
+        lambda: forward_and_jacobian(s64.forward_fn, xa))
+    if primal != 7 or fused != 7:
+        raise AssertionError(f"telluric: {primal} primal, {fused} fused "
+                             "launches, expected 7 (6 + the telluric pair)")
+    torch.testing.assert_close(yk, y64, rtol=1e-12, atol=0)
+    if not (torch.isfinite(k64).all() and k64[:, nx - 1].abs().max() > 0):
+        raise AssertionError("telluric: Jacobian not finite or model 202's "
+                             "column zero")
+    y32, k32 = forward_and_jacobian(s32.forward_fn, xa.float())
+    r = rel_err(y32.double().cpu().numpy(), y64.cpu().numpy())
+    col_err, misses = jacobian_column_misses(k32, k64, s64.sv.entries)
+    _print(f"telluric run (jupiter_nadir + Telluric group, NX={nx}: model 0 "
+           f"and 202, NY={ny}) on the card: {primal} primal launches per "
+           f"forward, {fused} fused per evaluation; float32 vs float64: "
+           f"spectrum max rel {r.max():.3e}, median {np.median(r):.3e} "
+           f"(gates {F32_BOUNDS[0]:.0e} / {F32_BOUNDS[1]:.0e}); Jacobian max "
+           f"error over column peak {col_err.max():.3e} (model 202's "
+           f"{col_err[nx - 1]:.3e}; gate {JAC_F32_BOUND:.0e}); columns "
+           f"outside: {misses if misses else 'none'}")
+    if not (r.max() < F32_BOUNDS[0] and np.median(r) < F32_BOUNDS[1]):
+        raise AssertionError("telluric: float32 spectrum outside 1e-4 / 1e-5")
+    if misses:
+        raise AssertionError(f"telluric: float32 Jacobian columns outside "
+                             f"{JAC_F32_BOUND:.0e}: {misses}")
+    del k64, k32
+    for dtype_name, setup, x in (("float64", s64, xa),
+                                 ("float32", s32, xa.float())):
+        med, lo, hi, peak = _time_jacobians(setup, x, TELLURIC_EVAL_RUNS)
+        _print(f"forward-plus-Jacobian of the telluric run ({dtype_name}, "
+               f"{card}): median {med:.3f} ms over {TELLURIC_EVAL_RUNS} runs "
+               f"(min "
+               f"{lo:.3f}, max {hi:.3f}); peak memory {peak:.3f} GiB")
+    del s32
+
+    # the card against the CPU, on the run's 600-700 cm-1 channels: the
+    # spectrum and the whole Jacobian against the CPU's forward and three
+    # columns (model 202's and two of model 0's)
+    thin = thin_export(TELLURIC_EXPORT, os.path.join(base, "thin.npz"),
+                       600.0, 700.0)
+    card_thin = make_retrieval_setup(deck, "cirstest", device="cuda",
+                                     deck_file=thin)
+    cpu_thin = make_retrieval_setup(deck, "cirstest", device="cpu",
+                                    deck_file=thin)
+    y, kk = forward_and_jacobian(card_thin.forward_fn, xa)
+    np.testing.assert_allclose(y.cpu().numpy(),
+                               cpu_thin.forward_fn(cpu_thin.sv.xa).numpy(),
+                               rtol=1e-10, atol=0)
+    cols = [nx - 1, 20, 60]
+    k_cpu = _cpu_jacobian_columns(cpu_thin, cols).numpy()
+    col_err = (np.abs(kk.cpu().numpy()[:, cols] - k_cpu).max(axis=0)
+               / np.abs(k_cpu).max(axis=0))
+    if not col_err.max() < 1e-10:
+        raise AssertionError(f"telluric: Jacobian columns {cols} off the CPU "
+                             f"by {col_err}")
+    _print(f"telluric run thinned to its {y.shape[0]} channels of 600-700 "
+           f"cm-1 (from the export, without h5py) float64 on the card: the "
+           f"CPU's spectrum within 1e-10, columns {cols} within "
+           f"{col_err.max():.3e} of their peaks")
+    return primal, fused
+
+
+def multiloc_case(nwave: int, dtype, device):
+    """(stacked atmosphere, laycfg, ktab, surf, cfg) of the headline deck
+    at three locations: tests/test_multiloc.py's perturbations (T x 1.05
+    at 10 degrees; T x 0.95 and VMR x 1.1 at -20)."""
+    from archnemesis_tpu_torch.core.types import stack_atmospheres
+    from archnemesis_tpu_torch.synthetic import headline_deck
+
+    atm, laycfg, ktab, surf, cfg = headline_deck(nwave, dtype=dtype,
+                                                 device=device)
+    lat = atm.latitude
+    multi = stack_atmospheres([
+        atm,
+        atm.replace(t=atm.t * 1.05, latitude=lat.new_tensor(10.0)),
+        atm.replace(t=atm.t * 0.95, vmr=atm.vmr * 1.1,
+                    latitude=lat.new_tensor(-20.0)),
+    ])
+    return multi, laycfg, ktab, surf, cfg
+
+
+def model_1002_entry(base: str, atm):
+    """Model 1002 on the temperature at ``MULTILOC_LOCS``' three
+    locations, parsed from an .apr block as ``read_apr`` parses it."""
+    import io
+
+    from archnemesis_tpu_torch.models import MODEL_REGISTRY
+
+    locs = os.path.join(base, "locs.dat")
+    with open(locs, "w") as f:
+        f.write(MULTILOC_LOCS)
+    ctx = dict(npro=atm.h.shape[-1], gas_id=atm.gas_id, iso_id=atm.iso_id,
+               ndust=atm.dust.shape[-1])
+    return MODEL_REGISTRY[1002].from_apr(io.StringIO(locs + "\n"),
+                                         [0, 0, 1002], 0, ctx)
+
+
+def _multiloc_case(card: str, base: str):
+    """The multi-location headline and model 1002 on the card. Returns
+    (kernel-1 launches of one multi-location forward, kernel-1t launches
+    of one Jacobian)."""
+    import torch
+
+    from archnemesis_tpu_torch.forward import forward_nadir
+    from archnemesis_tpu_torch.models import MODEL_REGISTRY
+    from archnemesis_tpu_torch.multiloc import (
+        forward_nadir_multiloc,
+        select_location,
+    )
+
+    specs = {}
+    for dtype in (torch.float64, torch.float32):
+        multi, laycfg, ktab, surf, cfg = multiloc_case(8192, dtype, "cuda")
+        args = (laycfg, ktab, None, None, surf, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        spec, primal = _primal_launches(lambda: forward_nadir_multiloc(
+            multi, *args, emiss_ang=MULTILOC_EMISS, device="cuda"))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if primal != 6:
+            raise AssertionError(f"multi-location forward: {primal} primal "
+                                 "launches, expected 6 for 3 locations")
+        singles = torch.stack([forward_nadir(
+            select_location(multi, i), *args, emiss_ang=MULTILOC_EMISS[i],
+            device="cuda")[:, 0] for i in range(3)], dim=1)
+        r = rel_err(spec.double().cpu().numpy(),
+                    singles.double().cpu().numpy())
+        bound = 2e-12 if dtype == torch.float64 else MULTILOC_F32_SELF
+        if not r.max() < bound:
+            raise AssertionError(f"multi-location {dtype}: {r.max():.3e} "
+                                 f"off the single forwards (bound {bound})")
+        ms = _timed(lambda: forward_nadir_multiloc(
+            multi, *args, emiss_ang=MULTILOC_EMISS, device="cuda"),
+            MULTILOC_RUNS)
+        ms1 = _timed(lambda: [forward_nadir(
+            select_location(multi, i), *args, emiss_ang=MULTILOC_EMISS[i],
+            device="cuda") for i in range(3)], MULTILOC_RUNS)
+        specs[dtype] = spec
+        _print(f"multi-location headline (3 locations x 8192 waves x 20 g x "
+               f"71 layers x 7 gases, {dtype}, {card}): {primal} primal "
+               f"launches per forward; equal to three single forwards within "
+               f"{r.max():.3e} (bound {bound:.0e}); median {ms[0]:.3f} ms "
+               f"over {MULTILOC_RUNS} runs (min {ms[1]:.3f}, max "
+               f"{ms[2]:.3f}) against {ms1[0]:.3f} ms for the three single "
+               f"forwards; peak memory {peak:.3f} GiB")
+    r = rel_err(specs[torch.float32].double().cpu().numpy(),
+                specs[torch.float64].cpu().numpy())
+    _print(f"multi-location float32 vs float64: max rel {r.max():.3e}, "
+           f"median {np.median(r):.3e}")
+    if not (r.max() < F32_BOUNDS[0] and np.median(r) < F32_BOUNDS[1]):
+        raise AssertionError("multi-location float32 outside 1e-4 / 1e-5")
+
+    # model 1002: a jacfwd of the three per-location temperature scales
+    def jac_of(nwave, device):
+        multi, laycfg, ktab, surf, cfg = multiloc_case(nwave, torch.float64,
+                                                       device)
+        parsed = model_1002_entry(base, multi)
+
+        def f(x):
+            m = MODEL_REGISTRY[1002].apply(parsed.entry, multi, x)
+            return forward_nadir_multiloc(m, laycfg, ktab, None, None, surf,
+                                          cfg, emiss_ang=MULTILOC_EMISS,
+                                          device=device)
+
+        x0 = torch.as_tensor(parsed.x0, device=device)
+        return lambda: torch.func.jacfwd(f)(x0)
+
+    full = jac_of(8192, "cuda")
+    jac, fused = _fused_launches(full)
+    if fused != 6 or not torch.isfinite(jac).all():
+        raise AssertionError(f"model 1002 Jacobian: {fused} fused launches")
+    ms = _timed(full, TELLURIC_EVAL_RUNS)
+    del jac
+    small = jac_of(MULTILOC_CPU_NWAVE, "cuda")()
+    want = jac_of(MULTILOC_CPU_NWAVE, "cpu")()
+    col_err = [float((small[:, :, j].cpu() - want[:, :, j]).abs().max()
+                     / want[:, :, j].abs().max()) for j in range(3)]
+    if not max(col_err) < 1e-10:
+        raise AssertionError(f"model 1002 Jacobian off the CPU: {col_err}")
+    _print(f"model 1002 jacfwd (3 per-location temperature scales, headline "
+           f"at 3 locations, float64, {card}): {fused} fused launches; median "
+           f"{ms[0]:.3f} ms over {TELLURIC_EVAL_RUNS} runs (min {ms[1]:.3f}, "
+           f"max {ms[2]:.3f}), peak memory {ms[3]:.3f} GiB; at "
+           f"{MULTILOC_CPU_NWAVE} waves the CPU's columns within "
+           f"{max(col_err):.3e} of their peaks")
+    return primal, fused
+
+
+def phase_telluric_multiloc(card: str):
+    """Phase 24: the telluric run and the multi-location forward on the
+    card. Returns (kernel-1 launches, kernel-1t launches) of their main
+    paths."""
+    with tempfile.TemporaryDirectory() as base:
+        t0 = time.perf_counter()
+        tel = _telluric_case(card, base)
+        t1 = time.perf_counter()
+        loc = _multiloc_case(card, base)
+        _print(f"phase 24: telluric {t1 - t0:.1f} s, multi-location "
+               f"{time.perf_counter() - t1:.1f} s")
+    if "h5py" in sys.modules:
+        raise AssertionError("phase 24 imported h5py")
+    return tel[0] + loc[0], tel[1] + loc[1]
+
+
 def main() -> int:
     import torch
 
@@ -4519,6 +4968,8 @@ def main() -> int:
     ns_launches = phase_nested(card)
     phase_occultation(card)
     table_launches, _ = phase_tablegen(card)
+    em_launches, em_tan_launches = phase_emissions(card)
+    tl_launches, tl_tan_launches = phase_telluric_multiloc(card)
 
     kernels = [dict(
         name="overlap_combine",
@@ -4526,7 +4977,7 @@ def main() -> int:
         source="archnemesis_tpu_torch/csrc/overlap_combine.cu",
         replaces="archnemesis_tpu/ops/overlap_pallas.py:398",
         launches=(launches + scat_launches + model_launches + geom_launches
-                  + ns_launches),
+                  + ns_launches + em_launches + tl_launches),
         max_abs_err=record["max_abs_err"],
         ms=record["ms"],
         plain_ms=record["plain_ms"],
@@ -4539,7 +4990,7 @@ def main() -> int:
         source="archnemesis_tpu_torch/csrc/overlap_combine.cu",
         replaces="archnemesis_tpu/ops/overlap_pallas.py:292",
         launches=(tan_launches + scat_tan_launches + model_tan_launches
-                  + geom_tan_launches),
+                  + geom_tan_launches + em_tan_launches + tl_tan_launches),
         max_abs_err=tan_record["max_abs_err"],
         ms=tan_record["ms"],
         plain_ms=tan_record["plain_ms"],

@@ -579,3 +579,127 @@ def models_filter_deck(base: str) -> str:
         f.write("\n".join(inp_lines) + "\n")
     chip_smoke._write_apr(deck, [chip_smoke._apr_block("m447_doppler")])
     return deck
+
+
+# --- non-LTE emissions, telluric transmission, multi-location
+
+EMISS_DIR = "tests/fixtures/jupiter_emiss"
+EM_GOLDEN = chip_smoke.EM_GOLDEN
+EMISS_NAMES = chip_smoke.EMISS_NAMES
+
+
+def write_emission_exports(out_dir: str = chip_smoke.PORT_DATA):
+    """Write the ``.npz`` exports of the two emission tables
+    (``archnemesis_tpu_torch/data/emiss_{c2h2_chem,nh3_fluor}.npz``, read
+    on machines without h5py) from the HDF5 fixtures."""
+    from archnemesis_tpu_torch.io.hdf5 import export_deck_hdf5
+
+    for name in EMISS_NAMES:
+        export_deck_hdf5(os.path.join(EMISS_DIR, name + ".h5"),
+                         os.path.join(out_dir, name + ".npz"))
+
+
+def telluric_ktables(wave):
+    """(g_ord, del_g, k (2, NWAVE, NG, NP, NT), press [atm], temp [K]) of
+    the two telluric gases (H2O, CO2): the seeded recipe of
+    ``tests/test_telluric.py:_ktab`` (12 pressures x 8 temperatures x 10
+    g) on the grid ``wave``."""
+    press = np.logspace(-6, 0.1, 12)
+    temp = np.linspace(150.0, 320.0, 8)
+    rng = np.random.default_rng(4)
+    x, w = np.polynomial.legendre.leggauss(10)
+    g_ord, del_g = 0.5 * (x + 1), 0.5 * w
+    band = 0.05 + np.exp(
+        -0.5 * ((wave[:, None] - rng.uniform(wave[0], wave[-1], 5)) / 15.0)
+        ** 2).sum(1)
+    k = (5e-22 * band[None, :, None, None, None]
+         * np.exp(2.0 * (g_ord - 0.6))[None, None, :, None, None]
+         * (press / press.max())[None, None, None, :, None] ** 0.1
+         * (temp / 250.0)[None, None, None, None, :] ** -0.4
+         * np.array([1.0, 0.3])[:, None, None, None, None])
+    return g_ord, del_g, k, press, temp
+
+
+def write_telluric_tables(out_dir: str):
+    """The two telluric ``.kta`` tables (``chip_smoke.TELLURIC_TABLES``),
+    written by the port's ``write_kta`` on ``chip_smoke.TELLURIC_WAVE``."""
+    from archnemesis_tpu_torch.io.ktables import write_kta
+
+    wave = chip_smoke.TELLURIC_WAVE
+    g_ord, del_g, k, press, temp = telluric_ktables(wave)
+    for i, (name, gas_id) in enumerate(chip_smoke.TELLURIC_TABLES):
+        write_kta(os.path.join(out_dir, name), gas_id, 0, g_ord, del_g,
+                  press, temp, wave, k[i])
+
+
+def write_telluric_run(deck_dir: str) -> str:
+    """``<deck_dir>/cirstest.h5``: the JAX package's ``write_deck_hdf5`` of
+    the jupiter_nadir copy in ``deck_dir`` (``chip_smoke.telluric_deck``,
+    which holds the telluric tables), with a ``Telluric`` group: the CIRC
+    Earth profile restricted to H2O and CO2 (its molecular weight as
+    MOLWT, AMFORM 0), ALTITUDE 4207.3 m and EMISS_ANG 160 (as
+    ``tests/test_telluric.py``), and the two tables by relative
+    LOCATION. Returns the file's path."""
+    import h5py
+
+    from archnemesis_tpu.io.hdf5 import write_deck_hdf5
+    from archnemesis_tpu.rt.telluric import extract_atmosphere_circ
+
+    h5 = os.path.join(deck_dir, "cirstest.h5")
+    write_deck_hdf5(h5, jax_load_deck(deck_dir, "cirstest"))
+    circ = extract_atmosphere_circ()
+    cols = [list(circ.gas_id).index(g) for g in (1, 2)]
+    with h5py.File(h5, "a") as f:
+        # the loaded deck's table locations are resolved paths: store them
+        # relative to the deck, as the .kls names them
+        sp = f["Spectroscopy"]
+        locs = [os.path.relpath(x.decode(), deck_dir)
+                for x in sp["LOCATION"][()]]
+        del sp["LOCATION"]
+        sp["LOCATION"] = np.asarray([x.encode() for x in locs])
+        tg = f.create_group("Telluric")
+        tg["ALTITUDE"] = chip_smoke.TELLURIC_ALTITUDE
+        tg["EMISS_ANG"] = chip_smoke.TELLURIC_EMISS_ANG
+        a = tg.create_group("Atmosphere")
+        a["H"] = np.asarray(circ.h, dtype=np.float64)
+        a["P"] = np.asarray(circ.p, dtype=np.float64)
+        a["T"] = np.asarray(circ.t, dtype=np.float64)
+        a["VMR"] = np.asarray(circ.vmr, dtype=np.float64)[:, cols]
+        a["ID"] = np.asarray([1, 2], dtype=np.int32)
+        a["ISO"] = np.asarray([0, 0], dtype=np.int32)
+        a["AMFORM"] = 0
+        a["MOLWT"] = np.asarray(circ.molwt, dtype=np.float64)
+        a["IPLANET"] = 3
+        a["LATITUDE"] = float(np.asarray(circ.latitude))
+        sp = tg.create_group("Spectroscopy")
+        sp["ILBL"] = 0
+        sp["LOCATION"] = np.asarray(
+            [name.encode() for name, _ in chip_smoke.TELLURIC_TABLES])
+    return h5
+
+
+def write_telluric_export(out_dir: str = chip_smoke.PORT_DATA):
+    """Write the telluric run's committed files: the two tables and the
+    ``.npz`` export of the run file (``chip_smoke.TELLURIC_EXPORT``), made
+    in a temporary copy of jupiter_nadir."""
+    import tempfile
+
+    from archnemesis_tpu_torch.io.hdf5 import export_deck_hdf5
+
+    write_telluric_tables(out_dir)
+    with tempfile.TemporaryDirectory() as base:
+        deck = chip_smoke.telluric_deck(base, tables_dir=out_dir)
+        export_deck_hdf5(write_telluric_run(deck),
+                         os.path.join(out_dir,
+                                      os.path.basename(
+                                          chip_smoke.TELLURIC_EXPORT)))
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip: the kernels are built with nvcc and have no
+    CPU mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel is built with nvcc "
+                    "and has no CPU mode")
+    return torch.device("cuda")

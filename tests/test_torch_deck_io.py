@@ -114,8 +114,9 @@ def test_unported_branches_raise(tmp_path_factory):
     was ported): the Titan deck's line-by-line table read as the JAX
     package reads it, every field of the deck. Under ILBL = 1 the same
     kind of file is read as a runtime ``.lls`` and, having no WAVE line,
-    refused as the JAX package refuses it; ``read_drv`` is still
-    unported (item 9)."""
+    refused as the JAX package refuses it. The ``.drv`` reader and writer
+    (unported before item 9) are there; ``tests/test_torch_drv_output.py``
+    holds them to the JAX package's."""
     got = legacy.load_deck("tests/fixtures/titan_fov", "ch3cn")
     want = jax_load_deck("tests/fixtures/titan_fov", "ch3cn")
     assert int(got.settings.ilbl) == 2 and got.ktables.k.shape[2] == 1
@@ -135,7 +136,7 @@ def test_unported_branches_raise(tmp_path_factory):
     open(os.path.join(d, "cirstest.lls"), "w").write("x.lta\n")
     with pytest.raises(ValueError, match="must define WAVE"):
         legacy.load_deck(d, "cirstest")
-    assert not hasattr(legacy, "read_drv")
+    assert callable(legacy.read_drv) and callable(legacy.write_drv)
 
 
 def test_path_redirects_match_jax():

@@ -233,8 +233,30 @@ def test_cia_and_stellar_hdf5_match_jax(tmp_path):
     assert read_stellar_hdf5(SO_H5) is None
 
 
+def _add_telluric_group(f):
+    """The telluric run's ``Telluric`` group (``chip_smoke.TELLURIC_EXPORT``)
+    written into ``f``, its table locations made absolute."""
+    z = np.load(chip_smoke.TELLURIC_EXPORT)
+    for key in z.files:
+        if not key.startswith("Telluric/"):
+            continue
+        v = z[key]
+        if key.endswith("/LOCATION"):
+            v = np.asarray([os.path.abspath(os.path.join(
+                chip_smoke.PORT_DATA, x.decode())).encode() for x in v])
+        f[key] = v
+
+
 def test_telluric_group_raises(tmp_path):
-    h5 = _edited(SO_H5, tmp_path / "tel.h5", lambda f: f.create_group(
-        "Telluric").create_dataset("ALTITUDE", data=0.0))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        load_deck_hdf5(h5)
+    """A ``Telluric`` group (which raised before the telluric transmission
+    was ported) loads in both packages alike, field by field: the Earth
+    atmosphere, its tables, ALTITUDE and EMISS_ANG; the rest of the run
+    as without it."""
+    h5 = _edited(SO_H5, tmp_path / "tel.h5", _add_telluric_group)
+    got, want = load_deck_hdf5(h5), jax_load_h5(h5)
+    assert_same_structure(got.telluric, want.telluric, "telluric")
+    assert (got.telluric.altitude, got.telluric.emiss_ang) == (
+        chip_smoke.TELLURIC_ALTITUDE, chip_smoke.TELLURIC_EMISS_ANG)
+    for part in PARTS:
+        assert_same_structure(getattr(got, part), getattr(want, part), part)
+    assert load_deck_hdf5(SO_H5).telluric is None

@@ -184,6 +184,44 @@ def test_slice_entry_points_raise_without_cuda(no_cuda):
     assert loaded.ktables.k.device.type == "cpu"
 
 
+def test_emission_telluric_multiloc_entry_points_raise_without_cuda(
+        no_cuda, tmp_path):
+    """The emission forward, the multi-location forward and the telluric
+    set-up run on the card unless asked for the CPU; the table, run-file
+    and ``.drv`` readers are host-only."""
+    import chip_smoke
+    from archnemesis_tpu_torch.core.types import stack_atmospheres
+    from archnemesis_tpu_torch.io.emissions import read_emission_tables
+    from archnemesis_tpu_torch.io.hdf5 import load_deck_hdf5
+    from archnemesis_tpu_torch.multiloc import forward_nadir_multiloc
+    from archnemesis_tpu_torch.ops.emissions import locate_emission_gases
+    from archnemesis_tpu_torch.retrievals import make_retrieval_setup
+
+    em = read_emission_tables(list(chip_smoke.EMISS_EXPORTS))
+    assert em.k.device.type == "cpu"
+    atm, laycfg, ktab, surf, cfg = synthetic.headline_deck(8, torch.float64,
+                                                           "cpu")
+    cols = locate_emission_gases(em.replace(gas_id=(atm.gas_id[0],) * 2,
+                                            iso_id=(atm.iso_id[0],) * 2),
+                                 atm.gas_id[:1], atm.iso_id[:1])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        forward_nadir(atm, laycfg, ktab, None, None, surf, cfg,
+                      emiss_ang=0.0, emis=em, emis_gas_cols=cols)
+    multi = stack_atmospheres([atm, atm])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        forward_nadir_multiloc(multi, laycfg, ktab, None, None, surf, cfg,
+                               emiss_ang=0.0)
+    deck = chip_smoke.telluric_deck(str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_retrieval_setup(deck, "cirstest",
+                             deck_file=chip_smoke.TELLURIC_EXPORT)
+    run = load_deck_hdf5(chip_smoke.TELLURIC_EXPORT, base_dir=deck)
+    assert run.telluric.ktables.k.device.type == "cpu"
+    got = forward_nadir_multiloc(multi, laycfg, ktab, None, None, surf, cfg,
+                                 emiss_ang=0.0, device="cpu")
+    assert got.shape == (8, 2) and got.device.type == "cpu"
+
+
 def test_forward_nadir_on_numpy_inputs(no_cuda):
     """Structures holding numpy arrays run where ``device`` says: on the
     card by default (so here it raises), on the CPU when asked."""

@@ -2,7 +2,8 @@
 package and the reference goldens (``tests/goldens/models_apply.npz`` and
 ``models_exo_venus.npz``).
 
-Every profile id the JAX package registers but 1002: the .apr parse
+Every profile id the JAX package registers but 1002 (held to it in
+``tests/test_torch_multiloc.py``): the .apr parse
 (XA/SA/LX equal to the JAX reader's), ``apply_state`` (or the model's own
 ``apply`` where the golden comes from a direct call) on the jupiter_nadir
 atmosphere against JAX at rtol 1e-10 and its JVP through the whole state at
@@ -340,8 +341,9 @@ def test_recurrences_make_no_per_level_operations(atms):
 
 
 def test_registry_holds_all_but_two_ids():
-    assert set(MODEL_REGISTRY) == set(JAX_MODELS) - {202, 1002}
-    assert len(MODEL_REGISTRY) == 35
+    """Every id of the JAX package, 202 and 1002 included since item 9."""
+    assert set(MODEL_REGISTRY) == set(JAX_MODELS)
+    assert len(MODEL_REGISTRY) == 37
     for mid, cls in MODEL_REGISTRY.items():
         assert cls.id == mid
         domain = getattr(cls, "domain", "atmosphere")

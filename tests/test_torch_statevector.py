@@ -137,18 +137,34 @@ def test_models_from_apr_and_apply(nadir, varident, tmp_path, monkeypatch):
 
 
 def test_unported_model_id_raises(tmp_path):
-    """The two ids the port does not register yet name their queue item;
-    an id neither package knows raises as well."""
-    _pdeck = load_deck(DECK, "cirstest")
+    """Ids 202 (telluric VMR scale) and 1002 (per-location scales, with its
+    locations file), which raised before item 9 was ported, parse as the
+    JAX package parses them: the same entries, a priori and covariance
+    (1002's exponential angular-distance correlation). An id neither
+    package knows raises."""
+    pdeck = load_deck(DECK, "cirstest")
+    jdeck = jax_load_deck(DECK, "cirstest")
+    (tmp_path / "locs.dat").write_text(
+        "3 40.0\n10.0 20.0 1.0 0.1\n15.0 35.0 1.1 0.2\n-30.0 90.0 0.9 0.3\n")
     apr = tmp_path / "t.apr"
-    for model_id in (202, 1002):
-        apr.write_text(f"header\n1\n0 0 {model_id}\n")
-        with pytest.raises(NotImplementedError,
-                           match=f"model id {model_id}.*Queue 1 item 9"):
-            port_sv.read_apr(str(apr), _pdeck.atmosphere)
+    apr.write_text("header\n3\n1 0 202\n1.05 0.1\n0 0 1002\nlocs.dat\n"
+                   "11 0 1002\nlocs.dat\n")
+    got = port_sv.read_apr(str(apr), pdeck.atmosphere)
+    want = jax_sv.read_apr(str(apr), jdeck.atmosphere)
+    assert [e.model_id for e in got.entries] == [202, 1002, 1002]
+    for g, w in zip(got.entries, want.entries):
+        assert (g.varident, g.ix, g.nx, g.target.value, g.target_idx,
+                g.extra) == (w.varident, w.ix, w.nx, w.target.value,
+                             w.target_idx, w.extra)
+    for name in ("xa", "sa", "lx", "inum"):
+        np.testing.assert_allclose(getattr(got, name),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=1e-10, atol=0, err_msg=name)
+    # correlated within a block of locations, not across blocks
+    assert got.sa[1, 2] != 0.0 and got.sa[1, 4] == 0.0
     apr.write_text("header\n1\n0 0 12345\n")
     with pytest.raises(NotImplementedError, match="model id 12345"):
-        port_sv.read_apr(str(apr), _pdeck.atmosphere)
+        port_sv.read_apr(str(apr), pdeck.atmosphere)
 
 
 def test_domain_dispatchers_pass_through(svs):
