@@ -252,21 +252,62 @@ def extract_atmosphere_era5(date: str = "01-01-2020",
                             latitude: float = 19.82067,
                             longitude: float = -155.46806) -> Atmosphere:
     """ERA5-reanalysis Earth atmosphere at a location and time (reference
-    Telluric_0.extract_atmosphere_era5:178).
+    Telluric_0.extract_atmosphere_era5:178): P/T/H2O/O3 from the Climate
+    Data Store, the other species (CO2, N2O, CO, CH4, O2, N2) interpolated
+    from the CIRC case-1 profile; an Atmosphere of float64 CPU tensors.
 
-    It needs the optional ``cdsapi`` and ``pygrib`` packages and a
-    download from the Copernicus Climate Data Store, which the port does
-    not make: it raises and names the offline routes. The request
-    (``era5_request``), the grid interpolation (``grib_interp_location``)
-    and the profile assembly (``era5_profiles_to_atmosphere``) are host
-    functions that run without them.
+    Needs the optional ``cdsapi`` and ``pygrib`` packages (imported here,
+    raising ``NotImplementedError`` with the offline routes when either is
+    missing) and access to the Copernicus Climate Data Store, to which
+    ``cdsapi`` makes the download. The request (``era5_request``), the grid
+    interpolation (``grib_interp_location``) and the profile assembly
+    (``era5_profiles_to_atmosphere``) are host functions that run without
+    them.
     """
-    del date, time, latitude, longitude
-    raise NotImplementedError(
-        "ERA5 extraction needs the optional `cdsapi` + `pygrib` packages "
-        "and a download from the Copernicus Climate Data Store "
-        "(https://cds.climate.copernicus.eu/api-how-to), which this "
-        "package does not make. Offline, use extract_atmosphere_circ() "
-        "(the committed CIRC case-1 standard atmosphere), "
-        "era5_profiles_to_atmosphere() on profiles already downloaded, or "
-        "io.legacy.read_ref() on an Earth profile.")
+    import os
+    import tempfile
+
+    try:
+        import cdsapi
+        import pygrib
+    except ImportError as e:
+        raise NotImplementedError(
+            "ERA5 extraction needs the optional `cdsapi` + `pygrib` "
+            "packages and network access to the Copernicus Climate Data "
+            "Store (https://cds.climate.copernicus.eu/api-how-to). "
+            "Offline, use extract_atmosphere_circ() (the committed CIRC "
+            "case-1 standard atmosphere), era5_profiles_to_atmosphere() on "
+            "profiles already downloaded, or io.legacy.read_ref() on an "
+            "Earth profile.") from e
+
+    dataset, request, press_pa = era5_request(date, time, latitude,
+                                              longitude)
+    with tempfile.TemporaryDirectory() as tmp:
+        grib = os.path.join(tmp, "download.grib")
+        cdsapi.Client().retrieve(dataset, request, grib)
+
+        wanted = {"Temperature": [], "Specific humidity": [],
+                  "Ozone mass mixing ratio": []}
+        latitudes = longitudes = None
+        grbs = pygrib.open(grib)
+        try:
+            for grb in grbs:
+                if grb.name in wanted:
+                    if latitudes is None:
+                        latitudes, longitudes = grb.latlons()
+                    wanted[grb.name].append(grb.values)
+        finally:
+            grbs.close()
+
+    isort = np.argsort(ERA5_PRESS_LEVELS_HPA)[::-1]
+
+    def located(name):
+        stack = np.stack(wanted[name], axis=-1)  # (2, 2, NLEV)
+        return grib_interp_location(
+            stack, latitudes, longitudes, latitude, longitude
+        )[isort]
+
+    return era5_profiles_to_atmosphere(
+        press_pa, located("Temperature"), located("Specific humidity"),
+        located("Ozone mass mixing ratio"), latitude, longitude,
+    )

@@ -1,10 +1,14 @@
 """Paths and loaders of the committed data files the port reads.
 
+The counterpart of the JAX package's ``data/__init__.py`` (the JSON
+physics assets: gas and isotope masses, planetary constants,
+saturation-vapour-pressure coefficients; ``gas_name``, ``calc_mmw``) and
+``data/datadir.py`` (``data_root``, ``data_path``, ``find_table``: the
+reference-data tree of CIA tables, stellar spectra and Earth profiles).
 The port reads (never writes) the data files that ship with the JAX
-package under ``archnemesis_tpu/data/``: the analytic CIA band tables, the
-reference CIA ``.tab`` tables and the JSON physics assets (gas and isotope
-masses, planetary constants, saturation-vapour-pressure coefficients).
-This is a file read by path, not an import of that package.
+package under ``archnemesis_tpu/data/``, by path: this is a file read, not
+an import of that package. The port's own ``data/`` directory holds the
+exports and tables that the card's machine reads without h5py.
 """
 
 import json
@@ -26,13 +30,16 @@ def data_file(*parts: str) -> str:
     return path
 
 
-def data_path(*parts: str) -> str:
-    """Path under the reference-data tree (``cia/``, ``stellar/``,
-    ``reference_profiles/``): ``$ARCHNEMESIS_TPU_DATA`` if set, else the
-    committed assets."""
-    root = os.environ.get("ARCHNEMESIS_TPU_DATA",
+def data_root() -> str:
+    """Directory holding ``cia/``, ``stellar/`` and ``reference_profiles/``:
+    ``$ARCHNEMESIS_TPU_DATA`` if set, else the committed assets."""
+    return os.environ.get("ARCHNEMESIS_TPU_DATA",
                           os.path.join(DATA_ROOT, "reference_data"))
-    return os.path.join(root, *parts)
+
+
+def data_path(*parts: str) -> str:
+    """Path under the reference-data tree (``data_root()``)."""
+    return os.path.join(data_root(), *parts)
 
 
 def find_table(name: str, kind: str, base_dir: str = ".") -> str:
@@ -63,6 +70,14 @@ def planet_info():
     return _load_asset("planet_info")
 
 
+def gas_name(gas_id: int, iso_id: int = 0) -> str:
+    """The gas's name, or its isotopologue's when ``iso_id`` is not 0."""
+    gi = gas_info()[str(gas_id)]
+    if iso_id == 0:
+        return gi["name"]
+    return gi["isotope"][str(iso_id)]["name"]
+
+
 def molecular_weight(gas_id: int, iso_id: int = 0) -> float:
     """Molar mass (g/mol) of a gas (iso_id=0: abundance-weighted mean).
     Unknown isotopologue ids fall back to the gas mean (some legacy decks
@@ -71,6 +86,18 @@ def molecular_weight(gas_id: int, iso_id: int = 0) -> float:
     if iso_id == 0 or str(iso_id) not in gi["isotope"]:
         return gi["mmw"]
     return gi["isotope"][str(iso_id)]["mass"]
+
+
+def calc_mmw(vmr, ids, isos=None) -> float:
+    """Mean molecular weight (g/mol) for volume mixing ratios ``vmr`` of
+    gases ``ids`` (reference ``Data/gas_data.py:38``, Calc_mmw): each gas
+    weighs its terrestrial-abundance mean molar mass; ``isos`` is accepted
+    and not used, as there."""
+    del isos
+    total = 0.0
+    for i, gid in enumerate(ids):
+        total += vmr[i] * molecular_weight(int(gid), 0)
+    return total
 
 
 def svp_coefficients():

@@ -14,7 +14,9 @@ without them. Phases, each of which fails the run on its own:
    the line-by-line cross-section (``csrc/lbl_cross_section.cu``), the
    combine's A/B variants (``csrc/overlap_variants.cu``) and the FMA-peak
    probe (``csrc/fma_peak.cu``), with the build times and ptxas' register
-   reports;
+   reports; beside them the host fixed-width decoder
+   (``native/src/fixed_width.cpp``, g++) with the compiler's version and
+   its build time;
 2. kernel vs plain: the kernel against its plain PyTorch version at NG
    10, 20 and 32 (the largest the kernel takes) in float32 (rtol 2e-5,
    atol 1e-7, the JAX package's own Pallas-vs-XLA bound) and float64
@@ -262,6 +264,31 @@ without them. Phases, each of which fails the run on its own:
     launches, time and peak memory), and at ``MULTILOC_CPU_NWAVE`` waves
     against the CPU (each column within 1e-10 of its peak); neither phase
     imports h5py;
+25. database ingestion into kernel 2 ("ingestion"): a HITRAN ``.par``
+    catalogue of 500,000 160-byte records from a seed (``ingest_par``:
+    30,000 CO records of isotopes 1-3 at 1,900-2,300 cm-1, the rest other
+    molecules at 500-12,000 cm-1, iso chars 0, A and B, Fortran fields
+    without a leading zero) written to disk and decoded by the C++ and the
+    numpy decoders, equal bit for bit, each with its MB/s; CO iso 1 through
+    ``linelist_from_par`` (TIPS from the ``.npz`` export) onto phase 22's
+    grid (2000-2250 cm-1 at 0.005 cm-1), through ``ops/lbl.
+    lbl_cross_section(device="cuda")`` at the LBL headline's 40 layers in
+    float32 and float64 (1 launch each): float64 within ``LBL_F64_RTOL`` of
+    the plain version and float32 within ``LBL_F32_BOUNDS`` of it on
+    ``LBL_COMPARE_LAYERS``, float32 within the bound of the plain float32
+    version on all layers; the line counts, the median kernel time in both
+    types beside ``lbl_bound_ms``, the peak memory; then a GEISA list
+    (20,000 records through ``format_geisa_records``), an ExoMol list
+    (5,000 states, 200,000 transitions, the ``.trans`` gzip'd) and an ans
+    store's windowed fetch (``AnsDatabase`` on the CO export, its windowed
+    and ``s_min`` fetches equal to the full read's slices), each through
+    one float32 launch held to the plain version at the same bounds; and
+    the profiling module around phase 3's golden-deck forward:
+    ``stopwatch`` at least the forward's CUDA-event time, ``trace()`` into
+    ``build/ingest_trace`` holding its ``annotate`` region and kernel 1's
+    6 launches, ``device_memory_report()``'s ``cuda:0`` peak at least
+    ``max_memory_allocated``; the phase imports neither h5py nor
+    matplotlib;
 
 then a JSON line of the kernels (launches on the main paths, error, times,
 bound, library time) and, last, ``{"ok": true, "device": {...}}``. ``--profile`` adds
@@ -586,11 +613,13 @@ def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def phase_build():
     """The card and the versions; every kernel library built from the
-    checkout's sources, one nvcc per source, all started together."""
+    checkout's sources, one nvcc per source, and the host fixed-width
+    decoder (``native/src/fixed_width.cpp``, g++), all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
+    from archnemesis_tpu_torch import native
     from archnemesis_tpu_torch.ops import (
         fma_peak,
         lbl_cuda,
@@ -605,12 +634,16 @@ def phase_build():
            f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     modules = (overlap_cuda, lbl_cuda, overlap_variants, fma_peak)
-    with ThreadPoolExecutor(max_workers=len(modules)) as pool:
+    with ThreadPoolExecutor(max_workers=len(modules) + 1) as pool:
         futures = [pool.submit(m.build) for m in modules]
+        decoder = pool.submit(native.build)
         builds = [f.result() for f in futures]
+        decoder = decoder.result()
     for built in builds:
         _print(f"built {built['path']} in {built['seconds']:.2f} s")
         _print(built["ptxas"].strip())
+    _print(f"built the fixed-width decoder {decoder['path']} in "
+           f"{decoder['seconds']:.2f} s with {decoder['compiler']}")
     _print(f"kernel builds: {time.perf_counter() - t0:.2f} s of wall time")
     return card
 
@@ -4935,6 +4968,459 @@ def phase_telluric_multiloc(card: str):
     return tel[0] + loc[0], tel[1] + loc[1]
 
 
+# --- phase 25: database ingestion into kernel 2
+
+# the HITRAN catalogue: 500,000 160-byte records (80 MB), of which the CO
+# records (HITRAN molecule 5) lie at 1,900-2,300 cm-1 by local isotope and
+# the rest are other molecules at 500-12,000 cm-1; about 7,500 CO iso-1
+# lines fall inside the grid's reach (INGEST_WINDOW)
+INGEST_RECORDS = 500_000
+INGEST_CO = {"1": 8_000, "2": 11_000, "3": 11_000}
+INGEST_SEED = 25
+# the grid of phase 22's production table: 2000-2250 cm-1 at 0.005 cm-1
+INGEST_WAVE = TABLE_WAVE
+# lines farther than wn_approx_window (75 cm-1) from the grid add nothing
+INGEST_WINDOW = (float(TABLE_WAVE[0]) - 75.0, float(TABLE_WAVE[-1]) + 75.0)
+GEISA_RECORDS = 20_000
+EXOMOL_STATES, EXOMOL_TRANS = 5_000, 200_000
+INGEST_KERNEL_RUNS = 10
+# (field, first byte, width, decimals) of the fixed-point fields of a
+# HITRAN 160-byte record
+_PAR_FIXED = (("nu", 3, 12, 6), ("gamma_amb", 35, 5, 4),
+              ("gamma_self", 40, 5, 4), ("elower", 45, 10, 4),
+              ("n_amb", 55, 4, 2), ("delta_amb", 59, 8, 6))
+
+
+def _fortran_fixed(values, width: int, decimals: int) -> list:
+    """Each value as a fixed-point field of ``width`` characters; a field
+    one too wide loses its leading zero, as Fortran writes it (0.0676 ->
+    .0676, -0.005 -> -.005)."""
+    out = []
+    for x in values:
+        s = f"{x:{width}.{decimals}f}"
+        if len(s) > width:
+            s = s.replace("0.", ".", 1)
+        out.append(s)
+    return out
+
+
+def _put_column(mat, start: int, strings: list, width: int):
+    """Write equal-width strings into bytes ``start:start + width`` of
+    every row of a (N, stride) uint8 record matrix."""
+    raw = "".join(strings).encode()
+    if len(raw) != mat.shape[0] * width:
+        raise ValueError(f"a field of width {width} overflowed")
+    mat[:, start:start + width] = np.frombuffer(raw, np.uint8).reshape(-1,
+                                                                       width)
+
+
+def ingest_par(n: int = INGEST_RECORDS, seed: int = INGEST_SEED,
+               co: dict = None, width: int = 160) -> bytes:
+    """A HITRAN ``.par`` catalogue of ``n`` records from ``seed``: the CO
+    records of ``co`` (local iso char -> count) at 1,900-2,300 cm-1, the
+    rest of molecules 1-55 but CO at 500-12,000 cm-1 with iso chars 1-9,
+    0 (10), A and B (11, 12), in a shuffled order. Strengths 1e-28-1e-19
+    (log-uniform), every fifth self width 0 (the air fallback), Fortran
+    fields without a leading zero."""
+    rng = np.random.default_rng(seed)
+    co = INGEST_CO if co is None else co
+    n_co = sum(co.values())
+    mol = np.concatenate([np.full(n_co, 5), rng.choice(
+        np.setdiff1d(np.arange(1, 56), [5]), n - n_co)])
+    iso = np.concatenate([np.repeat(list(co), list(co.values())), rng.choice(
+        list("1234567890AB"), n - n_co)])
+    cols = dict(
+        nu=np.concatenate([rng.uniform(1900.0, 2300.0, n_co),
+                           rng.uniform(500.0, 12000.0, n - n_co)]),
+        gamma_amb=rng.uniform(0.03, 0.09, n),
+        gamma_self=np.where(np.arange(n) % 5 == 0, 0.0,
+                            rng.uniform(0.04, 0.1, n)),
+        elower=rng.uniform(0.0, 3000.0, n),
+        n_amb=rng.uniform(0.5, 0.8, n),
+        delta_amb=rng.uniform(-0.01, 0.01, n),
+    )
+    sw = 10.0 ** rng.uniform(-28.0, -19.0, n)
+    a = 10.0 ** rng.uniform(-6.0, 2.0, n)
+    order = rng.permutation(n)
+    mat = np.full((n, width + 1), ord(" "), dtype=np.uint8)
+    mat[:, width] = ord("\n")
+    _put_column(mat, 0, [f"{m:2d}" for m in mol[order]], 2)
+    _put_column(mat, 2, list(iso[order]), 1)
+    _put_column(mat, 15, [f"{x:10.3E}" for x in sw[order]], 10)
+    _put_column(mat, 25, [f"{x:10.3E}" for x in a[order]], 10)
+    for name, start, w, dec in _PAR_FIXED:
+        _put_column(mat, start, _fortran_fixed(cols[name][order], w, dec), w)
+    return mat.tobytes()
+
+
+def ingest_geisa(n: int = GEISA_RECORDS, seed: int = INGEST_SEED) -> dict:
+    """GEISA records of CO's three principal isotopologues at 1,900-2,300
+    cm-1 from ``seed``, as ``format_geisa_records`` takes them."""
+    from archnemesis_tpu_torch.io.hitran import radtran_to_geisa
+
+    rng = np.random.default_rng(seed)
+    mol = radtran_to_geisa(5, 1)[0]
+    codes = np.array([radtran_to_geisa(5, i)[1] for i in (1, 2, 3)])
+    return {
+        "nu": rng.uniform(1900.0, 2300.0, n),
+        "sw": 10.0 ** rng.uniform(-28.0, -19.0, n),
+        "gamma_air": rng.uniform(0.04, 0.09, n),
+        "elower": rng.uniform(0.0, 3000.0, n),
+        "iso_code": codes[rng.integers(0, 3, n)],
+        "mol_id": np.full(n, mol),
+        "a_einstein": 10.0 ** rng.uniform(-4.0, 2.0, n),
+        "n_air": rng.uniform(0.4, 0.9, n),
+        "delta_air": rng.uniform(-0.01, 0.01, n),
+        "gamma_self": np.where(np.arange(n) % 7 == 0, 0.0,
+                               rng.uniform(0.05, 0.11, n)),
+        "n_self": rng.uniform(0.4, 0.9, n),
+    }
+
+
+def ingest_exomol(out_dir: str, n_states: int = EXOMOL_STATES,
+                  n_trans: int = EXOMOL_TRANS, seed: int = INGEST_SEED,
+                  gz: bool = True) -> tuple:
+    """Write an ExoMol triple from ``seed`` into ``out_dir``: ``n_states``
+    states (the ground state at 0, the rest at 0-10,000 cm-1, g = 2J + 1
+    for J 0-60), ``n_trans`` transitions between random pairs of distinct
+    states (the upper the higher), the ``.trans`` gzip'd when ``gz``, and
+    ``a0`` broadening for J 0-60. Returns the (states, trans, broad)
+    paths."""
+    import gzip
+
+    rng = np.random.default_rng(seed)
+    energy = np.concatenate([[0.0], rng.uniform(0.0, 10000.0, n_states - 1)])
+    j = rng.integers(0, 61, n_states).astype(np.float64)
+    ids = np.arange(1, n_states + 1)
+    a = rng.integers(1, n_states + 1, n_trans)
+    b = (a + rng.integers(1, n_states, n_trans) - 1) % n_states + 1
+    up = np.where(energy[a - 1] > energy[b - 1], a, b)
+    low = np.where(energy[a - 1] > energy[b - 1], b, a)
+    paths = tuple(os.path.join(out_dir, name) for name in (
+        "co.states", "co.trans.gz" if gz else "co.trans", "co.broad"))
+    rows = "".join(f"{i:12d} {e:12.6f} {2 * jj + 1:6.1f} {jj:7.1f}\n"
+                   for i, e, jj in zip(ids, energy, j))
+    with open(paths[0], "w") as f:
+        f.write(rows)
+    rows = "".join(f"{u:12d} {lo:12d} {x:10.4e}\n" for u, lo, x in zip(
+        up, low, 10.0 ** rng.uniform(-4.0, 2.0, n_trans))).encode()
+    with (gzip.open if gz else open)(paths[1], "wb") as f:
+        f.write(rows)
+    with open(paths[2], "w") as f:
+        f.write("".join(f"a0 {0.07 - 3e-4 * jj:.4f} {0.7 - 2e-3 * jj:.3f} "
+                        f"{jj:6.1f}\n" for jj in range(61)))
+    return paths
+
+
+def _ingest_state():
+    """(t [K], p [atm], ambient fraction): (NLAY,) float32 CUDA tensors of
+    the LBL headline's 40 layers, from its forward on the card (as phase 7
+    takes them; the layers do not depend on the wave grid, cut here)."""
+    import torch
+
+    from archnemesis_tpu_torch.forward import (
+        ATM_TO_PA,
+        forward_nadir,
+        runtime_ambient_fraction,
+    )
+    from archnemesis_tpu_torch.synthetic import lbl_headline
+
+    atm, laycfg, rt, surf, cfg = lbl_headline(1024, dtype=torch.float32,
+                                              device="cuda")
+    _, diag = forward_nadir(atm, laycfg, rt, None, None, surf, cfg,
+                            emiss_ang=0.0, return_diagnostics=True,
+                            device="cuda")
+    layers = diag["layers"]
+    return (layers.temp, layers.press / ATM_TO_PA,
+            runtime_ambient_fraction(cfg, layers, 0))
+
+
+def _ingest_launch(ll, blocks, state, dtype, packed=None):
+    """k of one synthesis through the entry point
+    (``ops/lbl.lbl_cross_section(device="cuda")``) in ``dtype``, and the
+    kernel-2 launches it made (must be 1), counted from 0."""
+    import torch
+
+    from archnemesis_tpu_torch.ops import lbl_cuda
+    from archnemesis_tpu_torch.ops.lbl import lbl_cross_section
+
+    t, p, amb = (x.to(dtype) for x in state)
+    torch.cuda.synchronize()
+    lbl_cuda.lbl_cross_section.launches = 0
+    k = lbl_cross_section(ll, blocks, t, p, amb, device="cuda",
+                          packed=packed)
+    torch.cuda.synchronize()
+    launches = lbl_cuda.lbl_cross_section.launches
+    if (launches != 1 or tuple(k.shape) != (blocks.n_wave, len(t))
+            or not torch.isfinite(k).all() or not (k >= 0).all()
+            or not (k > 0).any()):
+        raise AssertionError(f"ingested synthesis: {launches} launches, "
+                             f"shape {tuple(k.shape)}, not finite, "
+                             "negative or all zero")
+    return k, launches
+
+
+def _ingest_vs_plain(ll, blocks, k32, state, what: str) -> float:
+    """Kernel 2 against its plain version on the ``LBL_COMPARE_LAYERS`` of
+    ``state``: the float64 kernel at ``LBL_F64_RTOL``, the main path's
+    float32 result ``k32`` within ``LBL_F32_BOUNDS`` of the plain float64
+    version; returns the float64 max abs error."""
+    sel = list(LBL_COMPARE_LAYERS)
+    t64, p64, a64 = (x[sel].double() for x in state)
+    k64, plain64 = lbl_kernel_and_plain(ll, blocks, t64, p64, a64)
+    _lbl_f64_check(k64, plain64, f"{what}, layers {sel}")
+    _lbl_f32_check(k32[:, sel], plain64, f"{what}, layers {sel}")
+    return (k64 - plain64).abs().max().item()
+
+
+def _bitwise_equal(a: dict, b: dict) -> bool:
+    """Two decoders' columns: the same names, types and bits."""
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k].view(np.uint8),
+                                                    b[k].view(np.uint8))
+        for k in a)
+
+
+def _ingest_decoders(path: str, nbytes: int) -> dict:
+    """Both decoders on the catalogue at ``path``: equal bit for bit, with
+    their MB/s; returns the columns."""
+    from archnemesis_tpu_torch.io.hitran import parse_par
+
+    rates = {}
+    for name, use_native in (("numpy", False), ("native", None)):
+        t0 = time.perf_counter()
+        rec = parse_par(path, use_native=use_native)
+        seconds = time.perf_counter() - t0
+        rates[name] = (rec, nbytes / 1e6 / seconds, seconds)
+    same = _bitwise_equal(rates["numpy"][0], rates["native"][0])
+    _print(f"decoders on {rates['numpy'][0]['nu'].size} records "
+           f"({nbytes / 1e6:.1f} MB): " + ", ".join(
+               f"{name} {mbs:.1f} MB/s ({s:.3f} s)"
+               for name, (_, mbs, s) in rates.items())
+           + f"; columns equal bit for bit: {same} "
+           f"({'ok' if same else 'FAIL'})")
+    if not same:
+        raise AssertionError("the native and numpy decoders differ")
+    return rates["native"][0]
+
+
+def phase_ingest(card: str):
+    """Phase 25: database ingestion into kernel 2 (HITRAN, GEISA, ExoMol and
+    an ans store), then the profiling module around a golden-deck forward.
+    Returns (kernel-2 launches, kernel-1 launches) of the main path."""
+    import dataclasses
+
+    import torch
+
+    from archnemesis_tpu_torch.io.ansdb import AnsDatabase
+    from archnemesis_tpu_torch.io.exomol import linelist_from_exomol
+    from archnemesis_tpu_torch.io.geisa import (
+        format_geisa_records,
+        linelist_from_geisa,
+        parse_geisa,
+    )
+    from archnemesis_tpu_torch.io.hitran import (
+        TIPS_PATH,
+        linelist_from_par,
+        read_tips,
+    )
+    from archnemesis_tpu_torch.io.linedata import (
+        _slice_lines,
+        read_ans_linedata,
+    )
+    from archnemesis_tpu_torch.ops.lbl import (
+        build_blocks,
+        lbl_cross_section,
+        lbl_cross_section_plain,
+    )
+    from archnemesis_tpu_torch.ops.overlap_cuda import combine_pair
+    from archnemesis_tpu_torch.tools.common import median_ms
+    from archnemesis_tpu_torch.utils.profiling import (
+        Timings,
+        annotate,
+        device_memory_report,
+        stopwatch,
+        trace,
+    )
+
+    t_phase = time.perf_counter()
+    state = _ingest_state()
+    host = [x.double().cpu().numpy() for x in state]
+    lbl_launches = 0
+
+    def windowed(ll, what):
+        llw = _slice_lines(ll, *INGEST_WINDOW)
+        _print(f"{what}: {ll.n_lines} lines selected, {llw.n_lines} within "
+               f"{INGEST_WINDOW[0]:.3f}-{INGEST_WINDOW[1]:.3f} cm-1")
+        if llw.n_lines == 0:
+            raise AssertionError(f"{what}: no line reaches the grid")
+        return llw, build_blocks(INGEST_WAVE, llw.nu)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # --- 1. the HITRAN catalogue through both decoders
+        t0 = time.perf_counter()
+        buf = ingest_par()
+        par = os.path.join(tmp, "catalogue.par")
+        with open(par, "wb") as f:
+            f.write(buf)
+        _print(f"HITRAN catalogue: {INGEST_RECORDS} records, {len(buf)} "
+               f"bytes, made in {time.perf_counter() - t0:.3f} s")
+        rec = _ingest_decoders(par, len(buf))
+        n_co = {i: int(((rec["mol_id"] == 5)
+                        & (rec["local_iso_id"] == int(i))).sum())
+                for i in INGEST_CO}
+        iso_chars = {c: int((rec["local_iso_id"] == v).sum())
+                     for c, v in (("0", 10), ("A", 11), ("B", 12))}
+        if n_co != INGEST_CO or min(iso_chars.values()) == 0:
+            raise AssertionError(f"decoded CO records {n_co}, iso chars "
+                                 f"0/A/B {iso_chars}")
+        del buf, rec
+
+        # --- 2. HITRAN -> LineList (TIPS from the export) -> kernel 2
+        ll = linelist_from_par(par, 5, 1)
+        if not (np.array_equal(ll.pf_q, read_tips(TIPS_PATH, 5, 1)[1])
+                and TIPS_PATH.endswith(".npz")):
+            raise AssertionError("the HITRAN list's TIPS table is not the "
+                                 "export's")
+        llw, blocks = windowed(ll, "HITRAN CO iso 1")
+        torch.cuda.reset_peak_memory_stats()
+        k32, n32 = _ingest_launch(llw, blocks, state, torch.float32)
+        k64, n64 = _ingest_launch(llw, blocks, state, torch.float64)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        lbl_launches += n32 + n64
+        _print(f"HITRAN -> kernel 2 ({blocks.n_wave} waves x {llw.n_lines} "
+               f"lines x {len(host[0])} layers, {blocks.n_blocks} blocks of "
+               f"up to {blocks.max_lines_per_block} lines): {n32} + {n64} "
+               f"launches (float32, float64), peak memory {peak:.3f} GiB")
+        _ingest_vs_plain(llw, blocks, k32, state, "HITRAN list")
+        # on all 40 layers: the float32 kernel against the plain float32
+        # version at the float32 bound, and both against the float64 kernel
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain32 = lbl_cross_section_plain(llw, blocks, *(
+            x.float() for x in state))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        _lbl_f32_check(k32, plain32, "HITRAN list, all layers, kernel vs "
+                       "plain (float32)")
+        want = k64.cpu().numpy()
+        r_k, r_p = (rel_err(x.double().cpu().numpy(), want)
+                    for x in (k32, plain32))
+        _print(f"HITRAN list, all layers, against the float64 kernel: "
+               f"kernel float32 max rel {r_k.max():.3e} (median "
+               f"{np.median(r_k):.3e}), plain float32 max rel "
+               f"{r_p.max():.3e} (median {np.median(r_p):.3e}); the plain "
+               f"float32 version took {plain_ms:.3f} ms")
+        del k64, plain32
+        packed = {}
+        for dtype, itemsize in ((torch.float32, 4), (torch.float64, 8)):
+            t, p, amb = (x.to(dtype) for x in state)
+            ms = median_ms(lambda: lbl_cross_section(
+                llw, blocks, t, p, amb, device="cuda", packed=packed),
+                reps=INGEST_KERNEL_RUNS)
+            bound, by, ops = lbl_bound_ms(llw, blocks, *host,
+                                          itemsize=itemsize)
+            _print(f"HITRAN list, {dtype} kernel 2: median {ms:.4f} ms over "
+                   f"{INGEST_KERNEL_RUNS} launches, bound {bound:.4f} ms "
+                   f"({by}; {ops:.4e} operations; {ms / bound:.2f}x), "
+                   f"{card}")
+
+        # --- 3. GEISA and ExoMol -> kernel 2
+        records = ingest_geisa()
+        gbuf = format_geisa_records(records)
+        same = _bitwise_equal(parse_geisa(gbuf, use_native=False),
+                              parse_geisa(gbuf))
+        if not same:
+            raise AssertionError("GEISA: the decoders differ")
+        geisa = os.path.join(tmp, "catalogue.geisa")
+        with open(geisa, "wb") as f:
+            f.write(gbuf)
+        lists = {"GEISA": linelist_from_geisa(geisa, 5, 1)}
+        paths = ingest_exomol(tmp)
+        lists["ExoMol"] = linelist_from_exomol(paths[0], paths[1], 5, 1,
+                                               broad_path=paths[2])
+        _print(f"GEISA: {GEISA_RECORDS} records, decoders equal bit for "
+               f"bit; ExoMol: {EXOMOL_STATES} states, {EXOMOL_TRANS} "
+               f"transitions ({os.path.basename(paths[1])})")
+
+        # --- 4. the ans store's export through AnsDatabase
+        db = AnsDatabase(LINEDATA_NPZ)
+        full = read_ans_linedata(LINEDATA_NPZ, 5, 1)
+        smed = float(np.median(full.sw))
+        strong = db.fetch_line_data(5, 1, s_min=smed)
+        keep = full.sw >= smed
+        for name, got, want in (
+                ("windowed", db.fetch_line_data(5, 1, *INGEST_WINDOW),
+                 _slice_lines(full, *INGEST_WINDOW)),
+                ("s_min", strong, dataclasses.replace(
+                    full, nu=full.nu[keep], sw=full.sw[keep],
+                    elower=full.elower[keep], stim_ref=full.stim_ref[keep],
+                    broad=full.broad[:, keep]))):
+            for field in ("nu", "sw", "elower", "stim_ref", "broad",
+                          "pf_temp", "pf_q"):
+                if not np.array_equal(getattr(got, field),
+                                      getattr(want, field)):
+                    raise AssertionError(f"ans store, {name} fetch: {field} "
+                                         "differs from the full read's")
+        lists["ans store"] = db.fetch_line_data(5, 1, *INGEST_WINDOW)
+        _print(f"ans store ({LINEDATA_NPZ}): windowed and s_min fetches "
+               f"equal the full read's slices ({strong.n_lines} of "
+               f"{full.n_lines} lines at s_min {smed:.3e})")
+
+        for what, source in lists.items():
+            llw, blocks = windowed(source, what)
+            k32, n = _ingest_launch(llw, blocks, state, torch.float32)
+            lbl_launches += n
+            err_s = _ingest_vs_plain(llw, blocks, k32, state, what)
+            _print(f"{what} -> kernel 2: {n} launch, float64 max abs err "
+                   f"{err_s:.3e}")
+
+    # --- 5. profiling on the card, around phase 3's golden-deck forward
+    deck = golden_deck("cuda")
+    deck_forward(deck, "cuda")
+    reg = Timings()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    combine_pair.launches = 0
+    with stopwatch("golden forward", registry=reg) as box:
+        start.record()
+        box[0] = deck_forward(deck, "cuda")
+        end.record()
+    event_ms = start.elapsed_time(end)
+    wall_ms = reg.summary()["golden forward"]["total_s"] * 1e3
+    _print(f"stopwatch around the golden-deck forward: {wall_ms:.3f} ms, "
+           f"its CUDA events {event_ms:.3f} ms "
+           f"({'ok' if wall_ms >= event_ms else 'FAIL'})")
+    if wall_ms < event_ms:
+        raise AssertionError("the stopwatch stopped before the device")
+    logdir = os.path.join("build", "ingest_trace")
+    with trace(logdir):
+        with annotate("golden_forward"):
+            deck_forward(deck, "cuda")
+    combine_launches = combine_pair.launches
+    with open(os.path.join(logdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    regions = sum(1 for e in events if e.get("name") == "golden_forward")
+    combines = sum(1 for e in events if e.get("cat") == "kernel"
+                   and "combine_" in e.get("name", ""))
+    _print(f"trace in {logdir}: {regions} 'golden_forward' regions, "
+           f"{combines} kernel-1 launches, {len(events)} events")
+    if regions == 0 or combines != combine_launches // 2:
+        raise AssertionError(f"trace: {regions} regions, {combines} "
+                             f"combine launches of {combine_launches // 2}")
+    report = device_memory_report()
+    peak = torch.cuda.max_memory_allocated(0)
+    got = report.get("cuda:0", {}).get("allocated_bytes.all.peak", -1)
+    _print(f"device_memory_report: {sorted(report)}, cuda:0 peak {got} "
+           f"bytes against max_memory_allocated {peak}")
+    if got < peak:
+        raise AssertionError("device_memory_report's peak is below "
+                             "max_memory_allocated")
+    _print(f"ingestion phase: {time.perf_counter() - t_phase:.1f} s")
+    return lbl_launches, combine_launches
+
+
 def main() -> int:
     import torch
 
@@ -4970,6 +5456,7 @@ def main() -> int:
     table_launches, _ = phase_tablegen(card)
     em_launches, em_tan_launches = phase_emissions(card)
     tl_launches, tl_tan_launches = phase_telluric_multiloc(card)
+    ingest_launches, ingest_combine_launches = phase_ingest(card)
 
     kernels = [dict(
         name="overlap_combine",
@@ -4977,7 +5464,8 @@ def main() -> int:
         source="archnemesis_tpu_torch/csrc/overlap_combine.cu",
         replaces="archnemesis_tpu/ops/overlap_pallas.py:398",
         launches=(launches + scat_launches + model_launches + geom_launches
-                  + ns_launches + em_launches + tl_launches),
+                  + ns_launches + em_launches + tl_launches
+                  + ingest_combine_launches),
         max_abs_err=record["max_abs_err"],
         ms=record["ms"],
         plain_ms=record["plain_ms"],
@@ -5002,7 +5490,7 @@ def main() -> int:
         route="cuda",
         source="archnemesis_tpu_torch/csrc/lbl_cross_section.cu",
         replaces="archnemesis_tpu/ops/lbl_pallas.py:228",
-        launches=lbl_launches + table_launches,
+        launches=lbl_launches + table_launches + ingest_launches,
         max_abs_err=lbl_record["max_abs_err"],
         ms=lbl_record["ms"],
         plain_ms=lbl_record["plain_ms"],

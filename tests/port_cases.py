@@ -703,3 +703,134 @@ def cuda():
         pytest.skip("needs an NVIDIA card: the kernel is built with nvcc "
                     "and has no CPU mode")
     return torch.device("cuda")
+
+
+# --- catalogue ingestion (HITRAN, GEISA, ExoMol): copies of the JAX
+# package's test generators (tests/test_native.py, tests/test_hitran.py,
+# tests/test_db_ingest.py), so that no JAX test module is imported
+
+
+def _ffmt(x, w, p):
+    s = f"{x:{w}.{p}f}"
+    if len(s) > w:  # Fortran-style leading-zero drop: 0.0676 -> .0676
+        s = s.replace("0.", ".", 1)
+    assert len(s) == w
+    return s
+
+
+def synthetic_par(nrec=500, seed=0, width=160) -> bytes:
+    """``nrec`` random .par records of molecules 1-55 with iso chars 1-9,
+    0, A and B (``tests/test_native.py:_synthetic_par``)."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    iso_chars = "1234567890AB"  # includes 2020 extension codes
+    for _ in range(nrec):
+        mol = int(rng.integers(1, 56))
+        iso = iso_chars[rng.integers(0, len(iso_chars))]
+        rec = (
+            f"{mol:2d}{iso}"
+            + _ffmt(rng.uniform(1.0, 12000.0), 12, 6)
+            + f"{rng.uniform(1e-32, 1e-19):10.3E}"
+            + f"{rng.uniform(1e-6, 1e3):10.3E}"
+            + _ffmt(rng.uniform(0.005, 0.3), 5, 4)
+            + _ffmt(rng.uniform(0.005, 0.5), 5, 4)
+            + _ffmt(rng.uniform(0.0, 9000.0), 10, 4)
+            + _ffmt(rng.uniform(-0.5, 1.2), 4, 2)
+            + _ffmt(rng.uniform(-0.05, 0.05), 8, 6)
+        )
+        lines.append(rec + " " * (width - len(rec)))
+    return ("\n".join(lines) + "\n").encode()
+
+
+def synth_par_lines():
+    """40 CO (HITRAN mol 05) records of isotopes 1-3 in the 160-char
+    format, every fifth with no self width
+    (``tests/test_hitran.py:_synth_par_lines``)."""
+    rng = np.random.default_rng(7)
+    lines = []
+    quanta = " " * 60
+    errrefs = "0" * 6 + " 0 0 0 0 0 0"
+    for i in range(40):
+        mol = 5
+        iso = (i % 3) + 1  # isos 1..3
+        nu = 2050.0 + i * 3.17 + rng.uniform(0, 1)
+        sw = 10 ** rng.uniform(-24, -20)
+        a = 10 ** rng.uniform(-6, 1)
+        g_air = rng.uniform(0.03, 0.09)
+        g_self = rng.uniform(0.04, 0.1) if i % 5 else 0.0
+        el = rng.uniform(0, 2000)
+        n_air = rng.uniform(0.5, 0.8)
+        delta = rng.uniform(-0.01, 0.01)
+        rec = (
+            f"{mol:2d}{iso:1d}{nu:12.6f}{sw:10.3E}{a:10.3E}"
+            f"{g_air:5.3f}{g_self:5.3f}{el:10.4f}{n_air:4.2f}{delta:8.5f}"
+        )
+        rec += quanta + errrefs + " " + f"{21.0:7.1f}{19.0:7.1f}"
+        assert len(rec) == 160, len(rec)
+        lines.append(rec)
+    return lines
+
+
+def write_par(path, lines) -> str:
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return str(path)
+
+
+def geisa_records(n=40, seed=7) -> dict:
+    """GEISA fields of CO iso 1 and 2 (every third 13CO)
+    (``tests/test_db_ingest.py:geisa_bytes``)."""
+    from archnemesis_tpu_torch.io.hitran import radtran_to_geisa
+
+    rng = np.random.default_rng(seed)
+    mol, code = radtran_to_geisa(5, 1)
+    _, code2 = radtran_to_geisa(5, 2)
+    return {
+        "nu": np.sort(rng.uniform(2000.0, 2200.0, n)),
+        "sw": 10.0 ** rng.uniform(-26, -20, n),
+        "gamma_air": rng.uniform(0.04, 0.09, n).round(4),
+        "elower": rng.uniform(0.0, 3000.0, n).round(4),
+        "iso_code": np.where(np.arange(n) % 3 == 0, code2, code),
+        "mol_id": np.full(n, mol),
+        "a_einstein": 10.0 ** rng.uniform(-4, 2, n),
+        "n_air": rng.uniform(0.4, 0.9, n).round(2),
+        "delta_air": rng.uniform(-0.01, 0.01, n).round(6),
+        "gamma_self": rng.uniform(0.05, 0.11, n).round(4),
+        "n_self": rng.uniform(0.4, 0.9, n).round(2),
+    }
+
+
+def write_exomol_small(out_dir) -> tuple:
+    """The four-state CO triple of ``tests/test_db_ingest.py:exomol_files``
+    in ``out_dir``: (states, trans, broad) paths."""
+    states = [(1, 0.0, 1.0, 0.0), (2, 2143.27, 3.0, 1.0),
+              (3, 2147.08, 5.0, 2.0), (4, 4260.06, 3.0, 1.0)]
+    paths = tuple(os.path.join(out_dir, f"co.{ext}")
+                  for ext in ("states", "trans", "broad"))
+    with open(paths[0], "w") as f:
+        for i, e, g, j in states:
+            f.write(f"{i:12d} {e:12.6f} {g:6.1f} {j:7.1f}\n")
+    with open(paths[1], "w") as f:
+        for iu, il, a in [(2, 1, 1.0e-2), (3, 1, 2.5e-2), (4, 2, 7.5e-3)]:
+            f.write(f"{iu:12d} {il:12d} {a:10.4e}\n")
+    with open(paths[2], "w") as f:
+        f.write("a0 0.0700 0.70     0.0\n")
+        f.write("a0 0.0650 0.65     1.0\n")
+    return paths
+
+
+LINELIST_FIELDS = ("gas_id", "iso_id", "mol_name", "t_ref", "p_ref", "mass",
+                   "abundance", "nu", "sw", "elower", "stim_ref", "broad",
+                   "pf_temp", "pf_q")
+
+
+def assert_same_linelist(got, want, what=""):
+    """Every field of two line lists equal, arrays bit for bit."""
+    for name in LINELIST_FIELDS:
+        g, w = getattr(got, name), getattr(want, name)
+        if isinstance(w, np.ndarray) or hasattr(w, "shape"):
+            g, w = np.asarray(g), np.asarray(w)
+            assert g.dtype == w.dtype, f"{what} {name}"
+            np.testing.assert_array_equal(g, w, err_msg=f"{what} {name}")
+        else:
+            assert g == w, f"{what} {name}: {g!r} != {w!r}"

@@ -469,3 +469,158 @@ def test_scattering_entry_points_raise_without_cuda(no_cuda):
     assert spec.shape == (4, 1) and spec.device.type == "cpu"
     assert torch.isfinite(forward_singlescat_nadir(**single,
                                                    device="cpu")).all()
+
+
+# --- the ingestion and utility slice: libraries the card's machine lacks,
+# the host decoder's build, and completeness against the JAX package
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_matplotlib_only_inside_functions(path):
+    """The card's machine has no matplotlib: the port imports it only
+    inside the plotting functions."""
+    assert "matplotlib" not in _module_level_roots(path.read_text())
+
+
+def test_plotting_import_leaves_matplotlib_out():
+    code = ("import sys\n"
+            "import archnemesis_tpu_torch.plotting\n"
+            "import archnemesis_tpu_torch.io.ansdb\n"
+            "import archnemesis_tpu_torch.io.hitran\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
+            " ('matplotlib', 'h5py'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_native_build_writes_under_build(monkeypatch, tmp_path):
+    """The decoder is compiled from ``native/src`` into ``build/native/<key>``
+    (here a temporary root), once per key, and nothing is written beside
+    the JAX package's sources."""
+    from archnemesis_tpu_torch import native
+
+    assert native.BUILD_ROOT == str(REPO / "build" / "native")
+    assert native.SOURCE == str(REPO / "native" / "src" / "fixed_width.cpp")
+    commands = []
+    real_run = native._run
+
+    def run(cmd):
+        commands.append(list(cmd))
+        return real_run(cmd)
+
+    root = tmp_path / "build" / "native"
+    monkeypatch.setattr(native, "_run", run)
+    monkeypatch.setattr(native, "BUILD_ROOT", str(root))
+    jax_native = REPO / "archnemesis_tpu" / "native"
+    before = sorted(p.name for p in jax_native.iterdir())
+    built = native.build()
+    assert built["seconds"] > 0 and built["compiler"]
+    outs = [cmd[cmd.index("-o") + 1] for cmd in commands if "-o" in cmd]
+    assert len(outs) == 1 and outs[0].startswith(str(root))
+    assert pathlib.Path(built["path"]).parent.parent == root
+    assert set(cmd[0] for cmd in commands) == {native.compiler()}
+    assert "-march=native" in commands[-1] and "-O3" in commands[-1]
+    assert native.build() == dict(built, seconds=0.0)  # built once
+    assert sorted(p.name for p in jax_native.iterdir()) == before
+
+
+def test_native_build_failure_raises(monkeypatch, tmp_path):
+    """No silent fallback: a decoder that does not build raises with the
+    compiler's output where the numpy decoder was not asked for."""
+    from archnemesis_tpu_torch import native
+    from archnemesis_tpu_torch.io.hitran import parse_par
+    from port_cases import synthetic_par
+
+    bad = tmp_path / "fixed_width.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SOURCE", str(bad))
+    monkeypatch.setattr(native, "BUILD_ROOT", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "_lib", None)
+    buf = synthetic_par(nrec=8)
+    with pytest.raises(RuntimeError, match="not C\\+\\+|error"):
+        parse_par(buf)
+    with pytest.raises(RuntimeError):
+        native.available()
+    assert parse_par(buf, use_native=False)["nu"].shape == (8,)
+    monkeypatch.setenv("CXX", "no-such-compiler-here")
+    with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
+        native.build()
+
+
+def test_profiling_needs_a_card(no_cuda, tmp_path):
+    from archnemesis_tpu_torch.utils.profiling import (
+        device_memory_report,
+        trace,
+    )
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        with trace(str(tmp_path / "t")):
+            pass
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_memory_report()
+    assert device_memory_report(device="cpu") == {}
+
+
+JAX = REPO / "archnemesis_tpu"
+# JAX modules whose names the port keeps in another module
+COUNTERPART = {
+    "data/__init__.py": "utils/datafiles.py",
+    "data/datadir.py": "utils/datafiles.py",
+}
+# What the port does not carry, by design:
+JAX_ONLY_MODULES = {
+    # the Pallas kernels; their CUDA counterparts are csrc/overlap_combine.cu
+    # (ops/overlap_cuda.py) and csrc/lbl_cross_section.cu (ops/lbl_cuda.py)
+    "ops/overlap_pallas.py",
+    "ops/lbl_pallas.py",
+}
+JAX_ONLY_NAMES = {
+    # a jax.sharding.NamedSharding helper; the port shards with WaveSlice
+    ("parallel/mesh.py", "shard_spec"),
+    # JAX pytree registration; the port's dataclasses are tensor_dataclass
+    ("utils/pytree.py", "pytree_dataclass"),
+    # a second copy of core/emissions.py's class, which the port keeps once
+    ("core/spectra.py", "EmissionTables"),
+    # the float32 "rows" scattering core, shaped for the TPU's register
+    # tile; the port's float32 runs the AoS core (ROADMAP, Queue 1)
+    ("rt/scattering.py", "ROWS_NMU_MAX"),
+}
+
+
+def _public_names(path: pathlib.Path) -> set:
+    """Functions, classes and assigned names at a module's top level that
+    do not start with an underscore."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            names.add(node.target.id)
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_port_has_every_public_name_of_the_jax_package():
+    missing = []
+    for path in sorted(JAX.rglob("*.py")):
+        rel = str(path.relative_to(JAX))
+        if rel in JAX_ONLY_MODULES:
+            continue
+        port = PORT / COUNTERPART.get(rel, rel)
+        have = _public_names(port) if port.exists() else set()
+        missing += [(rel, name) for name in sorted(_public_names(path))
+                    if name not in have and (rel, name) not in JAX_ONLY_NAMES]
+    assert not missing, missing
+    # the lists name only what exists
+    for rel in JAX_ONLY_MODULES:
+        assert (JAX / rel).exists() and not (PORT / rel).exists()
+    for rel, name in JAX_ONLY_NAMES:
+        assert name in _public_names(JAX / rel)
+    # the scan sees a missing name
+    assert "plot_bestfit" in _public_names(JAX / "plotting.py")

@@ -378,3 +378,83 @@ def test_telluric_setup_on_card_matches_cpu(cuda, tmp_path):
                            (v,))
     np.testing.assert_allclose(kk[:, -1].cpu().numpy(), dy.numpy(), rtol=0,
                                atol=1e-10 * float(dy.abs().max()))
+
+
+# --- ERA5 extraction with the optional modules stubbed
+
+class _Grib:
+    """One GRIB message of the stub: a parameter on one level of the 2x2
+    cell around the default location."""
+
+    def __init__(self, name, values):
+        self.name, self.values = name, values
+
+    def latlons(self):
+        return (np.array([[19.75, 19.75], [20.0, 20.0]]),
+                np.array([[-155.5, -155.25], [-155.5, -155.25]]))
+
+
+def _era5_modules(seed: int = 13) -> tuple:
+    """``cdsapi`` and ``pygrib`` stand-ins serving a seeded 2x2-cell grid
+    of temperature, specific humidity and ozone on the 37 ERA5 levels
+    (with a message the extractor skips); the retrieve calls are kept."""
+    import types
+
+    rng = np.random.default_rng(seed)
+    levels = ttel.ERA5_PRESS_LEVELS_HPA / 1000.0
+    fields = {
+        "Temperature": 190.0 + 100.0 * levels[:, None, None],
+        "Specific humidity": 1.0e-2 * levels[:, None, None] ** 3,
+        "Ozone mass mixing ratio": 1.0e-6 * np.exp(-levels[:, None, None]),
+        "Geopotential": np.ones((levels.size, 1, 1)),
+    }
+    messages = [_Grib(name, v * rng.uniform(0.95, 1.05, (2, 2)))
+                for name, stack in fields.items() for v in stack]
+    calls = []
+    cdsapi = types.ModuleType("cdsapi")
+
+    class Client:
+        def retrieve(self, dataset, request, target):
+            calls.append((dataset, request))
+            with open(target, "wb") as f:
+                f.write(b"GRIB")
+
+    cdsapi.Client = Client
+    pygrib = types.ModuleType("pygrib")
+
+    class _Open(list):
+        closed = False
+
+        def close(self):
+            self.closed = True
+
+    pygrib.open = lambda path: _Open(messages)
+    return cdsapi, pygrib, calls
+
+
+def test_era5_extraction_matches_jax(monkeypatch):
+    """With ``cdsapi`` and ``pygrib`` stubbed, both packages request the
+    same data and return the same atmosphere (rtol 1e-12); without them
+    both raise ``NotImplementedError``."""
+    import sys
+
+    for name in ("cdsapi", "pygrib"):
+        monkeypatch.setitem(sys.modules, name, None)
+    for fn in (ttel.extract_atmosphere_era5, jtel.extract_atmosphere_era5):
+        with pytest.raises(NotImplementedError, match="cdsapi"):
+            fn()
+    cdsapi, pygrib, calls = _era5_modules()
+    monkeypatch.setitem(sys.modules, "cdsapi", cdsapi)
+    monkeypatch.setitem(sys.modules, "pygrib", pygrib)
+    args = ("02-03-2021", "06:00:00", 19.82067, -155.46806)
+    got = ttel.extract_atmosphere_era5(*args)
+    want = jtel.extract_atmosphere_era5(*args)
+    assert len(calls) == 2 and calls[0] == calls[1]
+    assert calls[0][1]["day"] == "02" and calls[0][1]["time"] == "06:00"
+    assert (got.gas_id, got.iso_id, got.planet) == (want.gas_id, want.iso_id,
+                                                    want.planet)
+    for name in ("h", "p", "t", "vmr", "molwt", "radius", "latitude"):
+        np.testing.assert_allclose(np64(getattr(got, name)),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=1e-12, atol=0, err_msg=name)
+    assert got.p.shape[0] == ttel.ERA5_PRESS_LEVELS_HPA.size
