@@ -23,8 +23,12 @@ def thermal_emission_spectrum(
     emissivity,
     surface_visible: bool,
     gasgiant: bool,
-    ispace=0,
+    solflux=None,
+    reflectance=None,
+    sol_ang=None,
+    emiss_ang=None,
     emission_path=None,
+    ispace=0,
 ):
     """Thermal-emission spectra for all paths at once.
 
@@ -38,6 +42,12 @@ def thermal_emission_spectrum(
     emissivity : (NWAVE,) surface emissivity on the calc grid
     surface_visible : False for limb paths (no ground term)
     gasgiant : True -> radground = Planck(bottom layer T)
+    solflux, reflectance : optional (NWAVE,) solar flux and surface
+        reflectance; with both given, a visible surface adds the
+        plane-parallel reflection of the attenuated solar beam
+    sol_ang, emiss_ang : (NPATH,) solar and emission angles (degrees) of
+        each path for that term, which is zero on a path where either is
+        90 or more
     emission_path : optional (NWAVE, NLAYIN, NPATH) non-LTE emission of
         each path layer, weighted by the transmission after the layer
         (the JAX package's ``rt/emission.py:60-63``)
@@ -71,6 +81,23 @@ def thermal_emission_spectrum(
                 planck(wave, tsurf, ispace)[:, None] * emissivity[:, None]
             )
         spec = spec + tr_tot * radground[:, None, :]
+
+        if solflux is not None and reflectance is not None:
+            # plane-parallel surface reflection (ForwardModel_0.py:
+            # 6368-6374), active only where both angles are < 90; off those
+            # paths the cosines are replaced before the division, so the
+            # term (and its derivatives) stays finite where it is zeroed
+            def angle(a):
+                return torch.as_tensor(a, dtype=spec.dtype,
+                                       device=spec.device)
+
+            emiss_ang, sol_ang = angle(emiss_ang), angle(sol_ang)
+            active = (emiss_ang < 90.0) & (sol_ang < 90.0)
+            mu = torch.where(active, torch.cos(torch.deg2rad(emiss_ang)), 0.0)
+            mu0 = torch.where(active, torch.cos(torch.deg2rad(sol_ang)), 1.0)
+            refl = (tr_tot * torch.exp(-taud[:, :, -1, :] * mu / mu0)
+                    * (solflux * reflectance)[:, None, None])
+            spec = spec + refl * active.to(spec.dtype)
     return spec
 
 

@@ -289,13 +289,37 @@ without them. Phases, each of which fails the run on its own:
     6 launches, ``device_memory_report()``'s ``cuda:0`` peak at least
     ``max_memory_allocated``; the phase imports neither h5py nor
     matplotlib;
+26. line-by-line at run time through the tangent set-ups ("lbl
+    geometries"): the three ILBL = 1 decks of ``lbl_tangent_deck`` (limb:
+    3 tangent heights, FWHM = 0; SO: 5 tangent heights, a Gaussian ILS and
+    a Doppler shift; transit: IFORM = TransitDepth, the stellar radius from
+    an inline ``.sol``; line data from the ``.npz`` export, NX = 30:
+    temperature and CO) through ``make_retrieval_setup_limb``, ``_so`` and
+    ``_transit`` in float64 and float32: exactly 1 kernel-2 launch per
+    forward and per forward-plus-Jacobian evaluation, none of kernels 1 and
+    1t; float64 against the port's CPU run (forward at rtol 1e-10, every
+    Jacobian column within 1e-10 of its peak), float32 within
+    ``LBL_F32_BOUNDS`` and each float32 Jacobian column within
+    ``JAC_F32_BOUND`` of its peak; the median time and peak memory of an
+    evaluation in each type with the share of kernel 2's plain-version
+    tangent (``plain_tangent_ms``); the wall-clock of
+    ``retrieval_nemesis(nemesis_so=True, niter=3)``, whose phi must fall;
+    then the LBL headline through ``forward_so`` and ``forward_limb_batch``
+    over 15 tangent heights and ``forward_transit`` over every layer base:
+    1 launch per forward and no packing after the first, the median of 12
+    forwards, waves/s and peak memory, and float32 against the float64
+    forward of the same call (``lbl_geometry_f32_errors``: the radiative
+    transfer on the float64 optical depths and the synthesis on phase 7's
+    layers within ``LBL_F32_BOUNDS``, the transit depth end to end too; the
+    limb and SO spectra end to end printed beside them); the phase imports
+    no h5py;
 
 then a JSON line of the kernels (launches on the main paths, error, times,
 bound, library time) and, last, ``{"ok": true, "device": {...}}``. ``--profile`` adds
 ``torch.profiler`` traces of three headline forwards, of one
 forward-plus-Jacobian evaluation, of three LBL headline forwards, of one
-scattering headline forward and of one scattering forward-plus-Jacobian
-evaluation: device time by kernel, the device's busy share, and Chrome
+scattering headline forward, of one scattering forward-plus-Jacobian
+evaluation and of three of each full-width tangent forward of phase 26: device time by kernel, the device's busy share, and Chrome
 traces in ``build/``.
 
 TF32 is switched off for matmuls and cuDNN: the g-quadrature and emission
@@ -1680,6 +1704,106 @@ def copy_runtime_deck(base: str) -> str:
             key = line.split()[0] if line.split() else ""
             f.write(f"{key:<17}{npz}\n" if key in ("DBASE_LD", "DBASE_PF")
                     else line)
+    return dst
+
+
+# The ILBL = 1 tangent decks of phase 26: co_runtime (CO at 2110-2190 cm-1,
+# 10 layers of a Mars-like 0-60 km atmosphere) with a limb, solar-occultation
+# or transit geometry written in.
+
+LINEDATA_H5 = "tests/fixtures/linedata/CO_1_ambient_AIR.h5"
+# kind -> (tangent heights in km (EMISS_ANG < 0: SOL_ANG is TANHE), FWHM in
+# cm-1 (0: channel interpolation; > 0: the Gaussian ILS), channel centres,
+# IFORM, Doppler velocity in km/s). The lowest limb tangent lies in the
+# bottom layer, so that every level's temperature reaches the spectrum: with
+# all tangents above it, the surface level's column is zero but for float64
+# rounding, many orders under the other columns.
+LBL_TANGENT_DECKS = {
+    "limb": ((3.0, 22.0, 37.0), 0.0, np.arange(2145.0, 2152.5, 1.0), 0,
+             0.0),
+    "so": ((6.0, 14.0, 23.0, 31.0, 42.0), 0.5, np.arange(2145.0, 2152.5, 1.0),
+           0, 1.5),
+    "transit": ((0.0,), 0.25, np.arange(2141.0, 2153.0, 1.0), 2, 0.0),
+}
+# the calc grid (first, last, step in cm-1) of every kind: co_runtime's
+# 2110-2190 cm-1 cut to the channels' reach. A runtime deck synthesises its
+# whole .lls grid whatever its channels, and the JAX package's eager jacfwd
+# in the CPU tests takes time in proportion to it.
+LBL_TANGENT_WAVE = (2138.0, 2156.0, 0.05)
+# the measurement of each kind (radiance in W cm-2 sr-1 (cm-1)-1,
+# transmission, transit depth in percent) and its error
+LBL_TANGENT_MEAS = {"limb": (2.0e-9, 2.0e-10), "so": (0.9, 0.01),
+                    "transit": (2.5e-3, 2.0e-5)}
+# the stellar radius (km) of the transit deck and of phase 26's full-width
+# transit forward, and the deck's inline stellar spectrum (read_sol's "-1"
+# form): ISPACE, radius, then (wave, power) rows
+LBL_GEOM_STELLAR_KM = 6.957e5
+LBL_TRANSIT_SOL = (f"-1\n0\n{LBL_GEOM_STELLAR_KM}\n"
+                   "2000.0 1.0e22\n2100.0 1.1e22\n2200.0 1.2e22\n"
+                   "2300.0 1.3e22\n")
+# the CO profile of the state vector (model 0, log VMR): the .ref's VMR and
+# an error of 20 % of it
+LBL_CO_VMR = 4.0e-2
+LBL_CO_APR_ERROR = 0.2
+
+
+def _replace_lines(path: str, edit) -> None:
+    with open(path) as f:
+        lines = f.readlines()
+    with open(path, "w") as f:
+        f.writelines(edit(lines))
+
+
+def lbl_tangent_deck(base: str, kind: str, linedata: str = LINEDATA_NPZ
+                     ) -> str:
+    """A copy of the runtime deck (ILBL = 1) under ``base`` as a ``kind``
+    deck (``LBL_TANGENT_DECKS``: "limb", "so" or "transit"), its ``.lls``
+    reading the line data from ``linedata`` (the ``.h5``, or its ``.npz``
+    export where h5py is missing) on the grid ``LBL_TANGENT_WAVE``. It
+    writes a tangent-height ``.spx``
+    (EMISS_ANG = -1, SOL_ANG the tangent height, the form of
+    ``tests/fixtures/jupiter_limb/cirstest.spx``), the IFORM and Doppler
+    velocity into the ``.inp``, an ``.apr`` of the temperature and the CO
+    profile (model 0 both), and for the transit deck ISOL = 1 in the
+    ``.set`` and an inline ``.sol`` with the stellar radius."""
+    tanhe, fwhm, vconv, iform, v_doppler = LBL_TANGENT_DECKS[kind]
+    meas, err = LBL_TANGENT_MEAS[kind]
+    dst = os.path.join(base, kind)
+    shutil.copytree(CO_RUNTIME, dst)
+    run = os.path.join(dst, "cirstest")
+    data = os.path.abspath(linedata)
+    grid = " ".join(str(v) for v in LBL_TANGENT_WAVE)
+
+    def lls(line):
+        key = line.split()[0] if line.split() else ""
+        if key in ("DBASE_LD", "DBASE_PF"):
+            return f"{key:<17}{data}\n"
+        return f"{key:<17}{grid}\n" if key == "WAVE" else line
+
+    _replace_lines(run + ".lls", lambda lines: [lls(ln) for ln in lines])
+    _replace_lines(run + ".inp", lambda lines: lines[:7] + [
+        f"{iform}\n", f"{v_doppler}\n"])
+    with open(run + ".spx", "w") as f:
+        f.write(f"{fwhm} 0.0 0.0 {len(tanhe)}\n")
+        for th in tanhe:
+            f.write(f"{len(vconv)}\n1\n0.0 0.0 {th} -1.0 0.0 1.0\n")
+            f.writelines(f"{v:.4f} {meas:.6e} {err:.6e}\n" for v in vconv)
+    # model 0 for the CO column on the temperature profile's levels
+    ref = np.loadtxt(os.path.join(dst, "testapr.dat"), skiprows=1)
+    with open(os.path.join(dst, "coapr.dat"), "w") as f:
+        f.write(f"{ref.shape[0]} 1.5\n")
+        f.writelines(f"{p:.6e} {LBL_CO_VMR:.6e} "
+                     f"{LBL_CO_APR_ERROR * LBL_CO_VMR:.6e}\n"
+                     for p in ref[:, 0])
+    with open(run + ".apr", "w") as f:
+        f.write("*** ILBL = 1 tangent deck: temperature and CO ***\n2\n"
+                "0 0 0\ntestapr.dat\n5 1 0\ncoapr.dat\n")
+    if kind == "transit":
+        _replace_lines(run + ".set", lambda lines: [
+            ln.replace("off(0) :  0", "off(0) :  1")
+            if ln.lstrip().startswith("Sunlight") else ln for ln in lines])
+        with open(run + ".sol", "w") as f:
+            f.write(LBL_TRANSIT_SOL)
     return dst
 
 
@@ -5421,6 +5545,385 @@ def phase_ingest(card: str):
     return lbl_launches, combine_launches
 
 
+# --- phase 26: line-by-line at run time (ILBL = 1) through the limb, SO and
+# --- transit set-ups
+
+LBL_GEOM_EVAL_RUNS = 3
+# the full-width forwards' tangent heights (km): the Mars SO run's count
+# (15, mars_solocc) over the LBL headline's 0-80 km layering
+LBL_GEOM_TANHE = np.linspace(5.0, 61.0, 15)
+
+
+def lbl_tangent_setups() -> dict:
+    """kind -> the set-up function of ``lbl_tangent_deck``'s decks."""
+    from archnemesis_tpu_torch.retrievals import (
+        make_retrieval_setup_limb,
+        make_retrieval_setup_so,
+        make_retrieval_setup_transit,
+    )
+
+    return {"limb": make_retrieval_setup_limb,
+            "so": make_retrieval_setup_so,
+            "transit": make_retrieval_setup_transit}
+
+
+def jacobian_column_errors(k, ref) -> np.ndarray:
+    """Error of each column of the Jacobian ``k`` against ``ref`` over
+    that column's peak in ``ref`` (host float64 arrays)."""
+    peak = np.abs(ref).max(axis=0)
+    return np.abs(k - ref).max(axis=0) / np.where(peak > 0, peak, 1.0)
+
+
+def plain_tangent_ms(setup, x) -> tuple:
+    """(host ms spent in kernel 2's forward-mode rule, the plain version's
+    ``jvp``, during one forward-plus-Jacobian evaluation; the rule's calls;
+    the host ms of that whole evaluation). Each call of the rule is
+    bracketed by synchronises on the card, so the evaluation is slower
+    than an untimed one."""
+    import torch
+
+    from archnemesis_tpu_torch.ops import lbl_cuda
+    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
+
+    rule = lbl_cuda._LblCrossSection.jvp
+    sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
+    spent = []
+
+    def timed(ctx, *tangents):
+        sync()
+        t0 = time.perf_counter()
+        out = rule(ctx, *tangents)
+        sync()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    lbl_cuda._LblCrossSection.jvp = staticmethod(timed)
+    t0 = time.perf_counter()
+    try:
+        forward_and_jacobian(setup.forward_fn, x)
+        sync()
+    finally:
+        lbl_cuda._LblCrossSection.jvp = staticmethod(rule)
+    return sum(spent) * 1e3, len(spent), (time.perf_counter() - t0) * 1e3
+
+
+def _lbl_geometry_launches(fn):
+    """(fn(), kernel-2 launches, kernel-1 and kernel-1t launches), the
+    counts set to 0 just before ``fn()`` and read just after it."""
+    import torch
+
+    from archnemesis_tpu_torch.ops import lbl_cuda
+    from archnemesis_tpu_torch.ops.overlap_cuda import (
+        combine_pair,
+        combine_pair_with_tangents,
+    )
+
+    lbl_cuda.lbl_cross_section.launches = 0
+    combine_pair.launches = 0
+    combine_pair_with_tangents.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, lbl_cuda.lbl_cross_section.launches,
+            combine_pair.launches + combine_pair_with_tangents.launches)
+
+
+def _lbl_deck_case(kind: str, deck: str, card: str) -> int:
+    """One ILBL = 1 tangent deck through its set-up on the card in float64
+    and float32 against the port's CPU run; returns kernel 2's launches on
+    the main path (one forward and one evaluation in each type)."""
+    import torch
+
+    from archnemesis_tpu_torch.io.linedata import RuntimeLBL
+    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
+
+    make = lbl_tangent_setups()[kind]
+    cpu = make(deck, "cirstest", device="cpu")
+    y_cpu, k_cpu = forward_and_jacobian(cpu.forward_fn,
+                                        torch.as_tensor(cpu.sv.xa))
+    y_cpu, k_cpu = y_cpu.numpy(), k_cpu.numpy()
+    s64 = make(deck, "cirstest", device="cuda")
+    s32 = make(deck, "cirstest", device="cuda", dtype=torch.float32)
+    if not isinstance(s64.deck.ktables, RuntimeLBL):
+        raise AssertionError(f"{kind}: the set-up holds no RuntimeLBL")
+    xa = torch.as_tensor(s64.sv.xa, device="cuda")
+    nx, ny = s64.sv.nx, s64.y.shape[0]
+    launches, out = 0, {}
+    for name, setup, x in (("float64", s64, xa),
+                           ("float32", s32, xa.float())):
+        y, n_fwd, n_comb = _lbl_geometry_launches(lambda: setup.forward_fn(x))
+        (yk, kk), n_eval, m_comb = _lbl_geometry_launches(
+            lambda: forward_and_jacobian(setup.forward_fn, x))
+        _print(f"{kind} deck ({name}): kernel 2 launched {n_fwd} time per "
+               f"forward and {n_eval} per forward-plus-Jacobian evaluation, "
+               f"kernels 1 and 1t {n_comb} and {m_comb} times")
+        if (n_fwd, n_eval, n_comb, m_comb) != (1, 1, 0, 0):
+            raise AssertionError(f"{kind} ({name}): launches {n_fwd} / "
+                                 f"{n_eval} of kernel 2, {n_comb} / {m_comb} "
+                                 "of kernels 1 and 1t; expected 1 / 1, 0 / 0")
+        if not (torch.isfinite(yk).all() and torch.isfinite(kk).all()):
+            raise AssertionError(f"{kind} ({name}): not finite")
+        torch.testing.assert_close(yk, y, rtol=0, atol=0)
+        launches += n_fwd + n_eval
+        out[name] = (y, kk)
+    y64, k64 = (t.cpu().numpy() for t in out["float64"])
+    np.testing.assert_allclose(y64, y_cpu, rtol=1e-10, atol=0,
+                               err_msg=f"{kind} forward")
+    col_err = jacobian_column_errors(k64, k_cpu)
+    if not ((np.abs(k_cpu).max(axis=0) > 0).all() and col_err.max() < 1e-10):
+        raise AssertionError(f"{kind}: Jacobian columns off the CPU's by "
+                             f"{col_err} of their peaks")
+    _print(f"{kind} deck (ILBL = 1, NX={nx}, NY={ny}, "
+           f"{len(s64.deck.ktables.wave)} waves, "
+           f"{s64.deck.ktables.line_lists[0].n_lines} lines) float64 on the "
+           f"card: forward within 1e-10 of the CPU's (max rel "
+           f"{np.abs(y64 / y_cpu - 1).max():.3e}); every Jacobian column "
+           f"within {col_err.max():.3e} of its peak (gate 1e-10)")
+    y32, k32 = out["float32"]
+    _lbl_f32_check(y32, out["float64"][0], f"{kind} deck spectrum")
+    col_err32, misses = jacobian_column_misses(k32, out["float64"][1],
+                                               s64.sv.entries)
+    _print(f"{kind} deck float32 Jacobian: max error over column peak "
+           f"{col_err32.max():.3e} (gate {JAC_F32_BOUND:.0e}); columns "
+           f"outside the gate: {misses if misses else 'none'}; columns "
+           f"whose float64 peak float32 cannot hold: "
+           f"{float32_unheld_columns(out['float64'][1])}")
+    if misses:
+        raise AssertionError(f"{kind}: float32 Jacobian columns outside "
+                             f"{JAC_F32_BOUND:.0e}: {misses}")
+    del out
+    for name, setup, x in (("float64", s64, xa),
+                           ("float32", s32, xa.float())):
+        med, lo, hi, peak = _time_jacobians(setup, x, LBL_GEOM_EVAL_RUNS)
+        tan_ms, tan_calls, total = plain_tangent_ms(setup, x)
+        _print(f"forward-plus-Jacobian of the {kind} deck ({name}, {card}): "
+               f"median {med:.3f} ms over {LBL_GEOM_EVAL_RUNS} runs (min "
+               f"{lo:.3f}, max {hi:.3f}); peak memory {peak:.3f} GiB; kernel "
+               f"2's plain-version tangent {tan_ms:.3f} ms in {tan_calls} "
+               f"call(s) of an evaluation timed with it, {total:.3f} ms "
+               f"({tan_ms / total:.1%})")
+    return launches
+
+
+def with_optical_depths(taugas, fn):
+    """``fn()`` with every runtime line-by-line synthesis replaced by the
+    gas optical depths ``taugas`` (NWAVE, 1, NLAY): the forward's radiative
+    transfer on given opacities (no kernel launch)."""
+    from archnemesis_tpu_torch import forward as forward_module
+
+    synthesis = forward_module.runtime_lbl_tau
+    forward_module.runtime_lbl_tau = lambda *args: taugas
+    try:
+        return fn()
+    finally:
+        forward_module.runtime_lbl_tau = synthesis
+
+
+def lbl_geometry_f32_errors(fwd, deck32, deck64) -> dict:
+    """The float32 errors of a geometry forward ``fwd(atm, rt, cfg,
+    return_diagnostics=True)`` against its float64 forward on the same
+    inputs: "spectrum" (end to end), "transfer" (the float32 forward on the
+    float64 forward's gas optical depths: the radiative transfer alone),
+    "taugas" (the float32 synthesis's optical depths on
+    ``LBL_COMPARE_LAYERS``, phase 7's layers) and "taugas, all layers",
+    each (max, median) of ``rel_err``."""
+    atm32, _, rt32, _, cfg32 = deck32
+    atm64, _, rt64, _, cfg64 = deck64
+    spec64, d64 = fwd(atm64, rt64, cfg64)
+    spec32, d32 = fwd(atm32, rt32, cfg32)
+    moved, _ = with_optical_depths(d64["taugas"].float(),
+                                   lambda: fwd(atm32, rt32, cfg32))
+    lay = list(LBL_COMPARE_LAYERS)
+    pairs = {"spectrum": (spec32, spec64), "transfer": (moved, spec64),
+             "taugas": (d32["taugas"][..., lay], d64["taugas"][..., lay]),
+             "taugas, all layers": (d32["taugas"], d64["taugas"])}
+    out = {}
+    for name, (a, b) in pairs.items():
+        r = rel_err(a.double().cpu().numpy(), b.cpu().numpy())
+        out[name] = (float(r.max()), float(np.median(r)))
+    return out
+
+
+def _tangent_layering_kernel(deck, card: str) -> float:
+    """Kernel 2 alone on the layering every tangent forward synthesises on
+    (90 degrees) of the LBL headline ``deck`` (float32): its mean time over
+    ``LBL_KERNEL_RUNS`` launches (CUDA events) beside its bound; returns
+    the time in ms."""
+    from archnemesis_tpu_torch.forward import (
+        ATM_TO_PA,
+        runtime_ambient_fraction,
+    )
+    from archnemesis_tpu_torch.ops.lbl import lbl_cross_section
+    from archnemesis_tpu_torch.rt.layer import build_layers
+
+    atm, laycfg, rt, _, cfg = deck
+    layers = build_layers(atm, laycfg, layang=90.0)
+    state = (layers.temp, layers.press / ATM_TO_PA,
+             runtime_ambient_fraction(cfg, layers, 0))
+    ll, blocks = rt.line_lists[0], rt.blocks[0]
+    opts = dict(lineshape=rt.lineshape[0], s_floor=rt.s_floor[0],
+                wn_calc_window=rt.wn_calc_window[0],
+                wn_approx_window=rt.wn_approx_window[0],
+                include_pressure_shift=rt.include_pressure_shift[0])
+    ms = _cuda_ms(lambda: lbl_cross_section(
+        ll, blocks, *state, device="cuda", packed=rt.packed_inputs(0),
+        **opts), reps=LBL_KERNEL_RUNS)
+    host = [x.double().cpu().numpy() for x in state]
+    bound_ms, bound_by, _ = lbl_bound_ms(ll, blocks, *host, itemsize=4)
+    _print(f"kernel 2 on the tangent layering ({blocks.n_wave} waves x "
+           f"{ll.n_lines} lines x {laycfg.nlay} layers at 90 degrees, "
+           f"float32, {card}): {ms:.4f} ms (mean of {LBL_KERNEL_RUNS}) "
+           f"beside its bound {bound_ms:.4f} ms ({bound_by}), "
+           f"{ms / bound_ms:.2f}x")
+    return ms
+
+
+def _lbl_geometry_headline(card: str, profile: bool = False) -> int:
+    """The LBL headline (``synthetic.lbl_headline``) through ``forward_so``
+    and ``forward_limb_batch`` over ``LBL_GEOM_TANHE`` and through
+    ``forward_transit`` over every layer base; returns kernel 2's launches
+    on the main path (one forward each).
+
+    Float32 against the float64 forward of the same call: the radiative
+    transfer (on the float64 optical depths) and the synthesis (on phase
+    7's layers) each within ``LBL_F32_BOUNDS``, and the transit depth end
+    to end. The limb and SO spectra end to end are printed beside: a
+    transmission exp(-tau) carries tau times the synthesis's relative
+    error, and a thin limb radiance the synthesis's error at the top
+    layers, where float32's far-wing Voigt loses relative accuracy.
+    ``profile``: ``profile_forward`` of each forward."""
+    import torch
+
+    from archnemesis_tpu_torch.forward import (
+        forward_limb_batch,
+        forward_so,
+        forward_transit,
+        so_geometry,
+    )
+    from archnemesis_tpu_torch.ops import lbl_cuda
+    from archnemesis_tpu_torch.rt.layer import build_layers
+    from archnemesis_tpu_torch.rt.path import limb_paths
+    from archnemesis_tpu_torch.synthetic import LBL_NWAVE, lbl_headline
+
+    decks = {dt: lbl_headline(dtype=dt, device="cuda")
+             for dt in (torch.float32, torch.float64)}
+    atm64, laycfg = decks[torch.float64][:2]
+    # the stencil from the float64 layering, for both types
+    geo_so = so_geometry(atm64, laycfg, LBL_GEOM_TANHE)
+    geo_limb = so_geometry(atm64, laycfg, LBL_GEOM_TANHE, lfm_bracket=True)
+    forwards = {
+        "forward_so": lambda atm, rt, cfg, **kw: forward_so(
+            atm, laycfg, rt, None, None, cfg, geo_so, device="cuda", **kw),
+        "forward_limb_batch": lambda atm, rt, cfg, **kw: forward_limb_batch(
+            atm, laycfg, rt, None, None, cfg, geo_limb, device="cuda", **kw),
+        "forward_transit": lambda atm, rt, cfg, **kw: forward_transit(
+            atm, laycfg, rt, None, None, cfg,
+            stellar_radius_km=LBL_GEOM_STELLAR_KM, device="cuda", **kw),
+    }
+    # each forward's tangent (bottom) layers, one path each
+    paths = {"forward_so": list(geo_so["itanhe"]),
+             "forward_limb_batch": list(geo_limb["itanhe"]),
+             "forward_transit": list(range(laycfg.nlay - 1))}
+    nlines = decks[torch.float32][2].line_lists[0].n_lines
+    kernel_ms = _tangent_layering_kernel(decks[torch.float32], card)
+    launches = 0
+    for name, fwd in forwards.items():
+        atm, _, rt, _, cfg = decks[torch.float32]
+
+        def forward():
+            return fwd(atm, rt, cfg)
+
+        spec, n_lbl, n_comb = _lbl_geometry_launches(forward)
+        if (n_lbl, n_comb) != (1, 0):
+            raise AssertionError(f"{name}: {n_lbl} kernel-2 and {n_comb} "
+                                 "kernel-1 launches, expected 1 and 0")
+        if not torch.isfinite(spec).all() or spec.shape[0] != LBL_NWAVE:
+            raise AssertionError(f"{name}: spectrum not finite or not "
+                                 f"{LBL_NWAVE} waves")
+        launches += n_lbl
+        del spec
+        torch.cuda.reset_peak_memory_stats()
+        packs = lbl_cuda.kernel_inputs.calls
+        times = []
+        for i in range(HEADLINE_RUNS + 2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            forward()
+            end.record()
+            end.synchronize()
+            if i >= 2:
+                times.append(start.elapsed_time(end))
+        packs = lbl_cuda.kernel_inputs.calls - packs
+        if packs:
+            raise AssertionError(f"{name}: the static kernel inputs were "
+                                 f"packed {packs} times after the first "
+                                 "forward")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = float(np.median(times))
+        # the host's launches: the forward's tensor operations, and those
+        # of its path geometry alone (one layering at 90 degrees)
+        _, n_ops = _count_ops(forward)
+        layers = build_layers(atm, laycfg, layang=90.0)
+        _, n_path_ops = _count_ops(lambda: limb_paths(
+            layers, atm.radius, atm.h[-1], paths[name]))
+        _print(f"{name} on the LBL headline ({LBL_NWAVE} waves x {nlines} "
+               f"lines x {laycfg.nlay} layers, {len(paths[name])} paths, "
+               f"float32, {card}): median {ms:.3f} ms over {len(times)} "
+               f"runs (min {min(times):.3f}, max {max(times):.3f}); "
+               f"{LBL_NWAVE / ms * 1e3:.1f} waves/s; peak memory "
+               f"{peak:.3f} GiB; 1 kernel-2 launch per forward, no packing "
+               f"after the first; kernel 2 alone {kernel_ms / ms:.1%} of it; "
+               f"{n_ops} tensor operations per forward, {n_path_ops} of them "
+               f"in the path geometry (limb_paths)")
+        errs = lbl_geometry_f32_errors(
+            lambda *a: fwd(*a, return_diagnostics=True),
+            decks[torch.float32], decks[torch.float64])
+        _print(f"{name} float32 vs float64 (max, median rel): " + "; ".join(
+            f"{k} {v[0]:.3e}, {v[1]:.3e}" for k, v in errs.items()))
+        gated = ["transfer", "taugas"] + (
+            ["spectrum"] if name == "forward_transit" else [])
+        bad = [k for k in gated if not (errs[k][0] < LBL_F32_BOUNDS[0]
+                                        and errs[k][1] < LBL_F32_BOUNDS[1])]
+        if bad:
+            raise AssertionError(f"{name}: float32 {bad} outside "
+                                 f"{LBL_F32_BOUNDS[0]:.0e} / "
+                                 f"{LBL_F32_BOUNDS[1]:.0e}")
+        if profile:
+            profile_forward(forward, what=f"{name} on the LBL headline",
+                            trace=f"build/{name}_trace.json")
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lbl_geometries(card: str, profile: bool = False) -> int:
+    """Phase 26: line-by-line at run time (ILBL = 1) through the limb, SO
+    and transit set-ups on kernel 2; returns its launches on the main
+    paths. ``profile``: device time by kernel of the full-width
+    forwards."""
+    from archnemesis_tpu_torch.retrievals import retrieval_nemesis
+
+    launches = 0
+    with tempfile.TemporaryDirectory() as base:
+        for kind in LBL_TANGENT_DECKS:
+            deck = lbl_tangent_deck(base, kind)
+            launches += _lbl_deck_case(kind, deck, card)
+        t0 = time.perf_counter()
+        res = retrieval_nemesis(os.path.join(base, "so"), "cirstest",
+                                nemesis_so=True, niter=3, write_outputs=False,
+                                device="cuda")
+        wall = time.perf_counter() - t0
+    if not (np.all(np.isfinite(res.xn))
+            and res.phi_history[-1] < res.phi_history[0]):
+        raise AssertionError(f"ILBL = 1 SO retrieval: phi {res.phi_history}")
+    _print(f"retrieval_nemesis(nemesis_so=True, niter=3) on the ILBL = 1 SO "
+           f"deck ({card}): {wall:.3f} s, phi {res.phi_history[0]:.6e} -> "
+           f"{res.phi_history[-1]:.6e}")
+    launches += _lbl_geometry_headline(card, profile=profile)
+    if "h5py" in sys.modules:
+        raise AssertionError("phase 26 imported h5py")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5457,6 +5960,7 @@ def main() -> int:
     em_launches, em_tan_launches = phase_emissions(card)
     tl_launches, tl_tan_launches = phase_telluric_multiloc(card)
     ingest_launches, ingest_combine_launches = phase_ingest(card)
+    geom_lbl_launches = phase_lbl_geometries(card, profile=profile)
 
     kernels = [dict(
         name="overlap_combine",
@@ -5490,7 +5994,8 @@ def main() -> int:
         route="cuda",
         source="archnemesis_tpu_torch/csrc/lbl_cross_section.cu",
         replaces="archnemesis_tpu/ops/lbl_pallas.py:228",
-        launches=lbl_launches + table_launches + ingest_launches,
+        launches=(lbl_launches + table_launches + ingest_launches
+                  + geom_lbl_launches),
         max_abs_err=lbl_record["max_abs_err"],
         ms=lbl_record["ms"],
         plain_ms=lbl_record["plain_ms"],

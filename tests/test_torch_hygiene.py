@@ -624,3 +624,106 @@ def test_port_has_every_public_name_of_the_jax_package():
         assert name in _public_names(JAX / rel)
     # the scan sees a missing name
     assert "plot_bestfit" in _public_names(JAX / "plotting.py")
+
+
+# Parameters of the JAX package that the port does not take, by design:
+JAX_ONLY_PARAMETERS = {
+    # the Pallas kernels' switches and the XLA path's split-delta inputs;
+    # the port's wrappers choose the CUDA kernel or the plain version by
+    # the tensors' device
+    "use_pallas", "pallas_interpret", "nu_lo", "wn_lo",
+    # the TPU combine's straddle and bin-edge arguments
+    "nstraddle", "g_edges",
+    # the TPU scattering loop's fixed trip count
+    "static_trip_count",
+    # the JAX profiler's Perfetto link
+    "create_perfetto_link",
+    # JAX device lists; the port runs where ``device`` says
+    "devices",
+    # the multihost mesh arguments of jax.distributed and its named axes
+    "coordinator_address", "num_processes", "process_id", "data_axis",
+    "wave_axis", "global_batch",
+}
+# JAX's name -> the port's (torch's own names)
+RENAMED_PARAMETERS = {"cast_dtype": "dtype", "axis": "dim"}
+# Parameters only the port takes: where to run and in which type, the HDF5
+# run file's name and directory, path redirects, the LBL kernel's packed
+# inputs, the disc's ray chunk, host copies of static grids read inside
+# torch.func transforms, and torch.distributed's arguments
+PORT_ONLY_PARAMETERS = {
+    "device", "dtype", "deck_file", "base_dir", "redirects", "packed",
+    "ray_chunk", "vconv_host", "waven_host", "wave_host", "**kw", "**_kw",
+    "init_method", "world_size", "rank", "backend", "n_shards",
+    "local_batch",
+}
+# default values written with the other package's names
+RENAMED_DEFAULTS = {"np.float32": "torch.float32"}
+
+
+def _signatures(path: pathlib.Path) -> dict:
+    """name -> [(parameter, default text or None)] of the public functions
+    and public classes' public methods at a module's top level."""
+    def params(fn):
+        a = fn.args
+        pos = a.posonlyargs + a.args
+        defaults = [None] * (len(pos) - len(a.defaults)) + list(a.defaults)
+        out = [(p.arg, d) for p, d in zip(pos, defaults)]
+        if a.vararg:
+            out.append(("*" + a.vararg.arg, None))
+        out += list(zip((p.arg for p in a.kwonlyargs), a.kw_defaults))
+        if a.kwarg:
+            out.append(("**" + a.kwarg.arg, None))
+        return [(n, None if d is None else ast.unparse(d)) for n, d in out]
+
+    sigs = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+            sigs[node.name] = params(node)
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            sigs.update((f"{node.name}.{m.name}", params(m))
+                        for m in node.body
+                        if isinstance(m, ast.FunctionDef)
+                        and not m.name.startswith("_"))
+    return sigs
+
+
+def _comparable(jax_params, port_params):
+    """(JAX's parameters without its own and under the port's names, the
+    port's without its own), each a list of (name, default). A renamed
+    parameter's default is not compared: it follows torch (JAX's
+    ``cast_dtype=None`` runs in float64, the port's ``dtype`` says
+    ``torch.float64``)."""
+    port_names = {n for n, _ in port_params}
+    renamed = {RENAMED_PARAMETERS[n] for n, _ in jax_params
+               if n in RENAMED_PARAMETERS and n not in port_names}
+    want = [(n, RENAMED_DEFAULTS.get(d, d)) if n in port_names
+            else (RENAMED_PARAMETERS.get(n, n), None)
+            for n, d in jax_params if n not in JAX_ONLY_PARAMETERS]
+    shared = {n for n, _ in want}
+    got = [(n, None if n in renamed else d) for n, d in port_params
+           if n in shared or n not in PORT_ONLY_PARAMETERS]
+    return want, got
+
+
+def test_public_functions_take_the_jax_parameters():
+    """Every public function (and public method) of the JAX package that
+    the port has takes the same parameters in the same order with the same
+    defaults, apart from the listed JAX-only and port-only parameters and
+    renames."""
+    differ = []
+    for path in sorted(JAX.rglob("*.py")):
+        rel = str(path.relative_to(JAX))
+        port = PORT / COUNTERPART.get(rel, rel)
+        if rel in JAX_ONLY_MODULES or not port.exists():
+            continue
+        have = _signatures(port)
+        for name, params in _signatures(path).items():
+            if name in have:
+                want, got = _comparable(params, have[name])
+                if got != want:
+                    differ.append((rel, name, want, got))
+    assert not differ, differ
+    # the scan sees a parameter out of JAX's order (fault F1's signature)
+    old = [("gasgiant", None), ("ispace", "0"), ("emission_path", "None")]
+    new = [("gasgiant", None), ("emission_path", "None"), ("ispace", "0")]
+    assert _comparable(new, old)[0] != _comparable(new, old)[1]

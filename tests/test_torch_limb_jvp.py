@@ -79,12 +79,15 @@ def test_jvp_columns_match_eager_jax(limb_setups):
 
 
 def _expm1_emission(wave, tau_path, emtemp, mask, tsurf, emissivity,
-                    surface_visible, gasgiant, emission_path=None, ispace=0):
-    """JAX's limb emission (archnemesis_tpu/rt/emission.py) with
-    T_{j-1} - T_j taken as T_{j-1} (-expm1(-tau_j))."""
+                    surface_visible, gasgiant, solflux=None,
+                    reflectance=None, sol_ang=None, emiss_ang=None,
+                    emission_path=None, ispace=0):
+    """JAX's limb emission (archnemesis_tpu/rt/emission.py, its parameters
+    in its order) with T_{j-1} - T_j taken as T_{j-1} (-expm1(-tau_j))."""
     from archnemesis_tpu.ops.planck import planck
 
     assert not surface_visible and emission_path is None
+    assert solflux is None and reflectance is None
     tau = tau_path * mask[None, None, :, :]
     tr = jnp.exp(-jnp.cumsum(tau, axis=2))
     trold = jnp.concatenate([jnp.ones_like(tr[:, :, :1, :]),
