@@ -1,0 +1,9 @@
+"""Milliseconds in which an operation ran on the card, per forward of the
+traced window: the whole forward's device time, which bounds what any one
+kernel's gain can save."""
+
+
+def read(ctx):
+    if ctx.trace.busy_s <= 0.0 or not ctx.traced_calls:
+        return None
+    return 1e3 * ctx.trace.busy_s / ctx.traced_calls
