@@ -54,6 +54,7 @@ from archnemesis_tpu_torch.rt.path import (
 )
 from archnemesis_tpu_torch.utils.device import resolve_device
 from archnemesis_tpu_torch.utils.interp import interp, interp1d_extrap
+from archnemesis_tpu_torch.utils.profiling import FORWARD_SPAN, annotate
 
 ATM_TO_PA = 101325.0
 SQ_CM_TO_SQ_M = 1.0e-4
@@ -257,21 +258,26 @@ def runtime_lbl_tau(cfg: ForwardConfig, layers, rt: RuntimeLBL, press_atm,
                 sharded_lbl_cross_section,
             )
 
-            k_i = sharded_lbl_cross_section(
-                rt.line_lists[i], rt.shard_data[i], rt.wave_slice.mesh,
-                layers.temp, press_atm, amb, **opts)  # (NWAVE_rank, NLAY)
+            with annotate("nemesis.lbl.synth"):
+                k_i = sharded_lbl_cross_section(
+                    rt.line_lists[i], rt.shard_data[i], rt.wave_slice.mesh,
+                    layers.temp, press_atm, amb,
+                    **opts)  # (NWAVE_rank, NLAY)
         elif rt.include_lines[i]:
             # the kernel's static inputs, packed once per deck on the card
-            k_i = lbl_cross_section(
-                rt.line_lists[i], rt.blocks[i], layers.temp, press_atm, amb,
-                device=dev, packed=rt.packed_inputs(i),
-                **opts)  # (NWAVE, NLAY)
+            with annotate("nemesis.lbl.pack"):
+                blocks, packed = rt.blocks[i], rt.packed_inputs(i)
+            with annotate("nemesis.lbl.synth"):
+                k_i = lbl_cross_section(
+                    rt.line_lists[i], blocks, layers.temp, press_atm, amb,
+                    device=dev, packed=packed, **opts)  # (NWAVE, NLAY)
         if rt.include_continuum[i] and rt.pseudo_continuum[i] is not None:
             # weak-line pseudo-continuum (reference
             # add_monochromatic_absorption LineData_0.py:2436-2460)
-            k_i = k_i + pseudo_continuum_k(
-                rt.pseudo_continuum[i], wave, layers.temp, press_atm, amb,
-                lineshape=rt.lineshape[i])
+            with annotate("nemesis.lbl.continuum"):
+                k_i = k_i + pseudo_continuum_k(
+                    rt.pseudo_continuum[i], wave, layers.temp, press_atm,
+                    amb, lineshape=rt.lineshape[i])
         taugas = taugas + k_i * amounts[i][None, :]
     return taugas[:, None, :]
 
@@ -309,55 +315,61 @@ def layer_optical_depths(
     if ktab.ilbl == SpectralCalculationMode.LINE_BY_LINE_RUNTIME:
         taugas = runtime_lbl_tau(cfg, layers, ktab, press_atm, amounts)
     elif ktab.ilbl == SpectralCalculationMode.LINE_BY_LINE_TABLES:
-        k_gas = interp_ktables(ktab.k, ktab.press, ktab.temp, press_atm,
-                               layers.temp, logk=ktab.logk)
+        with annotate("nemesis.kinterp"):
+            k_gas = interp_ktables(ktab.k, ktab.press, ktab.temp, press_atm,
+                                   layers.temp, logk=ktab.logk)
         # monochromatic: plain sum over gases, NG=1
         # (reference ForwardModel_0.py:3796-3818)
         taugas = torch.einsum("wglr,rl->wgl", k_gas, amounts)
     else:
         # correlated-k random overlap (ForwardModel_0.py:3853-3885)
-        k_gas = interp_ktables(ktab.k, ktab.press, ktab.temp, press_atm,
-                               layers.temp, logk=ktab.logk)
-        taugas = mix_gas_k(cfg.del_g, k_gas, amounts)
+        with annotate("nemesis.kinterp"):
+            k_gas = interp_ktables(ktab.k, ktab.press, ktab.temp, press_atm,
+                                   layers.temp, logk=ktab.logk)
+        with annotate("nemesis.overlap"):
+            taugas = mix_gas_k(cfg.del_g, k_gas, amounts)
 
     q_lay = layers.pp / layers.press[:, None]
 
     # --- CIA
     if cia is not None:
-        taucia = cia_tau(
-            cia,
-            wave,
-            layers.temp,
-            layers.frac,
-            q_lay,
-            layers.totam,
-            layers.delh,
-            cfg.pair_q1,
-            cfg.pair_q2,
-            cfg.pair_active,
-            ispace=cfg.ispace,
-            ico2=cfg.ico2,
-            in2=cfg.in2,
-            ih2=cfg.ih2,
-        )
+        with annotate("nemesis.cia"):
+            taucia = cia_tau(
+                cia,
+                wave,
+                layers.temp,
+                layers.frac,
+                q_lay,
+                layers.totam,
+                layers.delh,
+                cfg.pair_q1,
+                cfg.pair_q2,
+                cfg.pair_active,
+                ispace=cfg.ispace,
+                ico2=cfg.ico2,
+                in2=cfg.in2,
+                ih2=cfg.ih2,
+            )
     else:
         taucia = layers.temp.new_zeros((wave.shape[0], layers.nlay))
 
     # --- Rayleigh
-    tauray = rayleigh_tau(
-        cfg.iray,
-        wave,
-        layers.totam,
-        vmr_lay=q_lay,
-        gas_idx=dict(cfg.ray_gas_idx),
-        ispace=cfg.ispace,
-    )
+    with annotate("nemesis.rayleigh"):
+        tauray = rayleigh_tau(
+            cfg.iray,
+            wave,
+            layers.totam,
+            vmr_lay=q_lay,
+            gas_idx=dict(cfg.ray_gas_idx),
+            ispace=cfg.ispace,
+        )
 
     # --- dust
     if aero is not None and aero.ndust > 0:
-        taudust, tauscat, tauclscat = dust_tau(
-            aero.wave, aero.kext, aero.ksca, wave, layers.cont
-        )
+        with annotate("nemesis.dust"):
+            taudust, tauscat, tauclscat = dust_tau(
+                aero.wave, aero.kext, aero.ksca, wave, layers.cont
+            )
     else:
         z = layers.temp.new_zeros((wave.shape[0], layers.nlay))
         taudust, tauscat, tauclscat = z, z, z[:, :, None] * 0
@@ -389,48 +401,52 @@ def path_spectrum(
     ``emission_layer``: optional (NWAVE, NLAY) non-LTE per-layer emitted
     radiance (``ops.emissions.layer_emission``), gathered onto the path as
     tau is (reference EMITOT_LAYINC ForwardModel_0.py:4095)."""
-    tau_layinc = (
-        tautot[:, :, path.layinc] * path.scale[None, None, :, :]
-    )  # (NWAVE, NG, NLAYIN, NPATH)
+    with annotate("nemesis.spectrum"):
+        tau_layinc = (
+            tautot[:, :, path.layinc] * path.scale[None, None, :, :]
+        )  # (NWAVE, NG, NLAYIN, NPATH)
 
-    if PathCalc.THERMAL_EMISSION in path.imod:
-        if surf is not None and not cfg.gasgiant:
-            emissivity = interp1d_extrap(surf.vem, surf.emissivity, wave)
-            tsurf = surf.tsurf
+        if PathCalc.THERMAL_EMISSION in path.imod:
+            if surf is not None and not cfg.gasgiant:
+                emissivity = interp1d_extrap(surf.vem, surf.emissivity, wave)
+                tsurf = surf.tsurf
+            else:
+                emissivity = torch.zeros_like(wave)
+                tsurf = wave.new_tensor(-1.0)
+            emission_path = None
+            if emission_layer is not None:
+                # (NWAVE, NLAYIN, NPATH)
+                emission_path = (emission_layer[:, path.layinc]
+                                 * path.scale[None, :, :])
+            spec = thermal_emission_spectrum(
+                wave,
+                tau_layinc,
+                path.emtemp,
+                path.mask,
+                tsurf,
+                emissivity,
+                path.surface_visible,
+                cfg.gasgiant,
+                ispace=cfg.ispace,
+                emission_path=emission_path,
+            )
+        elif PathCalc.ABSORBTION in path.imod:
+            # 1 - transmission, useful for small transmissions (reference
+            # calculate_absorption_spectrum ForwardModel_0.py:4127-4136)
+            tau_total = torch.sum(tau_layinc * path.mask[None, None, :, :],
+                                  dim=2)
+            spec = absorption_spectrum(tau_total)
+        elif not (
+            (PathCalc.MULTIPLE_SCATTERING
+             | PathCalc.SINGLE_SCATTERING_PLANE_PARALLEL) & path.imod
+        ):
+            tau_total = torch.sum(tau_layinc * path.mask[None, None, :, :],
+                                  dim=2)
+            spec = transmission_spectrum(tau_total)
         else:
-            emissivity = torch.zeros_like(wave)
-            tsurf = wave.new_tensor(-1.0)
-        emission_path = None
-        if emission_layer is not None:
-            emission_path = (emission_layer[:, path.layinc]
-                             * path.scale[None, :, :])  # (NWAVE, NLAYIN, NPATH)
-        spec = thermal_emission_spectrum(
-            wave,
-            tau_layinc,
-            path.emtemp,
-            path.mask,
-            tsurf,
-            emissivity,
-            path.surface_visible,
-            cfg.gasgiant,
-            ispace=cfg.ispace,
-            emission_path=emission_path,
-        )
-    elif PathCalc.ABSORBTION in path.imod:
-        # 1 - transmission, useful for small transmissions (reference
-        # calculate_absorption_spectrum ForwardModel_0.py:4127-4136)
-        tau_total = torch.sum(tau_layinc * path.mask[None, None, :, :], dim=2)
-        spec = absorption_spectrum(tau_total)
-    elif not (
-        (PathCalc.MULTIPLE_SCATTERING
-         | PathCalc.SINGLE_SCATTERING_PLANE_PARALLEL) & path.imod
-    ):
-        tau_total = torch.sum(tau_layinc * path.mask[None, None, :, :], dim=2)
-        spec = transmission_spectrum(tau_total)
-    else:
-        raise NotImplementedError(f"IMOD {path.imod} not yet implemented")
+            raise NotImplementedError(f"IMOD {path.imod} not yet implemented")
 
-    return torch.einsum("wgp,g->wp", spec, del_g)
+        return torch.einsum("wgp,g->wp", spec, del_g)
 
 
 def _calc_grid(ktab, layers):
@@ -486,38 +502,43 @@ def forward_nadir(
     without a card unless ``device="cpu"``); a ``RuntimeLBL`` stays on the
     host and its synthesis runs on ``device``.
     """
-    device = resolve_device(device)
-    atm, ktab, cia, aero, surf, emis = _structures_to(device, atm, ktab, cia,
-                                                      aero, surf, emis)
+    with annotate(FORWARD_SPAN):
+        device = resolve_device(device)
+        atm, ktab, cia, aero, surf, emis = _structures_to(
+            device, atm, ktab, cia, aero, surf, emis)
 
-    layers = apply_dust_renorm(build_layers(atm, laycfg, layang=0.0), atm)
-    path = nadir_path(
-        layers,
-        atm.radius,
-        atm.h[-1],
-        emiss_ang,
-        sol_ang=sol_ang,
-        azi_ang=azi_ang,
-        imod=PathCalc.THERMAL_EMISSION,
-    )
-    wave, del_g = _calc_grid(ktab, layers)
-    taus = layer_optical_depths(cfg, layers, wave, ktab, cia, aero)
-    emission_layer = None
-    if emis is not None:
-        from archnemesis_tpu_torch.ops.emissions import layer_emission
+        with annotate("nemesis.layering"):
+            layers = apply_dust_renorm(build_layers(atm, laycfg, layang=0.0),
+                                       atm)
+        with annotate("nemesis.path"):
+            path = nadir_path(
+                layers,
+                atm.radius,
+                atm.h[-1],
+                emiss_ang,
+                sol_ang=sol_ang,
+                azi_ang=azi_ang,
+                imod=PathCalc.THERMAL_EMISSION,
+            )
+        wave, del_g = _calc_grid(ktab, layers)
+        taus = layer_optical_depths(cfg, layers, wave, ktab, cia, aero)
+        emission_layer = None
+        if emis is not None:
+            from archnemesis_tpu_torch.ops.emissions import layer_emission
 
-        emission_layer = layer_emission(emis, wave, layers.temp,
-                                        layers.amount, emis_gas_cols,
-                                        dist=emis_dist)
-    spec = path_spectrum(cfg, wave, taus["tautot"], path, surf, del_g,
-                         emission_layer=emission_layer)
-    if ktab.wave_slice is not None:
-        # wave-sharded tables: every stage above ran on this rank's waves;
-        # the spectrum is gathered once, before the instrument function
-        spec = ktab.wave_slice.gather(spec, dim=0)
-    if return_diagnostics:
-        return spec, {"layers": layers, "path": path, **taus}
-    return spec
+            emission_layer = layer_emission(emis, wave, layers.temp,
+                                            layers.amount, emis_gas_cols,
+                                            dist=emis_dist)
+        spec = path_spectrum(cfg, wave, taus["tautot"], path, surf, del_g,
+                             emission_layer=emission_layer)
+        if ktab.wave_slice is not None:
+            # wave-sharded tables: every stage above ran on this rank's
+            # waves; the spectrum is gathered once, before the instrument
+            # function
+            spec = ktab.wave_slice.gather(spec, dim=0)
+        if return_diagnostics:
+            return spec, {"layers": layers, "path": path, **taus}
+        return spec
 
 
 def so_tangent_layers(baseh_m: np.ndarray, tanhe_km: np.ndarray):

@@ -6,13 +6,32 @@ Three layers, in PyTorch's idiom:
 - ``trace(logdir)``: ``torch.profiler.profile`` with CPU and CUDA
   activities around a block; a Chrome trace (``trace.json``) is written
   into ``logdir`` (view it in Perfetto or ``chrome://tracing``).
-- ``annotate(name)``: a named region inside a trace
-  (``torch.profiler.record_function``), for marking forward / jacobian /
-  OE-update phases.
+- ``annotate(name)``: the program's span. Off (one flag read, nothing
+  else) unless a ``torch.profiler`` is recording; on, a
+  ``record_function`` range in the trace, the host clock at its ends and,
+  on the card, a CUDA event on the stream at each end. ``forward_nadir``
+  opens ``nemesis.forward`` around its body and one flat span per layer
+  inside it (``nemesis.layering``, ``.path``, ``.kinterp``, ``.overlap``,
+  ``.lbl.pack``, ``.lbl.synth``, ``.lbl.continuum``, ``.cia``,
+  ``.rayleigh``, ``.dust``, ``.spectrum``); each traced forward leaves one
+  ``ForwardRecord`` in a ring of the last ``RING`` forwards:
+  ``forward_records(n)``, ``report()``, ``clear()``.
 - ``stopwatch(name)`` + the module-level ``timings`` registry: wall-clock
   stage timing that synchronises the CUDA device of every tensor of the
   block's result before it stops the clock, so the numbers mean what they
   say under asynchronous launches.
+
+A forward's layers, traced::
+
+    with profiling.trace("build/fwd_trace"):
+        forward_nadir(...)
+    print(profiling.report())
+
+``report()`` gives each span's calls, host self time (its own host time
+less its child spans') and stream time (the card's timeline between its
+two events, waits for the host included) per forward; in the Chrome trace
+the ``nemesis.*`` rows lie above the kernels they launched, on the
+profiler's clock.
 
 ``trace`` and ``device_memory_report`` run on the CUDA card unless the
 caller passes ``device="cpu"``: without a card they raise.
@@ -23,10 +42,12 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from collections import defaultdict
-from typing import Any, Dict, Iterator, List
+from collections import defaultdict, deque
+from dataclasses import dataclass, field
+from typing import Any, ContextManager, Dict, Iterator, List, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from archnemesis_tpu_torch.utils.device import resolve_device
 
@@ -111,12 +132,227 @@ def stopwatch(name: str, result: Any = None,
         reg.add(name, time.perf_counter() - t0)
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named region in a captured profile (``record_function``); harmless
-    outside a trace."""
-    with torch.profiler.record_function(name):
-        yield
+FORWARD_SPAN = "nemesis.forward"
+RING = 256  # forwards kept by the span records
+
+
+@dataclass
+class SpanStat:
+    """One span name's share of a forward: its calls, its host self time
+    [ns] and its stream time [ms] (None without CUDA events)."""
+
+    calls: int = 0
+    host_self_ns: int = 0
+    stream_ms: Optional[float] = None
+
+
+@dataclass
+class ForwardRecord:
+    """The spans of one traced forward: ``spans`` by name, the forward's
+    own among them (its self times: what lies between its layer spans),
+    and the forward's inclusive host and stream times. Stream times are
+    resolved when the records are read (``Spans.records``)."""
+
+    host_ms: float
+    spans: Dict[str, SpanStat]
+    stream_ms: Optional[float] = None
+    # (name, start, end) stream intervals still to resolve, and the
+    # events the record holds in the order recorded: the forward's own
+    # first and last
+    _intervals: list = field(default_factory=list, repr=False)
+    _events: list = field(default_factory=list, repr=False)
+
+
+class _Frame:
+    __slots__ = ("name", "t0", "child_ns", "start", "end", "record",
+                 "edges")
+
+    def __init__(self, name, t0, record):
+        self.name, self.t0, self.record = name, t0, record
+        self.child_ns, self.start, self.end, self.edges = 0, None, None, []
+
+
+class Spans:
+    """The open spans of this process (a stack) and the records of its
+    last ``RING`` traced forwards. CUDA events come from a pool: a
+    record's events go back to it once resolved, which a closing forward
+    does, without waiting, for records whose work the card has finished."""
+
+    def __init__(self) -> None:
+        self._records: deque = deque(maxlen=RING)
+        self._pending: deque = deque()
+        self._stack: List[_Frame] = []
+        self._free: list = []
+
+    def _event(self, frame: _Frame):
+        ev = self._free.pop() if self._free else torch.cuda.Event(
+            enable_timing=True)
+        ev.record()
+        frame.record._events.append(ev)
+        return ev
+
+    def open(self, name: str, t0: int) -> Optional[_Frame]:
+        """Push a span opened at host time ``t0`` [ns]; None for a span
+        outside any forward (a range in the trace only)."""
+        stack = self._stack
+        if stack:
+            frame = _Frame(name, t0, stack[0].record)
+            timed = stack[0].start is not None
+        elif name == FORWARD_SPAN:
+            frame = _Frame(name, t0, ForwardRecord(host_ms=0.0, spans={}))
+            timed = (torch.cuda.is_initialized()
+                     and not torch.cuda.is_current_stream_capturing())
+        else:
+            return None
+        if timed:
+            frame.start = self._event(frame)
+        stack.append(frame)
+        return frame
+
+    def stop_stream(self, frame: _Frame) -> None:
+        """The span's end event, before its range closes."""
+        if frame.start is not None:
+            frame.end = self._event(frame)
+
+    def close(self, frame: _Frame, t1: int, failed: bool) -> None:
+        """Pop ``frame``, closed at host time ``t1`` [ns], into its
+        forward's record; a closing forward files the record (unless it
+        raised) and resolves finished ones."""
+        stack = self._stack
+        stack.pop()
+        ns = t1 - frame.t0
+        stat = frame.record.spans.setdefault(frame.name, SpanStat())
+        stat.calls += 1
+        stat.host_self_ns += ns - frame.child_ns
+        if stack:
+            parent = stack[-1]
+            parent.child_ns += ns
+            if frame.start is not None:
+                frame.record._intervals.append(
+                    (frame.name, frame.start, frame.end))
+                if parent is stack[0]:
+                    parent.edges += (frame.start, frame.end)
+            return
+        record = frame.record
+        record.host_ms = ns * 1e-6
+        if frame.start is not None:
+            # the forward's self stream time: the gaps between its layers
+            bounds = [frame.start, *frame.edges, frame.end]
+            record._intervals += [(frame.name, bounds[i], bounds[i + 1])
+                                  for i in range(0, len(bounds), 2)]
+        if failed:
+            self._free += record._events
+            return
+        self._records.append(record)
+        if record._events:
+            self._pending.append(record)
+        while self._pending and self._pending[0]._events[-1].query():
+            self._resolve(self._pending.popleft())
+
+    def _resolve(self, record: ForwardRecord) -> None:
+        for name, start, end in record._intervals:
+            stat = record.spans[name]
+            stat.stream_ms = (stat.stream_ms or 0.0) + start.elapsed_time(end)
+        record.stream_ms = record._events[0].elapsed_time(record._events[-1])
+        self._free += record._events
+        record._intervals, record._events = [], []
+
+    def records(self, n: Optional[int] = None) -> List[ForwardRecord]:
+        """The last ``n`` (None: all kept) records, oldest first, their
+        stream times resolved (waits for the card where it must)."""
+        while self._pending:
+            record = self._pending.popleft()
+            record._events[-1].synchronize()
+            self._resolve(record)
+        kept = list(self._records)
+        return kept if n is None else kept[max(len(kept) - n, 0):]
+
+    def clear(self) -> None:
+        """Drop every record (the open spans stay open)."""
+        for record in self._pending:
+            self._free += record._events
+        self._pending.clear()
+        self._records.clear()
+
+    def report(self, n: Optional[int] = None) -> str:
+        """Per forward, mean over the last ``n`` records: each span's
+        calls, host self ms and stream ms, then the forward's inclusive
+        times."""
+        recs = self.records(n)
+        if not recs:
+            return "no traced forwards"
+        names = list(dict.fromkeys(k for r in recs for k in r.spans))
+
+        def mean(values):
+            values = list(values)
+            return None if None in values else sum(values) / len(recs)
+
+        def ms(x):
+            return f"{'-':>12}" if x is None else f"{x:>12.4f}"
+
+        lines = [f"{'span (per forward, ' + str(len(recs)) + ' forwards)':<40}"
+                 f" {'calls':>6} {'host self ms':>12} {'stream ms':>12}"]
+        for name in names:
+            stats = [r.spans.get(name, SpanStat(stream_ms=0.0)) for r in recs]
+            lines.append(
+                f"{name:<40} {mean(s.calls for s in stats):>6.1f}"
+                f" {ms(mean(s.host_self_ns * 1e-6 for s in stats))}"
+                f" {ms(mean(s.stream_ms for s in stats))}")
+        lines.append(f"{FORWARD_SPAN + ' (inclusive)':<40} {1.0:>6.1f}"
+                     f" {ms(mean(r.host_ms for r in recs))}"
+                     f" {ms(mean(r.stream_ms for r in recs))}")
+        return "\n".join(lines)
+
+
+spans = Spans()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("_name", "_range", "_frame")
+
+    def __init__(self, name: str) -> None:
+        self._name = name
+
+    def __enter__(self) -> None:
+        t0 = time.perf_counter_ns()
+        self._range = _autograd_profiler.record_function(self._name)
+        self._range.__enter__()
+        self._frame = spans.open(self._name, t0)
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        frame = self._frame
+        if frame is not None:
+            spans.stop_stream(frame)
+        self._range.__exit__(exc_type, exc, tb)
+        if frame is not None:
+            spans.close(frame, time.perf_counter_ns(), exc_type is not None)
+        return False
+
+
+def annotate(name: str) -> ContextManager[None]:
+    """The program's span ``name``: with no ``torch.profiler`` recording,
+    nothing (one flag read); while one records, a ``record_function`` range
+    in its trace and, inside a ``nemesis.forward`` span, the host and
+    stream times of the span's forward record."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+def forward_records(n: Optional[int] = None) -> List[ForwardRecord]:
+    """The last ``n`` traced forwards' records (``spans.records``)."""
+    return spans.records(n)
+
+
+def clear() -> None:
+    """Drop the traced forwards' records."""
+    spans.clear()
+
+
+def report(n: Optional[int] = None) -> str:
+    """Table of each span's host self ms and stream ms per forward."""
+    return spans.report(n)
 
 
 @contextlib.contextmanager

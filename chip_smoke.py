@@ -813,8 +813,10 @@ def profile_forward(forward, runs: int = 3, what: str = "headline forward",
             forward()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # the program's spans (``profiling.annotate``) are ranges, not kernels
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_us = sum(e.self_device_time_total for e in kernels)
     _print(f"profile of {runs} x {what}: wall {wall_us / 1e3:.3f} "
