@@ -1,11 +1,12 @@
 // One row of the random-overlap combine, run by one warp: the row code that
-// the combine kernels (overlap_combine.cu: combine_primal_kernel and
-// combine_tan_kernel) and the combine's A/B variants (overlap_variants.cu)
-// share, so that the variants measure the parts of the combine in its own
-// layout. overlap_combine.cu describes the steps and what bounds them;
+// the fused combine kernel (overlap_combine.cu: combine_tan_kernel) and the
+// combine's A/B variants (overlap_variants.cu) share, so that the variants
+// measure the parts of the combine in its own layout; the primal kernel
+// (combine_primal_kernel, one thread per row) gives its bits.
+// overlap_combine.cu describes the steps and what bounds them;
 // combine_row's template arguments choose where a variant stops or turns
-// off (kernels 1 and 1t take the defaults: the combine as it was written
-// for them, the same instructions).
+// off (kernel 1t takes the defaults: the combine as it was written for it,
+// the same instructions).
 //
 // Every definition has internal linkage: the header is included once by
 // each kernel source, which is one library of its own.

@@ -132,10 +132,11 @@ def _del_g_key(del_g) -> tuple:
 
 
 def _combine_primal(tau_a, tau_b, del_g: tuple, warps: int = 0):
-    """The primal combine on plain (not dual, not batched) tensors; on the
-    card ``warps`` rows per block (1 .. 16), or with 0 the count that keeps
-    the most rows resident on an SM (``csrc/overlap_combine.cu:
-    launch_primal``)."""
+    """The primal combine on plain (not dual, not batched) tensors. On the
+    card one thread takes one row: ``warps`` warps per block (1 .. 16, so
+    32 to 512 rows), or with 0 the count that keeps the most rows resident
+    on an SM (``csrc/overlap_combine.cu:launch_primal``); a count whose
+    shared memory does not fit a block raises."""
     if tau_a.device.type == "cpu":
         return combine_pair_plain(tau_a, tau_b, del_g)
     if tau_a.device.type != "cuda":

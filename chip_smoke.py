@@ -28,7 +28,9 @@ without them. Phases, each of which fails the run on its own:
    float32 bound, which alone holds at NG=32: there the plain float32
    version's own error nears the bound. Both float32 versions' errors
    against float64 are printed. At full size two launches must give equal
-   bits, and the kernel is timed at 4, 8 and 16 rows per block;
+   bits, and the kernel is timed at 4, 8 and 16 warps per block (32 rows
+   a warp); then timed beside the plain version at R = 79,872, NG = 10
+   (the scattering headline's shape) and at the full size in float64;
 3. the golden deck (``tests/fixtures/jupiter_nadir``) read with the port's
    readers: float64 layer optical depths and convolved spectrum within
    rtol 1e-5 of ``tests/goldens/jupiter_nadir_fm.npz``; float32
@@ -54,8 +56,8 @@ without them. Phases, each of which fails the run on its own:
    plain version as above. At T = 81, R = 39,689, NG = 20 in both types
    two launches and a launch replayed from a ``torch.cuda.CUDAGraph`` give
    equal bits; the time beside the bound, the time of a launch with no
-   tangents beside kernel 1's (the merge's share), and the time per rows
-   per block (``TAN_WARP_CHOICES``);
+   tangents beside kernel 1's, and the time per rows per block
+   (``TAN_WARP_CHOICES``);
 6. the retrieval on the card, through ``retrievals.make_retrieval_setup``
    and ``retrieval_nemesis`` with ``device="cuda"``: on ``jupiter_nadir``
    in float64 the a priori and measurement vector, ``forward_fn(XN)`` and
@@ -108,9 +110,10 @@ without them. Phases, each of which fails the run on its own:
     SASS, then the probe tool's measurement at 72,704 x 512 (the main
     path: ``tools/fma_peak.measure``, 24 launches): TFLOP/s and the share
     of the data-sheet peak;
-12. the combine's A/B variants (``csrc/overlap_variants.cu``, kernel 1's
-    row code taken apart stage by stage): every mode against its plain
-    version at NG 4 and 32 (65,536 rows) and at the tool's R = 581,632, NG
+12. the combine's A/B variants (``csrc/overlap_variants.cu``, the
+    warp-per-row code of kernel 1t taken apart stage by stage, which gives
+    kernel 1's bits): every mode against its plain version at NG 4 and 32
+    (65,536 rows) and at the tool's R = 581,632, NG
     = 20 (``sortonly`` and ``rollonly`` bit for bit, and equal to
     ``torch.topk`` and ``torch.roll``; ``full`` equal to kernel 1 bit for
     bit and to itself at every row tile; ``full`` and ``edges`` within
@@ -118,7 +121,7 @@ without them. Phases, each of which fails the run on its own:
     within three times it of the float32 plain version); then the variants
     tool (the main path: ``tools/overlap_variants.run``) with ms per mode
     beside kernel 1's, its bound and library time (``torch.topk``,
-    ``torch.roll``), ms per rows per block, and kernel 1's split: kernel 1
+    ``torch.roll``), ms per rows per block, and the row code's split: full
     - sortonly (its scan and rebin) and full - edges (the walk against the
     search);
 13. the LBL headline's synthesis as 4 logical wave shards through the
@@ -707,6 +710,36 @@ def _check_combine(out, a, b, del_g, what: str) -> float:
     return err
 
 
+# further shapes phase 2 times kernel 1 at: the scattering headline's, and
+# the headline's in float64
+COMBINE_TIMED = ((79_872, 10, "float32"), (581_632, 20, "float64"))
+
+
+def _time_combine(rows: int, ng: int, dtype: str):
+    """Kernel 1's and the plain version's device ms on ``overlap_inputs`` of
+    one shape, beside the bound; the kernel held to the plain version."""
+    import torch
+
+    from archnemesis_tpu_torch.ops.overlap_cuda import (
+        combine_pair,
+        combine_pair_plain,
+    )
+
+    del_g = gauss_del_g(ng)
+    ta, tb = overlap_inputs(rows, ng, seed=ng + rows)
+    a = torch.as_tensor(ta, dtype=getattr(torch, dtype), device="cuda")
+    b = torch.as_tensor(tb, dtype=getattr(torch, dtype), device="cuda")
+    _check_combine(combine_pair(a, b, del_g), a, b, del_g,
+                   f"NG={ng} {dtype} rows={rows}")
+    ms = _cuda_ms(lambda: combine_pair(a, b, del_g), reps=20)
+    plain_ms = _cuda_ms(lambda: combine_pair_plain(a, b, del_g), reps=2,
+                        warmup=1)
+    bound_ms, bound_by = combine_bound_ms(rows, ng, a.element_size(),
+                                          is_sorted_along_g(a, b))
+    _print(f"combine at R={rows}, NG={ng}, {dtype}: kernel {ms:.4f} ms, "
+           f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+
 def phase_kernel_vs_plain():
     """Kernel vs plain on the card; returns the headline-shape record."""
     import torch
@@ -752,9 +785,11 @@ def phase_kernel_vs_plain():
             key = tuple(float(x) for x in del_g)
             by_warps = {w: _cuda_ms(lambda w=w: overlap_cuda._combine_primal(
                 a, b, key, warps=w), reps=20) for w in PRIMAL_WARP_CHOICES}
-            _print("combine by rows per block: " + ", ".join(
+            _print("combine by warps per block: " + ", ".join(
                 f"{w}: {t:.4f} ms" for w, t in by_warps.items())
                 + " (the wrapper lets the launch choose)")
+    for rows, ng, dtype in COMBINE_TIMED:
+        _time_combine(rows, ng, dtype)
 
     # rows unsorted along g, heavy ties, all-zero rows, every NG class, a
     # ragged last block
@@ -2156,7 +2191,7 @@ def _check_variants(a, b, del_g, kernel1) -> dict:
 def phase_overlap_variants():
     """Kernel 3, every mode against its plain version at NG 4, 20 (the
     tool's shape) and 32, then the variants tool (the main path) beside
-    kernel 1, with kernel 1's stage split; returns one record per mode."""
+    kernel 1, with the row code's stage split; returns one record per mode."""
     import torch
 
     from archnemesis_tpu_torch.ops import overlap_variants as ov
@@ -2213,10 +2248,10 @@ def phase_overlap_variants():
     _print("overlap_variants full by rows per block: " + ", ".join(
         f"{t}: {times['lean' if t == ov.ROW_TILE else f'lean{t}']:.4f} ms"
         for t in ov.ROW_TILES))
-    _print(f"kernel 1's stages at R={rows}, NG={ng}: the merge (sortonly) "
-           f"{times['sortonly']:.4f} ms, so its scan and rebin "
-           f"{times['current'] - times['sortonly']:.4f} ms (kernel 1 - "
-           f"sortonly); the walk rebin against the search rebin "
+    _print(f"the warp-per-row code's stages at R={rows}, NG={ng}: the merge "
+           f"(sortonly) {times['sortonly']:.4f} ms, so its scan and rebin "
+           f"{times['lean'] - times['sortonly']:.4f} ms (full - sortonly); "
+           f"the walk rebin against the search rebin "
            f"{times['lean'] - times['edges']:+.4f} ms (full - edges); the "
            f"device-memory floor (rollonly) {times['rollonly']:.4f} ms")
     return records

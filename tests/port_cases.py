@@ -147,6 +147,20 @@ def gauss_del_g(ng: int) -> np.ndarray:
     return 0.5 * np.polynomial.legendre.leggauss(ng)[1]
 
 
+# g-bins of which one element of the combine can span a whole bin, and two
+# bins narrower than the float32 combine's 128-eps slack on the g-axis
+WIDE_DEL_G = np.array([0.45, 0.01, 0.44, 5e-6, 5e-6, 0.09999])
+WIDE_DEL_G = WIDE_DEL_G / WIDE_DEL_G.sum()
+
+
+def wide_overlap_inputs(rows: int, seed: int) -> tuple:
+    """Two (rows, 6) float64 arrays on one scale, sorted along g, for
+    ``WIDE_DEL_G``: many rows put a wide element across a narrow bin."""
+    rng = np.random.default_rng(seed)
+    return tuple(np.sort(rng.uniform(0, 1, (2, rows, WIDE_DEL_G.size)),
+                         axis=2))
+
+
 def overlap_inputs(rows: int, ng: int, seed: int) -> tuple:
     """Two (rows, NG) float64 arrays of sorted k-distributions with tied
     and all-zero rows (as the JAX package's Pallas tests make them)."""

@@ -24,7 +24,13 @@ from archnemesis_tpu.ops.overlap import mix_gas_k as jax_mix_gas_k
 from archnemesis_tpu.ops.overlap import overlap_nstraddle as jax_nstraddle
 from archnemesis_tpu.ops.overlap_pallas import combine_pair_pallas
 from archnemesis_tpu_torch.ops import overlap, overlap_cuda
-from port_cases import gauss_del_g, overlap_inputs, tiefree_overlap_inputs
+from port_cases import (
+    WIDE_DEL_G,
+    gauss_del_g,
+    overlap_inputs,
+    tiefree_overlap_inputs,
+    wide_overlap_inputs,
+)
 
 
 def _jax_tables(del_g):
@@ -422,6 +428,53 @@ def test_kernel_matches_plain_on_card_hard_rows(cuda, ng, dtype):
         torch.cuda.synchronize()
         assert torch.isfinite(got).all(), name
         _hold_to_plain(got, a, b, del_g)
+
+
+def _tangent_kernel_primal(a, b, del_g):
+    """The fused kernel's primal with one zero tangent pair: the
+    warp-per-row arithmetic (``overlap_row.cuh:combine_row``)."""
+    zero = torch.zeros((1, *a.shape), dtype=a.dtype, device=a.device)
+    out, _ = overlap_cuda.combine_pair_with_tangents(a, b, zero, zero, del_g)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ng", chip_smoke.HARD_NGS)
+def test_primal_kernel_equals_tangent_kernel_primal_on_hard_rows(cuda, ng,
+                                                                 dtype):
+    """Kernel 1 (a row a thread) gives the fused kernel's primal (a row a
+    warp) bit for bit on rows unsorted along g, tied and zero, at every NG
+    class; 4,099 and 33 rows leave the last block ragged at the launch's
+    block size and at 32 rows a block."""
+    del_g = gauss_del_g(ng)
+    key = tuple(float(x) for x in del_g)
+    for rows in (chip_smoke.HARD_ROWS, 33):
+        for name, (ta, tb) in chip_smoke.combine_cases(rows, ng,
+                                                       seed=ng).items():
+            a = torch.as_tensor(ta, dtype=dtype, device=cuda)
+            b = torch.as_tensor(tb, dtype=dtype, device=cuda)
+            want = _tangent_kernel_primal(a, b, del_g)
+            for warps in (0, 1):
+                got = overlap_cuda._combine_primal(a, b, key, warps=warps)
+                torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                           msg=f"{name} rows={rows} "
+                                           f"warps={warps}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_primal_kernel_equals_tangent_kernel_primal_on_wide_bins(cuda,
+                                                                 dtype):
+    """Elements that span a whole bin and bins narrower than the float32
+    slack (kernel 1 adds their overlaps past its two register bins into a
+    spill): still the fused kernel's primal bit for bit."""
+    ta, tb = wide_overlap_inputs(4099, seed=3)
+    a = torch.as_tensor(ta, dtype=dtype, device=cuda)
+    b = torch.as_tensor(tb, dtype=dtype, device=cuda)
+    got = overlap_cuda.combine_pair(a, b, WIDE_DEL_G)
+    torch.testing.assert_close(
+        got, _tangent_kernel_primal(a, b, WIDE_DEL_G), rtol=0, atol=0)
 
 
 @pytest.mark.cuda

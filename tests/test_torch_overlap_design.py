@@ -15,6 +15,15 @@ column an element from outside its bin's slack, in float32 too, where the
 scan's prefix sums are monotone only to within a few eps. The kernel itself
 is held to the plain version on the card (``chip_smoke.py`` phase 5 and the
 ``cuda`` tests of ``tests/test_torch_overlap.py``).
+
+The primal kernel (``combine_primal_kernel``) takes the same arithmetic
+another way, one thread a row: ``stream_row`` follows its steps (a loser
+tree over the NG run heads, ordered by key then run; the slice sums and
+the warp scan's add tree taken as the elements stream past; each
+element's overlaps added into the bins it touches, a bin closed when the
+stream passes its upper edge and the slack). It is held to ``mirror_row``
+bit for bit in float32 and float64, on rows sorted, shuffled, tied and
+zero, and on bins that one element spans.
 """
 
 import jax
@@ -26,7 +35,14 @@ import torch
 from archnemesis_tpu.ops.overlap import _combine_pair as jax_combine_pair
 from archnemesis_tpu.ops.overlap import g_bin_edges as jax_g_bin_edges
 from archnemesis_tpu_torch.ops import overlap, overlap_cuda
-from port_cases import gauss_del_g, kernel_scan, tiefree_overlap_inputs
+import chip_smoke
+from port_cases import (
+    WIDE_DEL_G,
+    gauss_del_g,
+    kernel_scan,
+    tiefree_overlap_inputs,
+    wide_overlap_inputs,
+)
 
 NGS = (1, 2, 3, 7, 20, 31, 32)
 SLACK_EPS = 128  # the kernel's kSlackEps
@@ -188,3 +204,187 @@ def test_walk_covers_every_overlap_within_the_slack(ng, dtype):
                                            total, rtol=4 * ng * eps)
     # at most n + NG - 1 overlaps a row, and a slack element or two a bin
     assert visits <= 2 * 12 * (ng * ng + ng - 1 + 2 * ng)
+
+
+def _stable_order(x):
+    """Indices of x in ascending order, ties by index, by insertion sort
+    (the primal kernel's sort of a row that is not sorted along g)."""
+    order = []
+    for k in range(x.size):
+        i = len(order)
+        while i > 0 and x[order[i - 1]] > x[k]:
+            i -= 1
+        order.insert(i, k)
+    return np.array(order)
+
+
+def _first_leaf(c: int, ng: int) -> int:
+    """The lowest run among the leaves below node c of the loser tree
+    (nodes 1 .. NG - 1, leaf NG + r for run r)."""
+    lo = hi = c
+    while hi < ng:
+        lo, hi = 2 * lo, 2 * hi + 1
+    return max(lo, ng) - ng
+
+
+def stream_row(a_row, b_row, w2, edges):
+    """One row through the primal kernel's steps (one thread a row), in the
+    dtype of the inputs; returns out (NG,).
+
+    The NG runs a_(i) + b_(j) stream out of a loser tree in the order
+    (key, run, position); each element's weight is summed serially within
+    slices of the warp scan's length, each slice offset by the scan's add
+    tree over the slices' totals (a ring of each level's past sums); its
+    overlaps go into the bins it touches, bin jb and jb + 1 in registers
+    and any further one spilled, and bin jb closes at the first element
+    whose upper end passes its upper edge plus the slack. Products and sums
+    round separately, as in ``mirror_row``."""
+    dtype = a_row.dtype.type
+    ng = a_row.size
+    n = ng * ng
+    ia, ib = _stable_order(a_row), _stable_order(b_row)
+    sa, sb = a_row[ia], b_row[ib]
+    spent = 64
+
+    def head(r, j):
+        """(key, run, position) of run r's j-th element."""
+        if j == ng:
+            return (dtype(np.inf), spent, j)
+        return (sa[r] + sb[j], r, j)
+
+    def before(x, y):
+        return x[0] < y[0] or (x[0] == y[0] and x[1] < y[1])
+
+    # sorted rows give keys that rise with the run, so every match of the
+    # first heads is won by the lower run
+    tree = [None] + [head(max(_first_leaf(2 * p, ng),
+                              _first_leaf(2 * p + 1, ng)), 0)
+                     for p in range(1, ng)]
+    winner = head(0, 0)
+
+    size = ((n + 31) // 32) | 1
+    ring = [[dtype(0)] * (1 << k) for k in range(5)]  # ring[k][i]: v_k[x-1-i]
+
+    def scan_offset(total, x):
+        """v_5[x], the warp scan's inclusive sum at slice x."""
+        v = total
+        for k in range(5):
+            old = ring[k][-1]
+            ring[k] = [v] + ring[k][:-1]
+            if x >= (1 << k):
+                v = v + old
+        return v
+
+    slack = dtype(SLACK_EPS) * np.finfo(dtype).eps
+    tiny = np.finfo(dtype).tiny
+    zero = dtype(0)
+    num = [zero] * ng
+    den = [zero] * ng
+    spill = {}
+    jb = 0
+    n0 = d0 = n1 = d1 = zero
+
+    def edge_pair(j):
+        """(edge j, edge j + 1), the second the first past the last bin."""
+        return edges[j], edges[min(j + 1, ng)]
+
+    e0, e1 = edge_pair(0)
+    e2 = edges[min(2, ng)] if ng > 1 else e1
+    off = local = zero
+    pos = 0
+    for e in range(n):
+        key, r, j = winner
+        w = w2[ia[r] * ng + ib[j]]
+        cand = head(r, j + 1)
+        p = (ng + r) >> 1
+        while p:
+            if before(tree[p], cand):
+                tree[p], cand = cand, tree[p]
+            p >>= 1
+        winner = cand
+
+        local = (zero if pos == 0 else local) + w
+        ghi = local + off
+        g_lo = ghi - w
+        if jb < ng:
+            inter = min(ghi, e1) - max(g_lo, e0)
+            if inter > 0:
+                n0, d0 = n0 + key * inter, d0 + inter
+            inter = min(ghi, e2) - max(g_lo, e1)
+            if inter > 0:
+                n1, d1 = n1 + key * inter, d1 + inter
+            k = jb + 2
+            while k < ng and edges[k] < ghi:
+                inter = min(ghi, edges[k + 1]) - max(g_lo, edges[k])
+                if inter > 0:
+                    sn, sd = spill.get(k, (zero, zero))
+                    spill[k] = (sn + key * inter, sd + inter)
+                k += 1
+            while jb < ng and ghi >= e1 + slack:
+                num[jb], den[jb] = n0, d0
+                jb += 1
+                n0, d0 = n1, d1
+                n1, d1 = spill.pop(jb + 1, (zero, zero))
+                e0, e1 = e1, e2
+                e2 = edges[jb + 2] if jb + 2 <= ng else e1
+        pos += 1
+        if pos == size:
+            off = scan_offset(local, e // size)
+            pos = 0
+    for k in range(jb, ng):
+        num[k], den[k] = ((n0, d0) if k == jb else (n1, d1) if k == jb + 1
+                          else spill.get(k, (zero, zero)))
+    return np.array([x / max(d, tiny) for x, d in zip(num, den)], dtype)
+
+
+def _stream_cases(ng: int):
+    """name -> (a, b, del_g): ``chip_smoke.combine_cases`` on Gauss-Legendre
+    bins; with NG = 7 also rows of one scale in a and b, sorted and
+    shuffled, on ``WIDE_DEL_G``."""
+    cases = {name: (a, b, gauss_del_g(ng)) for name, (a, b) in
+             chip_smoke.combine_cases(6, ng, seed=ng).items()}
+    if ng == 7:
+        rng = np.random.default_rng(ng)
+        a, b = wide_overlap_inputs(6, seed=ng)
+        cases["wide_sorted"] = (a, b, WIDE_DEL_G)
+        cases["wide_shuffled"] = (rng.permuted(a, axis=1),
+                                  rng.permuted(b, axis=1), WIDE_DEL_G)
+    return cases
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("ng", NGS)
+def test_stream_row_matches_mirror_bit_for_bit(ng, dtype):
+    """The primal kernel's streamed merge, scan and rebin give the
+    warp-per-row arithmetic's every bit: the same element order, the same
+    prefix sums, each bin's overlaps added in the same order."""
+    for name, (ta, tb, del_g) in _stream_cases(ng).items():
+        w2 = overlap.pair_weights(del_g).astype(dtype)
+        edges = overlap.g_bin_edges(del_g).astype(dtype)
+        for r in range(ta.shape[0]):
+            a_row, b_row = ta[r].astype(dtype), tb[r].astype(dtype)
+            want = mirror_row(a_row, b_row, w2, edges)[0]
+            got = stream_row(a_row, b_row, w2, edges)
+            assert got.tobytes() == want.tobytes(), (name, r, got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_stream_row_wide_case_reaches_the_spill(dtype):
+    """The wide case holds elements that overlap three bins or more (the
+    third one past the two register bins: the spill) and bins narrower
+    than the float32 slack, in both dtypes."""
+    ta, tb, del_g = _stream_cases(7)["wide_sorted"]
+    w2 = overlap.pair_weights(del_g).astype(dtype)
+    edges = overlap.g_bin_edges(del_g).astype(dtype)
+    assert (np.diff(edges)[3:5] < SLACK_EPS * np.finfo(np.float32).eps).all()
+    most = 0
+    for r in range(ta.shape[0]):
+        walks = mirror_row(ta[r].astype(dtype), tb[r].astype(dtype), w2,
+                           edges)[4]
+        bins_of = {}
+        for j, walk in enumerate(walks):
+            for e, _, _, inter in walk:
+                if inter > 0:
+                    bins_of[e] = bins_of.get(e, 0) + 1
+        most = max(most, max(bins_of.values()))
+    assert most >= 3
