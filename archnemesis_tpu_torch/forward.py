@@ -36,7 +36,10 @@ from archnemesis_tpu_torch.enums import (
 from archnemesis_tpu_torch.io.linedata import RuntimeLBL
 from archnemesis_tpu_torch.ops.cia import cia_tau
 from archnemesis_tpu_torch.ops.dust import dust_tau
-from archnemesis_tpu_torch.ops.ktab import interp_ktables
+from archnemesis_tpu_torch.ops.ktab import (
+    interp_ktables,
+    interp_ktables_factored,
+)
 from archnemesis_tpu_torch.ops.lbl import lbl_cross_section
 from archnemesis_tpu_torch.ops.overlap import mix_gas_k
 from archnemesis_tpu_torch.ops.pseudo_continuum import pseudo_continuum_k
@@ -53,6 +56,7 @@ from archnemesis_tpu_torch.rt.path import (
     nadir_path,
 )
 from archnemesis_tpu_torch.utils.device import resolve_device
+from archnemesis_tpu_torch.utils.host import has_tangent
 from archnemesis_tpu_torch.utils.interp import interp, interp1d_extrap
 from archnemesis_tpu_torch.utils.profiling import FORWARD_SPAN, annotate
 
@@ -322,10 +326,14 @@ def layer_optical_depths(
         # (reference ForwardModel_0.py:3796-3818)
         taugas = torch.einsum("wglr,rl->wgl", k_gas, amounts)
     else:
-        # correlated-k random overlap (ForwardModel_0.py:3853-3885)
+        # correlated-k random overlap (ForwardModel_0.py:3853-3885); under
+        # forward-mode derivatives k comes in factored form, so that each
+        # gas's tangent exists only while its combine runs
+        interp_k = (interp_ktables_factored
+                    if has_tangent(press_atm, layers.temp) else interp_ktables)
         with annotate("nemesis.kinterp"):
-            k_gas = interp_ktables(ktab.k, ktab.press, ktab.temp, press_atm,
-                                   layers.temp, logk=ktab.logk)
+            k_gas = interp_k(ktab.k, ktab.press, ktab.temp, press_atm,
+                             layers.temp, logk=ktab.logk)
         with annotate("nemesis.overlap"):
             taugas = mix_gas_k(cfg.del_g, k_gas, amounts)
 

@@ -10,7 +10,7 @@ weight), and average tau over each output g-bin, splitting elements that
 straddle a bin edge proportionally.
 
 ``_combine_pair`` here is the plain PyTorch version of the combine. On a
-CUDA tensor ``mix_gas_k`` goes through ``ops.overlap_cuda.combine_pair``,
+CUDA tensor ``mix_gas_k`` goes through ``ops.overlap_cuda.mix_pair``,
 which launches the hand-written kernel (``csrc/overlap_combine.cu``).
 """
 
@@ -121,7 +121,10 @@ def mix_gas_k(del_g, k_gas, amounts):
     Parameters
     ----------
     del_g : (NG,) host g-bin widths (numpy or tuple)
-    k_gas : (NWAVE, NG, NLAY, NGAS) per-gas k at layer (P,T) [cm^2]
+    k_gas : (NWAVE, NG, NLAY, NGAS) per-gas k at layer (P,T) [cm^2], or the
+        same in factored form (``ops.ktab.LayerK``, forward-mode
+        derivatives), which forms each gas's tangent only when its combine
+        takes it
     amounts : (NGAS, NLAY) per-gas column densities [cm^-2]
 
     Returns
@@ -131,24 +134,29 @@ def mix_gas_k(del_g, k_gas, amounts):
     Skip semantics match the reference (k_overlapg cutoff=0): a gas whose
     largest-g optical depth is <= 0 in a layer contributes nothing there,
     and mixing with an empty accumulated distribution is a copy. Each pair
-    goes through ``overlap_cuda.combine_pair``: the kernel on a CUDA tensor,
-    the plain version on a CPU one.
+    goes through ``overlap_cuda.mix_pair`` (the combine and the skip rule):
+    the kernel on a CUDA tensor, the plain version on a CPU one.
     """
-    from archnemesis_tpu_torch.ops.overlap_cuda import combine_pair
+    from archnemesis_tpu_torch.ops.ktab import LayerK
+    from archnemesis_tpu_torch.ops.overlap_cuda import mix_pair
 
     del_g = tuple(float(x) for x in np.asarray(del_g))
-    nwave, ng, nlay, ngas = k_gas.shape
+    if isinstance(k_gas, LayerK):
+        ngas = k_gas.ngas
+        _, nwave, nlay, ng = k_gas.k.shape
 
-    # (NWAVE, NG, NLAY, NGAS) -> (NWAVE, NLAY, NG, NGAS): g fast axis
-    k_wlg = k_gas.permute(0, 2, 1, 3)
+        def gas_tau(i):
+            return k_gas.tau(i, amounts[i])
+    else:
+        nwave, ng, nlay, ngas = k_gas.shape
+        # (NWAVE, NG, NLAY, NGAS) -> (NWAVE, NLAY, NG, NGAS): g fast axis
+        k_wlg = k_gas.permute(0, 2, 1, 3)
 
-    tau = (k_wlg[..., 0] * amounts[0][None, :, None]).contiguous()
+        def gas_tau(i):
+            return (k_wlg[..., i] * amounts[i][None, :, None]).contiguous()
+
+    tau = gas_tau(0)
     for i in range(1, ngas):
-        tau_b = (k_wlg[..., i] * amounts[i][None, :, None]).contiguous()
-        mixed = combine_pair(
-            tau.reshape(-1, ng), tau_b.reshape(-1, ng), del_g
-        ).reshape(nwave, nlay, ng)
-        skip_b = (tau_b[..., -1] <= 0.0)[..., None]
-        skip_a = (tau[..., -1] <= 0.0)[..., None]
-        tau = torch.where(skip_b, tau, torch.where(skip_a, tau_b, mixed))
+        tau = mix_pair(tau.reshape(-1, ng), gas_tau(i).reshape(-1, ng),
+                       del_g).reshape(nwave, nlay, ng)
     return tau.permute(0, 2, 1)

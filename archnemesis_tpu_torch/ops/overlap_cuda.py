@@ -14,6 +14,13 @@ card, whose primal is the primal kernel's result bit for bit). Under
 and makes ONE call, so a Jacobian costs one sort pass per combine, not one
 per state element.
 
+``mix_pair`` is ``ops/overlap.py:mix_gas_k``'s step: the combine with the
+random overlap's skip rule (a row where one distribution has no opacity
+takes the other). Its forward-mode rule runs the fused combine and applies
+the rule to that combine's own fresh tangents in place
+(``ops/tangent_cuda.py:skip_rows_``), so a step costs one pass over the
+tangents.
+
 The kernels replace the TPU kernels ``combine_pair_pallas``
 (``archnemesis_tpu/ops/overlap_pallas.py:398``) and its tangent co-sort
 (``_combine_pallas`` with tangents, ``:270-329``). They are built with
@@ -198,75 +205,97 @@ def _stack_batch(x, dim, batch_size):
     return x.movedim(dim, 0)
 
 
-class _FusedCombine(torch.autograd.Function):
-    """(tau_a, tau_b, dta, dtb) -> (out, dout) on (R, NG) tensors; one
-    tangent pair per call unless vmapped."""
+def _skips(tau_a, tau_b):
+    """(skip_a, skip_b): the rows whose largest-g optical depth is <= 0."""
+    return tau_a[:, -1] <= 0.0, tau_b[:, -1] <= 0.0
+
+
+def _fused_tangent(tau_a, tau_b, dta, dtb, del_g: tuple, skip: bool):
+    """The fused combine's tangents (T, R, NG) on plain tensors; with
+    ``skip`` the random overlap's skip rule applied to them in place
+    (``ops/tangent_cuda.py:skip_rows_``)."""
+    _, dout = _combine_fused(tau_a, tau_b, dta, dtb, del_g)
+    if skip:
+        from archnemesis_tpu_torch.ops.tangent_cuda import skip_rows_
+
+        skip_rows_(dout, dta, dtb, *_skips(tau_a, tau_b))
+    return dout
+
+
+class _CombineTangent(torch.autograd.Function):
+    """(tau_a, tau_b, dta, dtb) -> the combine's tangent on (R, NG)
+    tensors, by the fused combine (its primal unused); one tangent pair
+    per call unless vmapped."""
 
     @staticmethod
-    def forward(tau_a, tau_b, dta, dtb, del_g):
-        out, dout = _combine_fused(
-            tau_a, tau_b, dta.unsqueeze(0).contiguous(),
-            dtb.unsqueeze(0).contiguous(), del_g)
-        return out, dout[0]
+    def forward(tau_a, tau_b, dta, dtb, del_g, skip):
+        return _fused_tangent(tau_a, tau_b, dta.unsqueeze(0).contiguous(),
+                              dtb.unsqueeze(0).contiguous(), del_g, skip)[0]
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         pass
 
     @staticmethod
-    def vmap(info, in_dims, tau_a, tau_b, dta, dtb, del_g):
-        a_dim, b_dim, da_dim, db_dim, _ = in_dims
+    def vmap(info, in_dims, tau_a, tau_b, dta, dtb, del_g, skip):
+        a_dim, b_dim, da_dim, db_dim = in_dims[:4]
         n = info.batch_size
         if a_dim is None and b_dim is None:
             # the jacfwd case: primals shared, tangents stacked on axis 0,
             # one call for all of them
             da = _stack_batch(dta, da_dim, n).contiguous()
             db = _stack_batch(dtb, db_dim, n).contiguous()
-            out, dout = _combine_fused(tau_a, tau_b, da, db, del_g)
-            return (out, dout), (None, 0)
+            return _fused_tangent(tau_a, tau_b, da, db, del_g, skip), 0
         # batched primals: fold the batch axis into rows
         ng = tau_a.shape[-1]
 
         def flat(x, dim):
             return _stack_batch(x, dim, n).reshape(-1, ng).contiguous()
 
-        out, dout = _combine_fused(
+        dout = _fused_tangent(
             flat(tau_a, a_dim), flat(tau_b, b_dim),
             flat(dta, da_dim).unsqueeze(0), flat(dtb, db_dim).unsqueeze(0),
-            del_g)
-        return (out.reshape(n, -1, ng), dout[0].reshape(n, -1, ng)), (0, 0)
+            del_g, skip)
+        return dout[0].reshape(n, -1, ng), 0
 
 
 class _CombinePair(torch.autograd.Function):
     """(tau_a, tau_b) -> out with a forward-mode derivative only (the TPU
-    kernel has a custom_jvp and no transpose)."""
+    kernel has a custom_jvp and no transpose); with ``skip`` the random
+    overlap's skip rule: tau_a where tau_b's largest g is <= 0, else tau_b
+    where tau_a's is, else the combine."""
 
     @staticmethod
-    def forward(tau_a, tau_b, del_g):
-        return _combine_primal(tau_a, tau_b, del_g)
+    def forward(tau_a, tau_b, del_g, skip):
+        out = _combine_primal(tau_a, tau_b, del_g)
+        if not skip:
+            return out
+        skip_a, skip_b = _skips(tau_a, tau_b)
+        return torch.where(skip_b[:, None], tau_a,
+                           torch.where(skip_a[:, None], tau_b, out))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        tau_a, tau_b, del_g = inputs
+        tau_a, tau_b, del_g, skip = inputs
         ctx.save_for_forward(tau_a, tau_b)
-        ctx.del_g = del_g
+        ctx.del_g, ctx.skip = del_g, skip
 
     @staticmethod
-    def jvp(ctx, dta, dtb, _):
+    def jvp(ctx, dta, dtb, *_):
         tau_a, tau_b = ctx.saved_tensors
         # a missing tangent on one input is a zero tangent
         dta = torch.zeros_like(tau_a) if dta is None else dta
         dtb = torch.zeros_like(tau_b) if dtb is None else dtb
-        _, dout = _FusedCombine.apply(tau_a, tau_b, dta, dtb, ctx.del_g)
-        return dout
+        return _CombineTangent.apply(tau_a, tau_b, dta, dtb, ctx.del_g,
+                                     ctx.skip)
 
     @staticmethod
-    def vmap(info, in_dims, tau_a, tau_b, del_g):
+    def vmap(info, in_dims, tau_a, tau_b, del_g, skip):
         # batched primals: fold the batch axis into rows
         n, ng = info.batch_size, tau_a.shape[-1]
         a = _stack_batch(tau_a, in_dims[0], n).reshape(-1, ng).contiguous()
         b = _stack_batch(tau_b, in_dims[1], n).reshape(-1, ng).contiguous()
-        out = _CombinePair.apply(a, b, del_g)
+        out = _CombinePair.apply(a, b, del_g, skip)
         return out.reshape(n, -1, ng), 0
 
 
@@ -279,10 +308,19 @@ def combine_pair(tau_a, tau_b, del_g):
     differentiable (``torch.func.jvp``/``jacfwd``, ``forward_ad``): the
     tangents go through ``combine_pair_with_tangents``.
     """
-    return _CombinePair.apply(tau_a, tau_b, _del_g_key(del_g))
+    return _CombinePair.apply(tau_a, tau_b, _del_g_key(del_g), False)
 
 
 combine_pair.launches = 0
+
+
+def mix_pair(tau_a, tau_b, del_g):
+    """The random overlap's mixture of two (R, NG) k-distributions with its
+    skip rule (``ops/overlap.py:mix_gas_k``'s step): ``tau_a`` in rows where
+    ``tau_b``'s largest g is <= 0, else ``tau_b`` where ``tau_a``'s is, else
+    ``combine_pair``'s values, launches and derivative; the rule is applied
+    to the fused combine's fresh tangents in place."""
+    return _CombinePair.apply(tau_a, tau_b, _del_g_key(del_g), True)
 
 
 def combine_pair_with_tangents(tau_a, tau_b, dta, dtb, del_g):

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from archnemesis_tpu_torch.utils.device import resolve_device
+from archnemesis_tpu_torch.utils.profiling import JACOBIAN_SPAN, annotate
 
 
 def calc_gain_matrix(kk, sa, se):
@@ -91,13 +92,23 @@ def calc_serr(dd, aa, se, sa):
 def forward_and_jacobian(forward_fn: Callable, x):
     """(forward_fn(x), its Jacobian (NY, NX)) in one forward-mode
     evaluation: all NX tangents ride one pass through the forward model, and
-    the spectrum comes along as the Jacobian's auxiliary output."""
+    the spectrum comes along as the Jacobian's auxiliary output.
+
+    The evaluation is the span ``nemesis.jacobian`` (one record per traced
+    evaluation, ``utils.profiling.jacobian_records``); ``.calls`` counts
+    the evaluations."""
+    forward_and_jacobian.calls += 1
+
     def with_aux(z):
         yn = forward_fn(z)
         return yn, yn
 
-    kk, yn = torch.func.jacfwd(with_aux, has_aux=True)(x)
+    with annotate(JACOBIAN_SPAN):
+        kk, yn = torch.func.jacfwd(with_aux, has_aux=True)(x)
     return yn, kk
+
+
+forward_and_jacobian.calls = 0
 
 
 @dataclass

@@ -16,6 +16,13 @@ Three layers, in PyTorch's idiom:
   ``.rayleigh``, ``.dust``, ``.spectrum``); each traced forward leaves one
   ``ForwardRecord`` in a ring of the last ``RING`` forwards:
   ``forward_records(n)``, ``report()``, ``clear()``.
+  ``retrieval/oe.py:forward_and_jacobian`` opens ``nemesis.jacobian``
+  around a forward-plus-Jacobian evaluation; each traced evaluation
+  leaves one ``JacobianRecord`` in a ring of its own
+  (``jacobian_records(n)``): the layer spans summed over the forwards run
+  inside it (one on the port's path; a caller that pushes the tangents in
+  chunks inside the span runs one a chunk) and, on the card, the peak of
+  allocated bytes since its start.
 - ``stopwatch(name)`` + the module-level ``timings`` registry: wall-clock
   stage timing that synchronises the CUDA device of every tensor of the
   block's result before it stops the clock, so the numbers mean what they
@@ -133,7 +140,8 @@ def stopwatch(name: str, result: Any = None,
 
 
 FORWARD_SPAN = "nemesis.forward"
-RING = 256  # forwards kept by the span records
+JACOBIAN_SPAN = "nemesis.jacobian"
+RING = 256  # forwards (and, apart, evaluations) kept by the span records
 
 
 @dataclass
@@ -163,12 +171,30 @@ class ForwardRecord:
     _events: list = field(default_factory=list, repr=False)
 
 
+@dataclass
+class JacobianRecord:
+    """One traced forward-plus-Jacobian evaluation: its own span's stat
+    and, once resolved, each layer span summed over ``forwards`` (the
+    records of the forwards it ran); its inclusive host and stream times;
+    ``peak_bytes``, the allocator's peak of allocated bytes from its start
+    to its end (None off the card)."""
+
+    host_ms: float
+    spans: Dict[str, SpanStat]
+    forwards: List[ForwardRecord] = field(default_factory=list)
+    peak_bytes: Optional[int] = None
+    stream_ms: Optional[float] = None
+    _intervals: list = field(default_factory=list, repr=False)
+    _events: list = field(default_factory=list, repr=False)
+
+
 class _Frame:
     __slots__ = ("name", "t0", "child_ns", "start", "end", "record",
-                 "edges")
+                 "root", "edges")
 
-    def __init__(self, name, t0, record):
+    def __init__(self, name, t0, record, root=None):
         self.name, self.t0, self.record = name, t0, record
+        self.root = self if root is None else root
         self.child_ns, self.start, self.end, self.edges = 0, None, None, []
 
 
@@ -181,6 +207,8 @@ class Spans:
     def __init__(self) -> None:
         self._records: deque = deque(maxlen=RING)
         self._pending: deque = deque()
+        self._jacobians: deque = deque(maxlen=RING)
+        self._jac_pending: deque = deque()
         self._stack: List[_Frame] = []
         self._free: list = []
 
@@ -193,15 +221,20 @@ class Spans:
 
     def open(self, name: str, t0: int) -> Optional[_Frame]:
         """Push a span opened at host time ``t0`` [ns]; None for a span
-        outside any forward (a range in the trace only)."""
+        outside any forward or evaluation (a range in the trace only). A
+        forward starts a record of its own, also inside an evaluation."""
         stack = self._stack
-        if stack:
-            frame = _Frame(name, t0, stack[0].record)
-            timed = stack[0].start is not None
-        elif name == FORWARD_SPAN:
-            frame = _Frame(name, t0, ForwardRecord(host_ms=0.0, spans={}))
+        if name == FORWARD_SPAN or (name == JACOBIAN_SPAN and not stack):
+            kind = ForwardRecord if name == FORWARD_SPAN else JacobianRecord
+            frame = _Frame(name, t0, kind(host_ms=0.0, spans={}))
             timed = (torch.cuda.is_initialized()
                      and not torch.cuda.is_current_stream_capturing())
+            if timed and kind is JacobianRecord:
+                torch.cuda.reset_peak_memory_stats()
+        elif stack:
+            root = stack[-1].root
+            frame = _Frame(name, t0, root.record, root)
+            timed = root.start is not None
         else:
             return None
         if timed:
@@ -216,26 +249,26 @@ class Spans:
 
     def close(self, frame: _Frame, t1: int, failed: bool) -> None:
         """Pop ``frame``, closed at host time ``t1`` [ns], into its
-        forward's record; a closing forward files the record (unless it
-        raised) and resolves finished ones."""
+        record; a closing forward or evaluation files its record (unless
+        it raised) and resolves finished ones."""
         stack = self._stack
         stack.pop()
         ns = t1 - frame.t0
-        stat = frame.record.spans.setdefault(frame.name, SpanStat())
+        record = frame.record
+        stat = record.spans.setdefault(frame.name, SpanStat())
         stat.calls += 1
         stat.host_self_ns += ns - frame.child_ns
-        if stack:
-            parent = stack[-1]
+        parent = stack[-1] if stack else None
+        if parent is not None:
             parent.child_ns += ns
+        if frame.root is not frame:
             if frame.start is not None:
-                frame.record._intervals.append(
-                    (frame.name, frame.start, frame.end))
-                if parent is stack[0]:
+                record._intervals.append((frame.name, frame.start, frame.end))
+                if parent is frame.root:
                     parent.edges += (frame.start, frame.end)
             return
-        record = frame.record
         record.host_ms = ns * 1e-6
-        if frame.start is not None:
+        if frame.start is not None and isinstance(record, ForwardRecord):
             # the forward's self stream time: the gaps between its layers
             bounds = [frame.start, *frame.edges, frame.end]
             record._intervals += [(frame.name, bounds[i], bounds[i + 1])
@@ -243,11 +276,21 @@ class Spans:
         if failed:
             self._free += record._events
             return
-        self._records.append(record)
-        if record._events:
-            self._pending.append(record)
+        if isinstance(record, JacobianRecord):
+            if frame.start is not None:
+                record.peak_bytes = int(torch.cuda.max_memory_allocated())
+            self._jacobians.append(record)
+            self._jac_pending.append(record)
+        else:
+            self._records.append(record)
+            if record._events:
+                self._pending.append(record)
+            if parent is not None:
+                parent.root.record.forwards.append(record)
         while self._pending and self._pending[0]._events[-1].query():
             self._resolve(self._pending.popleft())
+        while self._jac_pending and self._jacobian_done(self._jac_pending[0]):
+            self._resolve_jacobian(self._jac_pending.popleft())
 
     def _resolve(self, record: ForwardRecord) -> None:
         for name, start, end in record._intervals:
@@ -256,6 +299,29 @@ class Spans:
         record.stream_ms = record._events[0].elapsed_time(record._events[-1])
         self._free += record._events
         record._intervals, record._events = [], []
+
+    @staticmethod
+    def _jacobian_done(record: JacobianRecord) -> bool:
+        """Whether the card has finished the evaluation and every forward
+        of it is resolved."""
+        return (not any(f._events for f in record.forwards)
+                and (not record._events or record._events[-1].query()))
+
+    def _resolve_jacobian(self, record: JacobianRecord) -> None:
+        """Sum the layer spans of the evaluation's (resolved) forwards into
+        its record and take its stream time."""
+        for f in record.forwards:
+            for name, stat in f.spans.items():
+                total = record.spans.setdefault(name, SpanStat())
+                total.calls += stat.calls
+                total.host_self_ns += stat.host_self_ns
+                if stat.stream_ms is not None:
+                    total.stream_ms = (total.stream_ms or 0.0) + stat.stream_ms
+        if record._events:
+            record.stream_ms = record._events[0].elapsed_time(
+                record._events[-1])
+            self._free += record._events
+            record._events = []
 
     def records(self, n: Optional[int] = None) -> List[ForwardRecord]:
         """The last ``n`` (None: all kept) records, oldest first, their
@@ -267,12 +333,27 @@ class Spans:
         kept = list(self._records)
         return kept if n is None else kept[max(len(kept) - n, 0):]
 
+    def jacobian_records(self, n: Optional[int] = None
+                         ) -> List[JacobianRecord]:
+        """The last ``n`` (None: all kept) evaluations' records, oldest
+        first, resolved (waits for the card where it must)."""
+        self.records()
+        while self._jac_pending:
+            record = self._jac_pending.popleft()
+            if record._events:
+                record._events[-1].synchronize()
+            self._resolve_jacobian(record)
+        kept = list(self._jacobians)
+        return kept if n is None else kept[max(len(kept) - n, 0):]
+
     def clear(self) -> None:
         """Drop every record (the open spans stay open)."""
-        for record in self._pending:
+        for record in (*self._pending, *self._jac_pending):
             self._free += record._events
         self._pending.clear()
         self._records.clear()
+        self._jac_pending.clear()
+        self._jacobians.clear()
 
     def report(self, n: Optional[int] = None) -> str:
         """Per forward, mean over the last ``n`` records: each span's
@@ -345,8 +426,14 @@ def forward_records(n: Optional[int] = None) -> List[ForwardRecord]:
     return spans.records(n)
 
 
+def jacobian_records(n: Optional[int] = None) -> List[JacobianRecord]:
+    """The last ``n`` traced forward-plus-Jacobian evaluations' records
+    (``spans.jacobian_records``)."""
+    return spans.jacobian_records(n)
+
+
 def clear() -> None:
-    """Drop the traced forwards' records."""
+    """Drop the traced forwards' and evaluations' records."""
     spans.clear()
 
 

@@ -12,8 +12,9 @@ without them. Phases, each of which fails the run on its own:
    fused primal + tangent kernel,
    ``archnemesis_tpu_torch/csrc/overlap_combine.cu``),
    the line-by-line cross-section (``csrc/lbl_cross_section.cu``), the
-   combine's A/B variants (``csrc/overlap_variants.cu``) and the FMA-peak
-   probe (``csrc/fma_peak.cu``), with the build times and ptxas' register
+   combine's A/B variants (``csrc/overlap_variants.cu``), the FMA-peak
+   probe (``csrc/fma_peak.cu``) and the correlated-k Jacobian's tangent
+   passes (``csrc/tangent_ops.cu``), with the build times and ptxas' register
    reports; beside them the host fixed-width decoder
    (``native/src/fixed_width.cpp``, g++) with the compiler's version and
    its build time;
@@ -316,6 +317,22 @@ without them. Phases, each of which fails the run on its own:
     layers within ``LBL_F32_BOUNDS``, the transit depth end to end too; the
     limb and SO spectra end to end printed beside them); the phase imports
     no h5py;
+27. the correlated-k Jacobian's tangent passes ("tangent passes",
+    ``csrc/tangent_ops.cu``): one forward-plus-Jacobian evaluation of the
+    headline deck in float32 through ``forward_and_jacobian`` (NX = 86:
+    the 81 level temperatures and a scale of each of gases 2-6, the
+    benchmark's ``jupiter_ck_oe`` state), with both kernels' launch
+    counters reset first: 7 launches of ``gas_tau_tangent`` (one a gas), 6
+    of ``skip_rows_`` and 6 of kernel 1t (one a combine), K (8192, 86)
+    finite, its median time and peak memory; then each kernel on card
+    tensors at that evaluation's shapes against its plain version on the
+    same tensors (``gas_tau_tangent_plain``, ``skip_rows_plain``):
+    ``gas_tau_tangent`` at (8192, 71, 20) x 86 tangents in float32 and
+    float64, and at 2 states x 16 tangents, each element within 4 eps of
+    the sum of its three terms' magnitudes; ``skip_rows_`` at R =
+    581,632, NG = 20, T = 86 with a seventh of the rows skipped for a and
+    a fifth for b, bit for bit; each timed beside its plain version and
+    its bound (``gas_tau_tangent_bound_ms``, ``skip_rows_bound_ms``);
 
 then a JSON line of the kernels (launches on the main paths, error, times,
 bound, library time) and, last, ``{"ok": true, "device": {...}}``. ``--profile`` adds
@@ -652,6 +669,7 @@ def phase_build():
         lbl_cuda,
         overlap_cuda,
         overlap_variants,
+        tangent_cuda,
     )
     from archnemesis_tpu_torch.tools.common import card_line
 
@@ -660,7 +678,8 @@ def phase_build():
     _print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
            f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    modules = (overlap_cuda, lbl_cuda, overlap_variants, fma_peak)
+    modules = (overlap_cuda, lbl_cuda, overlap_variants, fma_peak,
+               tangent_cuda)
     with ThreadPoolExecutor(max_workers=len(modules) + 1) as pool:
         futures = [pool.submit(m.build) for m in modules]
         decoder = pool.submit(native.build)
@@ -5961,6 +5980,187 @@ def phase_lbl_geometries(card: str, profile: bool = False) -> int:
     return launches
 
 
+# --- phase 27: the correlated-k Jacobian's tangent passes
+
+JAC_SCALED_GASES = (2, 3, 4, 5, 6)  # jupiter_ck_oe's scaled gases
+TANGENT_RUNS = 5
+
+
+def gas_tau_tangent_bound_ms(elems: int, n_tan: int, itemsize: int) -> float:
+    """Least time of one ``gas_tau_tangent`` on an H100: its three factors
+    read and its ``n_tan`` tangents written (elements x itemsize each; the
+    coefficients are a few kB) over HBM bandwidth."""
+    return (3 + n_tan) * elems * itemsize / PEAK_BYTES_S * 1e3
+
+
+def skip_rows_bound_ms(rows: int, skipped: int, ng: int, n_tan: int,
+                       itemsize: int) -> float:
+    """Least time of one ``skip_rows_`` on an H100: two flag bytes a row
+    read, and each skipped row's ``n_tan`` x NG values read and written."""
+    return ((2 * rows + 2 * skipped * n_tan * ng * itemsize)
+            / PEAK_BYTES_S * 1e3)
+
+
+def headline_jacobian(dtype, device, nwave: int = 8192):
+    """(fn, x): the headline deck's spectrum as a function of the
+    Jacobian cell's state, the level temperatures then a scale of each of
+    ``JAC_SCALED_GASES``' VMR profiles, at the deck's own state (scales
+    1)."""
+    import dataclasses
+
+    import torch
+
+    from archnemesis_tpu_torch.forward import forward_nadir
+    from archnemesis_tpu_torch.synthetic import headline_deck
+
+    atm, laycfg, ktab, surf, cfg = headline_deck(nwave, dtype=dtype,
+                                                 device=device)
+    nlev, ngas = atm.vmr.shape
+    scaled = torch.zeros(ngas, len(JAC_SCALED_GASES), dtype=dtype,
+                         device=device)
+    scaled[list(JAC_SCALED_GASES), range(len(JAC_SCALED_GASES))] = 1.0
+    fixed = 1.0 - scaled.sum(dim=1)
+
+    def fn(x):
+        scale = fixed + scaled @ x[nlev:]
+        state = dataclasses.replace(atm, t=x[:nlev],
+                                    vmr=atm.vmr * scale[None, :])
+        return forward_nadir(state, laycfg, ktab, None, None, surf, cfg,
+                             emiss_ang=0.0, device=device)[:, 0]
+
+    x = torch.cat([atm.t, atm.t.new_ones(len(JAC_SCALED_GASES))])
+    return fn, x
+
+
+def _gas_tau_tangent_case(dtype, n_batch: int, n_tan: int, seed: int):
+    """Kernel against plain on card tensors of the evaluation's shape:
+    (max abs error, max error over its bound's scale, kernel ms, plain
+    ms, bound ms)."""
+    import torch
+
+    from archnemesis_tpu_torch.ops.tangent_cuda import (
+        gas_tau_tangent,
+        gas_tau_tangent_plain,
+    )
+    from archnemesis_tpu_torch.synthetic import NG, NLAY, NWAVE
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g, device="cuda", dtype=dtype)
+
+    ins = ([draw(n_batch, NWAVE, NLAY, NG) for _ in range(3)]
+           + [draw(n_tan, n_batch, NLAY) for _ in range(3)])
+    got = gas_tau_tangent(*ins)
+    want = gas_tau_tangent_plain(*ins)
+    # each element's error within 4 eps of its three terms' magnitudes:
+    # the kernel's fused multiply-adds round apart from addcmul's
+    diff = (got - want).abs()
+    del got, want
+    scale = gas_tau_tangent_plain(*(x.abs() for x in ins))
+    ratio = (diff / (torch.finfo(dtype).eps * scale)).nan_to_num().max()
+    err = diff.max().item()
+    del diff, scale
+    if not ratio.item() <= 4.0:
+        raise AssertionError(f"gas_tau_tangent {dtype} B = {n_batch}: "
+                             f"{ratio.item():.3f} eps of its scale off plain")
+    ms = _cuda_ms(lambda: gas_tau_tangent(*ins), reps=TANGENT_RUNS)
+    plain_ms = _cuda_ms(lambda: gas_tau_tangent_plain(*ins),
+                        reps=TANGENT_RUNS)
+    bound = gas_tau_tangent_bound_ms(ins[0].numel(), n_tan,
+                                     ins[0].element_size())
+    return err, ratio.item(), ms, plain_ms, bound
+
+
+def phase_tangent_passes(card: str) -> dict:
+    """Phase 27: the correlated-k Jacobian's tangent passes at full width.
+    Returns the kernels line's records of ``gas_tau_tangent`` and
+    ``skip_rows_``."""
+    import torch
+
+    from archnemesis_tpu_torch.ops import tangent_cuda
+    from archnemesis_tpu_torch.ops.overlap_cuda import (
+        combine_pair_with_tangents,
+    )
+    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
+    from archnemesis_tpu_torch.synthetic import NG, NLAY, NWAVE
+
+    fn, x = headline_jacobian(torch.float32, "cuda")
+    tangent_cuda.gas_tau_tangent.launches = 0
+    tangent_cuda.skip_rows_.launches = 0
+    y, kk = forward_and_jacobian(fn, x)
+    torch.cuda.synchronize()
+    launches = (tangent_cuda.gas_tau_tangent.launches,
+                tangent_cuda.skip_rows_.launches)
+    _, fused = _fused_launches(lambda: forward_and_jacobian(fn, x))
+    nx = x.shape[0]
+    if (launches != (7, 6) or fused != 6 or kk.shape != (NWAVE, nx)
+            or not (torch.isfinite(kk).all() and torch.isfinite(y).all())):
+        raise AssertionError(f"Jacobian of the headline: launches "
+                             f"{launches} and {fused} fused, K "
+                             f"{tuple(kk.shape)}")
+    del y, kk
+    ms = _timed(lambda: forward_and_jacobian(fn, x), TANGENT_RUNS)
+    _print(f"forward_and_jacobian of the headline (NX = {nx}, {NWAVE} "
+           f"waves x {NG} g x {NLAY} layers x 7 gases, float32, {card}): "
+           f"{launches[0]} gas_tau_tangent, {launches[1]} skip_rows_ and "
+           f"{fused} kernel-1t launches; median {ms[0]:.3f} ms over "
+           f"{TANGENT_RUNS} runs (min {ms[1]:.3f}, max {ms[2]:.3f}), peak "
+           f"memory {ms[3]:.3f} GiB")
+    del fn, x
+    torch.cuda.empty_cache()
+
+    records = {}
+    for dtype, n_batch, n_tan in ((torch.float32, 1, nx),
+                                  (torch.float64, 1, nx),
+                                  (torch.float32, 2, 16)):
+        err, ratio, k_ms, plain_ms, bound = _gas_tau_tangent_case(
+            dtype, n_batch, n_tan, seed=27)
+        _print(f"gas_tau_tangent vs plain ({n_batch} x {NWAVE} x {NLAY} x "
+               f"{NG}, {n_tan} tangents, {dtype}): max_abs_err={err:.3e}, "
+               f"{ratio:.3f} eps of the terms' magnitudes (bound 4); "
+               f"kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+               f"{bound:.4f} ms (bytes; {k_ms / bound:.2f}x)")
+        if (dtype, n_batch) == (torch.float32, 1):
+            records["gas_tau_tangent"] = dict(
+                launches=launches[0], max_abs_err=err, ms=k_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                library_ms=None)
+        torch.cuda.empty_cache()
+
+    rows = NWAVE * NLAY
+    g = torch.Generator(device="cuda").manual_seed(28)
+    dout, da, db = (torch.randn(nx, rows, NG, generator=g, device="cuda")
+                    for _ in range(3))
+    idx = torch.arange(rows, device="cuda")
+    skip_a, skip_b = idx % 7 == 0, idx % 5 == 0
+    want = tangent_cuda.skip_rows_plain(dout, da, db, skip_a, skip_b)
+    got = tangent_cuda.skip_rows_(dout, da, db, skip_a, skip_b)
+    if not (got is dout and torch.equal(got, want)):
+        raise AssertionError("skip_rows_ off its plain version")
+    del want
+    skipped = int((skip_a | skip_b).sum())
+    k_ms = _cuda_ms(lambda: tangent_cuda.skip_rows_(dout, da, db, skip_a,
+                                                    skip_b),
+                    reps=TANGENT_RUNS)
+    plain_ms = _cuda_ms(lambda: tangent_cuda.skip_rows_plain(
+        dout, da, db, skip_a, skip_b), reps=TANGENT_RUNS)
+    bound = skip_rows_bound_ms(rows, skipped, NG, nx, 4)
+    none = torch.zeros_like(skip_a)
+    none_ms = _cuda_ms(lambda: tangent_cuda.skip_rows_(dout, da, db, none,
+                                                       none),
+                       reps=TANGENT_RUNS)
+    _print(f"skip_rows_ vs plain (R = {rows}, NG = {NG}, T = {nx}, "
+           f"float32, {skipped} rows skipped): equal bits; kernel "
+           f"{k_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+           f"(bytes; {k_ms / bound:.2f}x); with no row skipped {none_ms:.4f}"
+           f" ms")
+    records["skip_rows_"] = dict(
+        launches=launches[1], max_abs_err=0.0, ms=k_ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by="bytes", library_ms=None)
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -5998,6 +6198,7 @@ def main() -> int:
     tl_launches, tl_tan_launches = phase_telluric_multiloc(card)
     ingest_launches, ingest_combine_launches = phase_ingest(card)
     geom_lbl_launches = phase_lbl_geometries(card, profile=profile)
+    tangent_records = phase_tangent_passes(card)
 
     kernels = [dict(
         name="overlap_combine",
@@ -6053,6 +6254,13 @@ def main() -> int:
         replaces="tools/bench_overlap_variants.py:131",
         **rec,
     ) for mode, rec in variant_records.items()]
+    kernels += [dict(
+        name=name,
+        route="cuda",
+        source="archnemesis_tpu_torch/csrc/tangent_ops.cu",
+        replaces=None,
+        **rec,
+    ) for name, rec in tangent_records.items()]
     kernels.append(dict(
         name="fma_peak",
         route="cuda",

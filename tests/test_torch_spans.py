@@ -260,3 +260,173 @@ def test_metric_reads_the_traced_forwards(name, monkeypatch):
             for s in r.spans.values():
                 s.stream_ms = None
         assert reader.read(ctx) is None
+
+
+def _cut_jacobian():
+    """(fn, x) of ``jupiter_ck_oe`` at 64 waves, NG = 8, 11 levels, 8
+    layers: NX = 16."""
+    import copy
+
+    from nembench.harness import traffic as tf
+
+    spec = copy.deepcopy(mf.config("jupiter_ck_oe")[0])
+    spec.update(nwave=64, ng=8, nlevel=11, nlay=8, nint=11, dtype="float64")
+    spec["state_vector"]["temperature_levels"] = 11
+    _, module = mf.config("jupiter_ck_oe")
+    program = module.Program(spec, 1, "cpu")
+    t, mult = tf.states(dict(mf.traffic("jac_iter"), states=1),
+                        module.profiles(spec)["t"], 5, 7, "cpu")
+    x, fn = program.state_function(t[0], mult[0])
+    return fn, x
+
+
+def _chunked_jacobian(fn, x, chunk):
+    """The Jacobian pushed through ``chunk`` tangents at a time inside one
+    ``nemesis.jacobian`` span: a forward pass a chunk."""
+    basis = torch.eye(x.shape[0], dtype=x.dtype)
+    with profiling.annotate(profiling.JACOBIAN_SPAN):
+        _, cols = torch.func.vmap(lambda v: torch.func.jvp(fn, (x,), (v,)),
+                                  chunk_size=chunk)(basis)
+    return None, cols.movedim(0, -1)
+
+
+@pytest.mark.parametrize("chunk_size, passes", [(None, 1), (6, 3)])
+def test_traced_jacobian_leaves_one_record(chunk_size, passes):
+    """One record per evaluation, chunked or not, holding each layer span
+    summed over the forwards it ran (which file their own records too);
+    the peak field is there (None off the card); the counter counts the
+    evaluations."""
+    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
+
+    fn, x = _cut_jacobian()
+    calls = forward_and_jacobian.calls
+    profiling.clear()
+    _, kk = forward_and_jacobian(fn, x)
+    out, _ = _traced(
+        lambda: (forward_and_jacobian(fn, x) if chunk_size is None
+                 else _chunked_jacobian(fn, x, chunk_size)), 1)
+    traced = out[0][1]
+    assert torch.allclose(traced, kk, rtol=1e-12, atol=0)
+    assert forward_and_jacobian.calls == calls + 1 + (chunk_size is None)
+
+    (record,) = profiling.jacobian_records()
+    forwards = profiling.forward_records()
+    assert len(forwards) == passes and record.forwards == forwards
+    assert record.peak_bytes is None and record.stream_ms is None
+    assert record.spans[profiling.JACOBIAN_SPAN].calls == 1
+    assert set(record.spans) == (LAYERS["ck"] - {"nemesis.cia", "nemesis.dust"}
+                                 | {profiling.FORWARD_SPAN,
+                                    profiling.JACOBIAN_SPAN})
+    for name, stat in record.spans.items():
+        if name == profiling.JACOBIAN_SPAN:
+            continue
+        assert stat.calls == sum(f.spans[name].calls for f in forwards)
+        assert stat.host_self_ns == sum(f.spans[name].host_self_ns
+                                        for f in forwards)
+    inner = sum(f.host_ms for f in forwards)
+    assert inner <= record.host_ms + 1e-6
+
+
+def test_untraced_jacobian_leaves_no_record(monkeypatch):
+    from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a span did work with no profiler recording")
+
+    fn, x = _cut_jacobian()
+    profiling.clear()
+    calls = forward_and_jacobian.calls
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(profiling.spans, "open", refuse)
+    forward_and_jacobian(fn, x)
+    assert forward_and_jacobian.calls == calls + 1
+    assert profiling.jacobian_records() == []
+
+
+def test_jacobian_stream_times_and_peak(monkeypatch):
+    """An evaluation's record sums its forwards' stream times, takes its own
+    from its two events, and holds the allocator's peak since its start."""
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    resets = []
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda: resets.append(1))
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda: 12345 * len(resets))
+    monkeypatch.setattr(profiling, "spans", profiling.Spans())
+
+    def evaluation():
+        with profiling.annotate(profiling.JACOBIAN_SPAN):
+            for _ in range(2):
+                with profiling.annotate(profiling.FORWARD_SPAN):
+                    with profiling.annotate("a"):
+                        pass
+
+    _traced(evaluation, 2)
+    records = profiling.jacobian_records()
+    assert len(records) == 2 and len(resets) == 2
+    for i, r in enumerate(records):
+        # events at 1 (evaluation), 2-5 and 6-9 (forwards, "a" at 3-4 and
+        # 7-8), 10 (evaluation)
+        assert r.stream_ms == 9.0 and r.peak_bytes == 12345 * (i + 1)
+        assert {n: (s.calls, s.stream_ms) for n, s in r.spans.items()
+                if n != profiling.JACOBIAN_SPAN} == {
+            "a": (2, 2.0), profiling.FORWARD_SPAN: (2, 4.0)}
+    assert len(profiling.forward_records()) == 4
+
+
+def _jac_record(stream, peak, host_ms=1.0):
+    spans = {name: profiling.SpanStat(calls=1, host_self_ns=1000,
+                                      stream_ms=ms)
+             for name, ms in stream.items()}
+    return profiling.JacobianRecord(host_ms=host_ms, spans=spans,
+                                    peak_bytes=peak)
+
+
+JAC_READS = {
+    "layering_ms.jac": lambda r: (r.spans["nemesis.layering"].stream_ms
+                                  + r.spans["nemesis.path"].stream_ms),
+    "kinterp_ms.jac": lambda r: r.spans["nemesis.kinterp"].stream_ms,
+    "overlap_ms.jac": lambda r: r.spans["nemesis.overlap"].stream_ms,
+    "emission_ms.jac": lambda r: sum(r.spans[f"nemesis.{n}"].stream_ms
+                                     for n in ("cia", "rayleigh", "dust",
+                                               "spectrum")),
+    "peak_mem_gib.jac": lambda r: r.peak_bytes / 2**30,
+    "host_ms_per_call.jac": lambda r: r.host_ms,
+}
+
+
+@pytest.mark.parametrize("name", sorted(JAC_READS))
+def test_jacobian_metric_reads_the_traced_evaluations(name, monkeypatch):
+    """The reader's value is the mean over the last ``traced_calls``
+    evaluation records; None on an empty ring, where no stream time was
+    taken and where no peak was (the host time is always taken)."""
+    book = mf.load()
+    entry = next(m for m in book["per_layer"] if m["name"] == name)
+    assert entry["workloads"] == ["jupiter_ck_oe.jac_iter"]
+    reader = mf.metric(name)
+    ctx = type("Ctx", (), {"traced_calls": 3})()
+    spans = profiling.Spans()
+    monkeypatch.setattr(profiling, "spans", spans)
+    assert reader.read(ctx) is None
+
+    names = set(LAYERS["ck"])
+    rng = np.random.default_rng(12)
+    records = [_jac_record({n: float(rng.uniform(0.1, 20))
+                            for n in sorted(names)},
+                           int(rng.integers(2**30, 2**35)),
+                           float(rng.uniform(50, 500)))
+               for _ in range(5)]
+    spans._jacobians.extend(records)
+    want = np.mean([JAC_READS[name](r) for r in records[-3:]])
+    assert reader.read(ctx) == pytest.approx(want, rel=1e-12)
+
+    if name == "host_ms_per_call.jac":
+        return
+    for r in records:
+        r.peak_bytes = None
+        for s in r.spans.values():
+            s.stream_ms = None
+    assert reader.read(ctx) is None
