@@ -50,6 +50,7 @@ from archnemesis_tpu_torch.rt.emission import (
     transmission_spectrum,
 )
 from archnemesis_tpu_torch.rt.layer import build_layers
+from archnemesis_tpu_torch.rt.layer_graph import layering_and_path
 from archnemesis_tpu_torch.rt.path import (
     Paths,
     limb_paths,
@@ -508,26 +509,18 @@ def forward_nadir(
 
     The structures are moved to ``device`` first (None = CUDA; raises
     without a card unless ``device="cpu"``); a ``RuntimeLBL`` stays on the
-    host and its synthesis runs on ``device``.
+    host and its synthesis runs on ``device``. On the card, with plain
+    inputs and host-number angles, the layering and the path replay CUDA
+    graphs (``rt/layer_graph.py``).
     """
     with annotate(FORWARD_SPAN):
         device = resolve_device(device)
         atm, ktab, cia, aero, surf, emis = _structures_to(
             device, atm, ktab, cia, aero, surf, emis)
 
-        with annotate("nemesis.layering"):
-            layers = apply_dust_renorm(build_layers(atm, laycfg, layang=0.0),
-                                       atm)
-        with annotate("nemesis.path"):
-            path = nadir_path(
-                layers,
-                atm.radius,
-                atm.h[-1],
-                emiss_ang,
-                sol_ang=sol_ang,
-                azi_ang=azi_ang,
-                imod=PathCalc.THERMAL_EMISSION,
-            )
+        layers, path = layering_and_path(
+            atm, laycfg, emiss_ang, sol_ang, azi_ang,
+            others=(ktab, cia, aero, surf, emis), own=return_diagnostics)
         wave, del_g = _calc_grid(ktab, layers)
         taus = layer_optical_depths(cfg, layers, wave, ktab, cia, aero)
         emission_layer = None

@@ -16,6 +16,7 @@ import torch
 from archnemesis_tpu_torch.constants import AVOGAD
 from archnemesis_tpu_torch.core.types import Atmosphere, LayerConfig, Layers
 from archnemesis_tpu_torch.enums import LayerIntegrationScheme, LayerType
+from archnemesis_tpu_torch.utils.device import device_constant
 from archnemesis_tpu_torch.utils.interp import (
     interp1d_extrap,
     linspace,
@@ -28,7 +29,7 @@ K_B = 1.38065e-23
 
 
 def _scalar(x, like):
-    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    return device_constant(x, like.dtype, like.device)
 
 
 # Straight rays through a spherical atmosphere of radius ``radius`` that

@@ -18,6 +18,7 @@ import torch
 from archnemesis_tpu_torch.core.types import Layers
 from archnemesis_tpu_torch.enums import PathCalc
 from archnemesis_tpu_torch.rt.layer import ray_segment
+from archnemesis_tpu_torch.utils.device import device_constant
 from archnemesis_tpu_torch.utils.pytree import static_field, tensor_dataclass
 
 
@@ -51,10 +52,8 @@ def _scale_factors(layers: Layers, radius, h_top, angle_deg, base):
     ``angle_deg`` at altitude ``base`` (reference AtmCalc_0.py:380-400, at
     radius z0 = radius + base)."""
     like = layers.baseh
-    ang = torch.deg2rad(torch.as_tensor(angle_deg, dtype=like.dtype,
-                                        device=like.device))
-    h_top = torch.as_tensor(h_top, dtype=like.dtype,
-                            device=like.device).reshape(1)
+    ang = torch.deg2rad(device_constant(angle_deg, like.dtype, like.device))
+    h_top = device_constant(h_top, like.dtype, like.device).reshape(1)
     h_up = torch.cat([layers.baseh[1:], h_top])
     # (s1 - s0) / (h_up - baseh) with s the length along the ray at each
     # layer's base and top, without subtracting numbers of the planet's
@@ -90,8 +89,8 @@ def nadir_path(
     else:
         emiss = np.asarray(emiss_ang, dtype=np.float64).reshape(-1)
     npath = emiss.shape[0]
-    uselay = torch.as_tensor(
-        np.arange(nlay - 1, botlay - 1, -1), device=like.device
+    uselay = device_constant(
+        np.arange(nlay - 1, botlay - 1, -1), None, like.device
     )  # top->bottom
 
     sf = _scale_factors(layers, radius, h_top, emiss[:, None],
@@ -100,10 +99,10 @@ def nadir_path(
     def angle(x):
         if isinstance(x, torch.Tensor):
             return x.reshape(-1).to(like.dtype).expand(npath)
-        return torch.as_tensor(
+        return device_constant(
             np.broadcast_to(np.asarray(x, dtype=np.float64).reshape(-1),
                             (npath,)).copy(),
-            dtype=like.dtype, device=like.device)
+            like.dtype, like.device)
 
     return Paths(
         layinc=uselay[:, None].expand(nuse, npath),

@@ -24,7 +24,10 @@ def interp1d_extrap(xp, fp, x):
     trailing feature dims (interpolated along axis 0).
     """
     j, x = _search(xp, x, right=True)
-    j = j.clamp(1, xp.shape[0] - 1)
+    shape = x.shape
+    # gather with a 1-D index: a 0-d one is read back to the host
+    j = j.reshape(-1).clamp(1, xp.shape[0] - 1)
+    x = x.reshape(-1)
     x0 = xp[j - 1]
     x1 = xp[j]
     f = (x - x0) / (x1 - x0)
@@ -32,7 +35,7 @@ def interp1d_extrap(xp, fp, x):
     y1 = fp[j]
     if fp.ndim > 1:
         f = f.reshape(f.shape + (1,) * (fp.ndim - 1))
-    return (1.0 - f) * y0 + f * y1
+    return ((1.0 - f) * y0 + f * y1).reshape(shape + fp.shape[1:])
 
 
 def interp1d_extrap_with_weights(xp, x):

@@ -333,6 +333,19 @@ without them. Phases, each of which fails the run on its own:
     581,632, NG = 20, T = 86 with a seventh of the rows skipped for a and
     a fifth for b, bit for bit; each timed beside its plain version and
     its bound (``gas_tau_tangent_bound_ms``, ``skip_rows_bound_ms``);
+28. the layering and path as CUDA graphs ("layer graph",
+    ``rt/layer_graph.py``): at the layouts of both forward cells of the
+    benchmark (``synthetic.headline_deck``'s and ``lbl_headline``'s
+    atmospheres), float32, ``LAYER_GRAPH_RUNS`` consecutive states, each
+    laid out eagerly and by replay: the host ms (launching) and the stream
+    ms (CUDA events) of each, medians, with the replay's layers and path
+    equal to the eager ones bit for bit on every state, every graphed call
+    a replay and at most one capture (phase 4 lays out the same
+    atmosphere; the first graphed call's wall ms printed); then the
+    headline's ``forward_nadir`` over ``LAYER_GRAPH_GEOMETRIES`` twice: at
+    most one capture, every forward a replay, its diagnostics' layers and
+    path the eager ones at its angles bit for bit. ``python3 -c "import
+    chip_smoke; chip_smoke.phase_layer_graph()"`` runs it alone;
 
 then a JSON line of the kernels (launches on the main paths, error, times,
 bound, library time) and, last, ``{"ok": true, "device": {...}}``. ``--profile`` adds
@@ -6161,6 +6174,158 @@ def phase_tangent_passes(card: str) -> dict:
     return records
 
 
+LAYER_GRAPH_RUNS = 20
+# viewing geometries (emission, solar, azimuth angles) of one atmosphere,
+# more than the runner keeps layouts (``rt/layer_graph.py:KEPT``)
+LAYER_GRAPH_GEOMETRIES = [(5.0 * i, 180.0 - 3.0 * i, 10.0 * i)
+                          for i in range(12)]
+
+
+def layer_graph_case(name: str):
+    """(Atmosphere, LayerConfig) of a synthetic headline, float32 on the
+    card ("headline": 81 levels into 71 layers, 7 gases, the layout of the
+    benchmark's jupiter_ck; "lbl": 41 levels into 40 layers, 2 gases, that
+    of co_lbl), and a function of i giving the i-th state's atmosphere."""
+    import dataclasses
+
+    import torch
+
+    from archnemesis_tpu_torch.synthetic import headline_deck, lbl_headline
+
+    make = headline_deck if name == "headline" else lbl_headline
+    atm, cfg = make(nwave=64, dtype=torch.float32, device="cuda")[:2]
+    x = torch.linspace(0.0, 1.0, atm.h.shape[0], device="cuda")
+
+    def state(i):
+        return dataclasses.replace(
+            atm, t=atm.t + 4.0 * torch.sin((i % 7 + 1.0) * x),
+            vmr=atm.vmr * torch.exp(0.2 * torch.cos((i % 5 + 1.0) * x))[
+                :, None])
+
+    return atm, cfg, state
+
+
+def _layer_timed(run, states) -> tuple:
+    """Median host ms (the launching) and stream ms (CUDA events) of
+    ``run(atm)`` over ``states``, and the outputs."""
+    import torch
+
+    host, stream, outs = [], [], []
+    for atm in states:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = run(atm)
+        end.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.synchronize()
+        stream.append(start.elapsed_time(end))
+        outs.append(out)
+    return float(np.median(host)), float(np.median(stream)), outs
+
+
+def _layer_bits_equal(a, b) -> bool:
+    import dataclasses
+
+    import torch
+
+    return all(torch.equal(getattr(x, f.name), getattr(y, f.name))
+               for x, y in zip(a, b) for f in dataclasses.fields(x)
+               if isinstance(getattr(x, f.name), torch.Tensor))
+
+
+def _eager_layering(atm, cfg, angles=(0.0, 180.0, 0.0)):
+    """The nadir forward's layering and path, eagerly."""
+    from archnemesis_tpu_torch.enums import PathCalc
+    from archnemesis_tpu_torch.forward import apply_dust_renorm
+    from archnemesis_tpu_torch.rt.layer import build_layers
+    from archnemesis_tpu_torch.rt.path import nadir_path
+
+    emiss_ang, sol_ang, azi_ang = angles
+    layers = apply_dust_renorm(build_layers(atm, cfg, layang=0.0), atm)
+    return layers, nadir_path(layers, atm.radius, atm.h[-1], emiss_ang,
+                              sol_ang=sol_ang, azi_ang=azi_ang,
+                              imod=PathCalc.THERMAL_EMISSION)
+
+
+def phase_layer_graph() -> dict:
+    """Phase 28: the layering and path eager and replayed from CUDA graphs
+    at both forward cells' layouts; then the headline's forwards over
+    ``LAYER_GRAPH_GEOMETRIES``. Returns {case: (eager host, eager stream,
+    graph host, graph stream, first graphed call) ms}."""
+    import torch
+
+    from archnemesis_tpu_torch.forward import forward_nadir
+    from archnemesis_tpu_torch.rt.layer_graph import layering_and_path
+    from archnemesis_tpu_torch.synthetic import headline_deck
+
+    def counts():
+        return (layering_and_path.captures, layering_and_path.replays,
+                layering_and_path.eager)
+
+    out = {}
+    for name in ("headline", "lbl"):
+        atm, cfg, state = layer_graph_case(name)
+
+        def graphed(atm):
+            return layering_and_path(atm, cfg, 0.0, 180.0, 0.0, own=True)
+
+        before = counts()
+        _eager_layering(atm, cfg)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graphed(atm)  # the capture, unless an earlier phase made it
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        states = [state(i) for i in range(LAYER_GRAPH_RUNS)]
+        e_host, e_stream, e_out = _layer_timed(
+            lambda a: _eager_layering(a, cfg), states)
+        g_host, g_stream, g_out = _layer_timed(graphed, states)
+        same = all(_layer_bits_equal(e, g) for e, g in zip(e_out, g_out))
+        # an earlier phase may have captured this layout (phase 4's
+        # headline lays out the same atmosphere)
+        captured, replayed, eager = np.subtract(counts(), before)
+        if (not same or captured > 1 or eager
+                or replayed != LAYER_GRAPH_RUNS + 1):
+            raise AssertionError(f"layer graph at {name}: bits equal {same}, "
+                                 f"{captured} captures, {replayed} replays, "
+                                 f"{eager} eager")
+        _print(f"layering and path at the {name} layout ({cfg.nlay} layers "
+               f"x {cfg.nint} samples x {atm.vmr.shape[1]} gases, float32, "
+               f"median of {LAYER_GRAPH_RUNS} states): eager host "
+               f"{e_host:.3f} ms, stream {e_stream:.3f} ms; graph replay "
+               f"host {g_host:.3f} ms, stream {g_stream:.3f} ms; replayed "
+               "layers and path equal the eager ones bit for bit; the "
+               f"first graphed call {first_ms:.1f} ms ({captured} "
+               "capture)")
+        out[name] = (e_host, e_stream, g_host, g_stream, first_ms)
+
+    # a retrieval's forwards: one atmosphere, many viewing geometries
+    atm, laycfg, ktab, surf, cfg = headline_deck(nwave=64,
+                                                 dtype=torch.float32,
+                                                 device="cuda")
+    before = counts()
+    same = True
+    for angles in LAYER_GRAPH_GEOMETRIES * 2:
+        _, diag = forward_nadir(atm, laycfg, ktab, None, None, surf, cfg,
+                                *angles, return_diagnostics=True,
+                                device="cuda")
+        same &= _layer_bits_equal((diag["layers"], diag["path"]),
+                                  _eager_layering(atm, laycfg, angles))
+    captured, replayed, eager = np.subtract(counts(), before)
+    if (not same or captured > 1 or eager
+            or replayed != 2 * len(LAYER_GRAPH_GEOMETRIES)):
+        raise AssertionError(f"layer graph over viewing geometries: bits "
+                             f"equal {same}, {captured} captures, "
+                             f"{replayed} replays, {eager} eager")
+    _print(f"headline forwards over {len(LAYER_GRAPH_GEOMETRIES)} viewing "
+           f"geometries, twice: {captured} capture, {replayed} replays, "
+           "layers and path equal the eager ones bit for bit")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6199,6 +6364,7 @@ def main() -> int:
     ingest_launches, ingest_combine_launches = phase_ingest(card)
     geom_lbl_launches = phase_lbl_geometries(card, profile=profile)
     tangent_records = phase_tangent_passes(card)
+    phase_layer_graph()
 
     kernels = [dict(
         name="overlap_combine",

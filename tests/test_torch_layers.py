@@ -100,6 +100,57 @@ def test_apply_dust_renorm_matches_jax(atmospheres, renorm):
                                atol=1e-12 * np.abs(np64(want)).max())
 
 
+def test_layers_and_path_match_jax_through_the_constant_cache(atmospheres):
+    """Layering, dust renormalisation and nadir path at two layht and two
+    layang, in two layer types, each run twice and interleaved in one
+    process (the second pass takes every host number from the
+    device-constant cache), match the JAX package at rtol 1e-10: the cache
+    keeps each value under its own key."""
+    jatm, atm, dl = atmospheres
+    jatm = jatm.replace(dust_renorm=np.asarray([0.7]))
+    atm = atm.replace(dust_renorm=torch.as_tensor([0.7], dtype=torch.float64))
+    h0 = float(dl["H"][0])
+    cases = [(laytyp, layht, layang) for laytyp in (1, 3)
+             for layht in (h0, h0 + 25.0e3) for layang in (0.0, 45.0)]
+    for laytyp, layht, layang in cases * 2:
+        jcfg = LayerConfig(nlay=int(dl["NLAY"]), laytyp=laytyp, layint=1,
+                           layht=layht)
+        want = jax_apply_dust_renorm(
+            jax_build_layers(jatm, jcfg, layang=layang), jatm)
+        got = apply_dust_renorm(
+            build_layers(atm, convert.layer_config(flat(jcfg)),
+                         layang=layang), atm)
+        for name in LAYER_FIELDS:
+            w = np64(getattr(want, name))
+            atol = 1e-12 * np.abs(w).max() if w.size else 0.0
+            np.testing.assert_allclose(
+                np64(getattr(got, name)), w, rtol=1e-10, atol=atol,
+                err_msg=f"{name} {laytyp} {layht} {layang}")
+        emiss = 30.0 + layang
+        jpath = jax_nadir_path(want, jatm.radius, jatm.h[-1], emiss,
+                               sol_ang=120.0 - layang, azi_ang=layang)
+        path = nadir_path(got, atm.radius, atm.h[-1], emiss,
+                          sol_ang=120.0 - layang, azi_ang=layang)
+        for name in PATH_FIELDS:
+            np.testing.assert_allclose(
+                np64(getattr(path, name)), np64(getattr(jpath, name)),
+                rtol=1e-10, atol=0, err_msg=f"{name} {layht} {layang}")
+
+
+@pytest.mark.parametrize("x", [-7.5, 0.3, 6.25])
+def test_interp1d_extrap_at_a_0d_point_matches_jax(x):
+    """A 0-d point (split_layers' layht) keeps its 0-d shape, with and
+    without trailing feature dims."""
+    rng = np.random.default_rng(5)
+    xp = np.sort(rng.uniform(-5.0, 5.0, 9))
+    for fp in (rng.standard_normal(9), rng.standard_normal((9, 2))):
+        got = interp1d_extrap(torch.as_tensor(xp), torch.as_tensor(fp),
+                              torch.as_tensor(x, dtype=torch.float64))
+        want = np.asarray(jax_interp.interp1d_extrap(xp, fp, x))
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-13)
+
+
 def test_interp_helpers_match_jax():
     rng = np.random.default_rng(3)
     xp = np.sort(rng.uniform(-5.0, 5.0, 12))
