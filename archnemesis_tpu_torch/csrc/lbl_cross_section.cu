@@ -30,8 +30,8 @@
 // lines, 40 layers), a few microseconds at the HBM rate, while the
 // function needs a lineshape for each of ~1.9e8 (line, wave) pairs per
 // layer inside the 25 cm-1 core window and a reciprocal for each of ~2.0e8
-// wing pairs (chip_smoke.py:lbl_bound_ms counts them from the run's
-// inputs). The design keeps the arithmetic of a pair to what it needs:
+// wing pairs (nembench/harness/bounds.py:lbl_bound_ms counts them from the
+// run's inputs). The design keeps the arithmetic of a pair to what it needs:
 //   - pass 1 (line_kernel), one thread per (layer, line): the per-(layer,
 //     line) physics once per synthesis, into a 32-byte record (64 in
 //     float64) of the centre's parts, the lineshape's two parameters, the
@@ -43,10 +43,9 @@
 //     [starts[b], starts[b] + counts[b]) is staged in tiles of 128 records
 //     through shared memory (two 128-bit loads per record per thread, used
 //     for all V waves). The tiles are staged by plain loads: the records
-//     are L2-resident and the pass is bound by instruction issue, and a
-//     double-buffered cp.async staging (kept as the sweep's ASYNC variant,
-//     Voigt only) gives the same bits and took 0.1-3.7 % longer on an
-//     H100 in every timed turn;
+//     are L2-resident and the pass is bound by instruction issue (a
+//     double-buffered cp.async staging gave the same bits and took 0.1-3.7
+//     % longer on an H100 in every timed turn);
 //   - staging classifies each (block, line) once from the deltas at the
 //     block's first and last wave, with a margin of 1e-4 (wn_approx + 1)
 //     cm-1 that covers the rounding of delta between them: skip (zero
@@ -160,7 +159,7 @@ struct alignas(kFields * sizeof(T)) Rec {
 constexpr int kSkip = 0, kWing = 1, kCore = 2, kStraddle = 3;
 // records per shared-memory tile: 4 KB in float32, 8 KB in float64
 constexpr int kTile = 128;
-// waves per thread of the pair pass unless the caller asks for another
+// waves per thread of the pair pass
 constexpr int kWavesPerThread = 2;
 constexpr int kLineThreads = 128;
 
@@ -168,22 +167,6 @@ struct Params {
   double t_ref, p_ref, mass, s_floor, wn_calc, wn_approx, factor, c2,
       doppler;
 };
-
-// 16-byte asynchronous copy from global to shared memory (sm_80 and later)
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most one committed group of this thread is in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
 
 __device__ __forceinline__ float rcp_approx(float x) {
   float r;
@@ -430,18 +413,15 @@ __device__ __forceinline__ void sum_tile(const Rec<T>* tile, int n_tile,
 }
 
 // Pass 2: grid (nb, nlay), ceil(width / V) threads; thread t holds the
-// block's waves t + k ceil(width / V), k < V. ASYNC: the records are
-// staged by cp.async into two shared-memory tiles (the next tile loads
-// while the current one is summed) and classed in place after they land;
-// otherwise each thread loads, classes and stores its records of a tile.
-// Both sum the same values in the same order: the same bits.
-template <typename T, int SHAPE, bool TWOFLOAT, int V, bool ASYNC>
+// block's waves t + k ceil(width / V), k < V. Each thread loads, classes
+// and stores its records of a tile.
+template <typename T, int SHAPE, bool TWOFLOAT, int V>
 __global__ void __launch_bounds__(512)
     pair_kernel(const T* __restrict__ wn, const int* __restrict__ ranges,
                 const Rec<T>* __restrict__ rec, T* __restrict__ out,
                 int n_lines, int nb, int width, int n_wave, int nlay, T wc,
                 T wa, T margin, T factor) {
-  __shared__ Rec<T> s_rec[ASYNC ? 2 : 1][kTile];
+  __shared__ Rec<T> s_rec[kTile];
   const int nt = blockDim.x;
   const int b = blockIdx.x;
   const int l = blockIdx.y;
@@ -472,41 +452,16 @@ __global__ void __launch_bounds__(512)
     r.v[kS] = T(cls);
   };
 
-  if constexpr (ASYNC) {
-    constexpr int kChunks = sizeof(Rec<T>) / 16;  // 16-byte copies a record
-    auto stage = [&](int buf, int base) {
-      const int n = min(kTile, count - base) * kChunks;
-      const char* src = reinterpret_cast<const char*>(lrec + base);
-      char* dst = reinterpret_cast<char*>(s_rec[buf]);
-      for (int c = tid; c < n; c += nt) cp_async16(dst + 16 * c, src + 16 * c);
-    };
-    if (count > 0) stage(0, 0);
-    cp_async_commit();
-    for (int base = 0, buf = 0; base < count; base += kTile, buf ^= 1) {
-      const int n_tile = min(kTile, count - base);
-      if (base + kTile < count) stage(buf ^ 1, base + kTile);
-      cp_async_commit();
-      cp_async_wait_one();  // this thread's copies of the current tile
-      __syncthreads();      // everyone's
-      for (int j = tid; j < n_tile; j += nt) classify(s_rec[buf][j]);
-      __syncthreads();
-      sum_tile<T, SHAPE, TWOFLOAT, V>(s_rec[buf], n_tile, w_hi, w_lo, acc, wc,
-                                      wa);
-      __syncthreads();  // the tile is free for the copy after next
+  for (int base = 0; base < count; base += kTile) {
+    const int n_tile = min(kTile, count - base);
+    for (int j = tid; j < n_tile; j += nt) {
+      Rec<T> r = lrec[base + j];
+      classify(r);
+      s_rec[j] = r;
     }
-  } else {
-    for (int base = 0; base < count; base += kTile) {
-      const int n_tile = min(kTile, count - base);
-      for (int j = tid; j < n_tile; j += nt) {
-        Rec<T> r = lrec[base + j];
-        classify(r);
-        s_rec[0][j] = r;
-      }
-      __syncthreads();
-      sum_tile<T, SHAPE, TWOFLOAT, V>(s_rec[0], n_tile, w_hi, w_lo, acc, wc,
-                                      wa);
-      __syncthreads();
-    }
+    __syncthreads();
+    sum_tile<T, SHAPE, TWOFLOAT, V>(s_rec, n_tile, w_hi, w_lo, acc, wc, wa);
+    __syncthreads();
   }
 #pragma unroll
   for (int k = 0; k < V; ++k) {
@@ -525,8 +480,9 @@ struct Launch {
   cudaStream_t stream;
 };
 
-template <typename T, int SHAPE, bool TWOFLOAT, int V, bool ASYNC = false>
+template <typename T, int SHAPE, bool TWOFLOAT>
 cudaError_t launch_one(const Launch& a) {
+  constexpr int V = kWavesPerThread;
   Rec<T>* rec = static_cast<Rec<T>*>(a.rec);
   if (a.n_lines > 0) {
     const dim3 grid((a.n_lines + kLineThreads - 1) / kLineThreads, a.nlay);
@@ -537,7 +493,7 @@ cudaError_t launch_one(const Launch& a) {
     if (err != cudaSuccess) return err;
   }
   const T wa = T(a.prm.wn_approx);
-  pair_kernel<T, SHAPE, TWOFLOAT, V, ASYNC>
+  pair_kernel<T, SHAPE, TWOFLOAT, V>
       <<<dim3(a.nb, a.nlay), (a.width + V - 1) / V, 0, a.stream>>>(
           static_cast<const T*>(a.wn), static_cast<const int*>(a.ranges), rec,
           static_cast<T*>(a.out), a.n_lines, a.nb, a.width, a.n_wave, a.nlay,
@@ -546,40 +502,20 @@ cudaError_t launch_one(const Launch& a) {
 }
 
 template <typename T, bool TWOFLOAT>
-cudaError_t launch_shape(const Launch& a, int shape, int wpt, int staging) {
-  constexpr int V = kWavesPerThread;
-  if (wpt == 0) wpt = V;
-  // every lineshape at the default waves per thread with plain loads;
-  // Voigt also at 1 and 4, and with cp.async staging (chip_smoke's sweep)
-  if (staging != 0) {
-    if (shape != kVoigt || wpt != V || staging != 1)
-      return cudaErrorInvalidValue;
-    return launch_one<T, kVoigt, TWOFLOAT, V, true>(a);
-  }
-  if (shape == kVoigt) {
-    switch (wpt) {
-      case 1:
-        return launch_one<T, kVoigt, TWOFLOAT, 1>(a);
-      case 2:
-        return launch_one<T, kVoigt, TWOFLOAT, 2>(a);
-      case 4:
-        return launch_one<T, kVoigt, TWOFLOAT, 4>(a);
-      default:
-        return cudaErrorInvalidValue;
-    }
-  }
-  if (wpt != V) return cudaErrorInvalidValue;
+cudaError_t launch_shape(const Launch& a, int shape) {
   switch (shape) {
+    case kVoigt:
+      return launch_one<T, kVoigt, TWOFLOAT>(a);
     case kGaussian:
-      return launch_one<T, kGaussian, TWOFLOAT, V>(a);
+      return launch_one<T, kGaussian, TWOFLOAT>(a);
     case kLorentz:
-      return launch_one<T, kLorentz, TWOFLOAT, V>(a);
+      return launch_one<T, kLorentz, TWOFLOAT>(a);
     case kTonkov:
-      return launch_one<T, kTonkov, TWOFLOAT, V>(a);
+      return launch_one<T, kTonkov, TWOFLOAT>(a);
     case kHartmann:
-      return launch_one<T, kHartmann, TWOFLOAT, V>(a);
+      return launch_one<T, kHartmann, TWOFLOAT>(a);
     case kVoigtCh4H2:
-      return launch_one<T, kVoigtCh4H2, TWOFLOAT, V>(a);
+      return launch_one<T, kVoigtCh4H2, TWOFLOAT>(a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -594,17 +530,14 @@ cudaError_t launch_shape(const Launch& a, int shape, int wpt, int staging) {
 // twofloat); ranges (2, nb) int32: starts, counts; lay (nlay, 4): T, p
 // [atm], ambient fraction, Q(Tref)/Q(T); rec: scratch of nlay * n_lines * 8
 // values of the type (pass 1 writes it, pass 2 reads it); out (n_wave,
-// nlay). wpt: waves per thread of pass 2 (0: the default); staging: 0
-// plain loads, 1 double-buffered cp.async (Voigt, default wpt). Each launches
-// both passes on `stream`, does not synchronise, and returns
-// cudaGetLastError() after the launches.
+// nlay). Each launches both passes on `stream`, does not synchronise, and
+// returns cudaGetLastError() after the launches.
 extern "C" int lbl_cross_section_f32(
     const void* cols, const void* wn, const void* ranges, const void* lay,
     void* rec, void* out, int n_lines, int nb, int width, int n_wave,
-    int nlay, int shape, int twofloat, int wpt, int staging, double t_ref,
-    double p_ref, double mass, double s_floor, double wn_calc,
-    double wn_approx, double factor, double c2, double doppler, int device,
-    void* stream) {
+    int nlay, int shape, int twofloat, double t_ref, double p_ref,
+    double mass, double s_floor, double wn_calc, double wn_approx,
+    double factor, double c2, double doppler, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (nb <= 0 || nlay <= 0) return 0;
@@ -614,18 +547,17 @@ extern "C" int lbl_cross_section_f32(
                  Params{t_ref, p_ref, mass, s_floor, wn_calc, wn_approx,
                         factor, c2, doppler},
                  static_cast<cudaStream_t>(stream)};
-  err = twofloat ? launch_shape<float, true>(a, shape, wpt, staging)
-                 : launch_shape<float, false>(a, shape, wpt, staging);
+  err = twofloat ? launch_shape<float, true>(a, shape)
+                 : launch_shape<float, false>(a, shape);
   return static_cast<int>(err);
 }
 
 extern "C" int lbl_cross_section_f64(
     const void* cols, const void* wn, const void* ranges, const void* lay,
     void* rec, void* out, int n_lines, int nb, int width, int n_wave,
-    int nlay, int shape, int twofloat, int wpt, int staging, double t_ref,
-    double p_ref, double mass, double s_floor, double wn_calc,
-    double wn_approx, double factor, double c2, double doppler, int device,
-    void* stream) {
+    int nlay, int shape, int twofloat, double t_ref, double p_ref,
+    double mass, double s_floor, double wn_calc, double wn_approx,
+    double factor, double c2, double doppler, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (twofloat) return static_cast<int>(cudaErrorInvalidValue);
@@ -636,6 +568,5 @@ extern "C" int lbl_cross_section_f64(
                  Params{t_ref, p_ref, mass, s_floor, wn_calc, wn_approx,
                         factor, c2, doppler},
                  static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(
-      launch_shape<double, false>(a, shape, wpt, staging));
+  return static_cast<int>(launch_shape<double, false>(a, shape));
 }

@@ -16,9 +16,9 @@
 // 5,753 operations per row at NG=20 with inputs sorted along g (400 pair
 // sums, 2,000 comparisons to merge the 20 sorted runs of 20 keys, 400
 // prefix-sum adds, 7 for each of the at most 419 (element, bin) overlaps
-// of the rebin, 20 divisions; chip_smoke.py:combine_ops_per_row). At
-// 581,632 rows that is 0.050 ms at the float32 peak against 0.042 ms for
-// the bytes at the HBM rate.
+// of the rebin, 20 divisions; nembench/harness/bounds.py:
+// combine_ops_per_row). At 581,632 rows that is 0.050 ms at the float32
+// peak against 0.042 ms for the bytes at the HBM rate.
 //
 // The row code of one warp per row (combine_row, in overlap_row.cuh; the
 // fused kernel below runs it as its phase A, and the combine's A/B
@@ -183,9 +183,10 @@
 // What bounds it: bytes. At T = 81, R = 39,689, NG = 20 the three
 // (T, R, NG) arrays are 0.77 GB in float32, 0.23 ms at the HBM rate,
 // against 0.06 ms for the 1,258 operations per row and tangent at the
-// float32 peak (chip_smoke.py:fused_bound_ms). What it costs beyond: phase
-// A, the primal kernel's shared-memory-bound merge at the few rows per SM
-// that the matrices and registers leave resident (a launch with no
+// float32 peak (nembench/harness/tangent_bounds.py:fused_combine_bound_ms).
+// What it costs beyond: phase A, the primal kernel's shared-memory-bound
+// merge at the few rows per SM that the matrices and registers leave
+// resident (a launch with no
 // tangents takes about half the time of one with 81; chip_smoke.py phase 5
 // times both beside the primal kernel), and phase B's product, bound by
 // instruction issue and the shared-memory pipe, which phase A also needs
@@ -591,28 +592,24 @@ combine_primal_kernel(const T* __restrict__ a, const T* __restrict__ b,
   copy_rows(out + base, stage, count, ng, stride, false);
 }
 
-// `warps` warps of 32 rows per block, 1 .. 16; 0 takes the count of 16,
-// 8, 4, 2, 1 that keeps the most rows resident on an SM (resident_warps).
+// Blocks of the count of 16, 8, 4, 2, 1 warps of 32 rows that keeps the
+// most rows resident on an SM (resident_warps).
 template <typename T>
 int launch_primal(const void* a, const void* b, const void* w2,
-                  const void* edges, void* out, int rows, int ng, int warps,
-                  int device, void* stream) {
+                  const void* edges, void* out, int rows, int ng, int device,
+                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (rows <= 0) return 0;
-  if (ng < 1 || ng > kWarp || warps < 0 || warps > kMaxWarps) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (ng < 1 || ng > kWarp) return static_cast<int>(cudaErrorInvalidValue);
   const size_t per_warp = kWarp * stream_thread_bytes<T>(ng);
-  if (warps == 0) {
-    int sm_smem = 0;
-    err = cudaDeviceGetAttribute(
-        &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    warps = resident_warps(stream_block_bytes<T>(ng), per_warp, sm_smem,
-                           kMaxWarps);
-    if (warps == 0) return static_cast<int>(cudaErrorInvalidValue);
-  }
+  int sm_smem = 0;
+  err = cudaDeviceGetAttribute(
+      &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int warps = resident_warps(stream_block_bytes<T>(ng), per_warp,
+                                   sm_smem, kMaxWarps);
+  if (warps == 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = stream_block_bytes<T>(ng) + warps * per_warp;
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
@@ -666,24 +663,24 @@ __device__ __forceinline__ int word_offset(const T* p) {
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+__device__ __forceinline__ void async_copy16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src)
                : "memory");
 }
 template <int BYTES>
-__device__ __forceinline__ void cp_async_elem(void* dst, const void* src) {
+__device__ __forceinline__ void async_copy_elem(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "n"(BYTES)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
+__device__ __forceinline__ void async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
+__device__ __forceinline__ void async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
@@ -698,12 +695,12 @@ __device__ void stage_slab(T* dst, const T* src, int len, int lane) {
   const int head = min(len, (v - off) & (v - 1));
   const int words = (len - head) / v;
   for (int k = lane; k < words; k += kWarp) {
-    cp_async16(dst + head + k * v, src + head + k * v);
+    async_copy16(dst + head + k * v, src + head + k * v);
   }
   const int rest = len - words * v;  // head and tail elements
   for (int q = lane; q < rest; q += kWarp) {
     const int x = q < head ? q : q + words * v;
-    cp_async_elem<sizeof(T)>(dst + x, src + x);
+    async_copy_elem<sizeof(T)>(dst + x, src + x);
   }
 }
 
@@ -791,7 +788,7 @@ combine_tan_kernel(const T* __restrict__ a, const T* __restrict__ b,
     }
   };
   if (n_tiles > 0) issue(0);
-  cp_async_commit();
+  async_commit();
 
   // the unit's columns of MA and MB and its 1 / den (zero past NG)
   T ma[K][NGC], mb[K][NGC], inv_den[K];
@@ -810,8 +807,8 @@ combine_tan_kernel(const T* __restrict__ a, const T* __restrict__ b,
 
   for (int k = 0; k < n_tiles; ++k) {
     if (k + 1 < n_tiles) issue(k + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // tile k is in
+    async_commit();
+    async_wait<1>();  // tile k is in
     __syncthreads();
     if (active) {
       const int t0 = k * tile;
@@ -863,7 +860,7 @@ combine_tan_kernel(const T* __restrict__ a, const T* __restrict__ b,
 template <typename T, int NGC, int VEC>
 int launch_tan_instance(const T* a, const T* b, const T* da, const T* db,
                         const T* w2, const T* edges, T* out, T* dout,
-                        int rows, int ng, int warps, int n_tan, int device,
+                        int rows, int ng, int n_tan, int device,
                         cudaStream_t stream) {
   const auto kernel = combine_tan_kernel<T, NGC, VEC>;
   // the attribute is set once per device, so that a launch captured in a
@@ -878,25 +875,23 @@ int launch_tan_instance(const T* a, const T* b, const T* da, const T* db,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured |= bit;
   }
-  if (warps == 0) {
-    // the count of 8, 4, 2, 1 rows per block that keeps the most rows
-    // resident on an SM, the larger block on a tie (longer slabs, fewer
-    // idle lanes in phase B)
-    int best = 0;
-    for (int w = kMaxTanWarps; w >= 1; w /= 2) {
-      const size_t smem = tan_block_bytes<T>(w, ng);
-      if (smem > kMaxSmem) continue;
-      int blocks = 0;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, kernel, w * kWarp, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      if (blocks * w > best) {
-        best = blocks * w;
-        warps = w;
-      }
+  // the count of 8, 4, 2, 1 rows per block that keeps the most rows
+  // resident on an SM, the larger block on a tie (longer slabs, fewer idle
+  // lanes in phase B)
+  int warps = 0, best = 0;
+  for (int w = kMaxTanWarps; w >= 1; w /= 2) {
+    const size_t smem = tan_block_bytes<T>(w, ng);
+    if (smem > kMaxSmem) continue;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, w * kWarp, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (blocks * w > best) {
+      best = blocks * w;
+      warps = w;
     }
-    if (warps == 0) return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (warps == 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = tan_block_bytes<T>(warps, ng);
   // two tiles of 2 * tile slots in the primal's element buffers
   const size_t slot_bytes = tan_slot_elems<T>(warps, ng) * sizeof(T);
@@ -915,17 +910,14 @@ int launch_tan_instance(const T* a, const T* b, const T* da, const T* db,
   return static_cast<int>(cudaGetLastError());
 }
 
-// `warps` rows per block, 1 .. 8, or 0: launch_tan_instance's choice.
 template <typename T>
 int launch_tan(const void* a, const void* b, const void* da, const void* db,
                const void* w2, const void* edges, void* out, void* dout,
-               int rows, int ng, int warps, int n_tan, int device,
-               void* stream) {
+               int rows, int ng, int n_tan, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (rows <= 0) return 0;
-  if (ng < 1 || ng > kWarp || warps < 0 || warps > kMaxTanWarps ||
-      n_tan < 0) {
+  if (ng < 1 || ng > kWarp || n_tan < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // the widest shared load of a staged row: NG a multiple of it and both
@@ -945,8 +937,8 @@ int launch_tan(const void* a, const void* b, const void* da, const void* db,
         static_cast<const T*>(a), static_cast<const T*>(b),                 \
         static_cast<const T*>(da), static_cast<const T*>(db),               \
         static_cast<const T*>(w2), static_cast<const T*>(edges),            \
-        static_cast<T*>(out), static_cast<T*>(dout), rows, ng, warps,       \
-        n_tan, device, s);                                                  \
+        static_cast<T*>(out), static_cast<T*>(dout), rows, ng, n_tan,       \
+        device, s);                                                         \
   }
 #define TAN_CASES(VEC) \
   TAN_CASE(8, VEC) TAN_CASE(16, VEC) TAN_CASE(20, VEC) TAN_CASE(32, VEC)
@@ -964,35 +956,29 @@ int launch_tan(const void* a, const void* b, const void* da, const void* db,
 
 // Plain C entry points (bound with ctypes). Each launches on `stream`,
 // does not synchronise, and returns cudaGetLastError() after the launch.
-// The primal: `warps` warps of 32 rows per block (1 .. 16, or 0:
-// launch_primal's choice).
 extern "C" int overlap_combine_f32(const void* a, const void* b,
                                    const void* w2, const void* edges,
-                                   void* out, int rows, int ng, int warps,
-                                   int device, void* stream) {
-  return launch_primal<float>(a, b, w2, edges, out, rows, ng, warps, device,
-                              stream);
+                                   void* out, int rows, int ng, int device,
+                                   void* stream) {
+  return launch_primal<float>(a, b, w2, edges, out, rows, ng, device, stream);
 }
 
 extern "C" int overlap_combine_f64(const void* a, const void* b,
                                    const void* w2, const void* edges,
-                                   void* out, int rows, int ng, int warps,
-                                   int device, void* stream) {
-  return launch_primal<double>(a, b, w2, edges, out, rows, ng, warps, device,
+                                   void* out, int rows, int ng, int device,
+                                   void* stream) {
+  return launch_primal<double>(a, b, w2, edges, out, rows, ng, device,
                                stream);
 }
 
 // Fused primal + tangent combine: da, db and dout are (n_tan, rows, ng).
-// e_pad (the padded length of the pair-weight table) is not read: the
-// kernel reads w2[ia * ng + ib] only.
 extern "C" int overlap_combine_tan_f32(const void* a, const void* b,
                                        const void* da, const void* db,
                                        const void* w2, const void* edges,
                                        void* out, void* dout, int rows,
-                                       int ng, int e_pad, int n_tan,
-                                       int device, void* stream) {
-  (void)e_pad;
-  return launch_tan<float>(a, b, da, db, w2, edges, out, dout, rows, ng, 0,
+                                       int ng, int n_tan, int device,
+                                       void* stream) {
+  return launch_tan<float>(a, b, da, db, w2, edges, out, dout, rows, ng,
                            n_tan, device, stream);
 }
 
@@ -1000,27 +986,8 @@ extern "C" int overlap_combine_tan_f64(const void* a, const void* b,
                                        const void* da, const void* db,
                                        const void* w2, const void* edges,
                                        void* out, void* dout, int rows,
-                                       int ng, int e_pad, int n_tan,
-                                       int device, void* stream) {
-  (void)e_pad;
-  return launch_tan<double>(a, b, da, db, w2, edges, out, dout, rows, ng, 0,
-                            n_tan, device, stream);
-}
-
-// The same with `warps` rows per block (1 .. 8, or 0 as above) in place of
-// e_pad, for timing the choices.
-extern "C" int overlap_combine_tan_warps_f32(
-    const void* a, const void* b, const void* da, const void* db,
-    const void* w2, const void* edges, void* out, void* dout, int rows,
-    int ng, int warps, int n_tan, int device, void* stream) {
-  return launch_tan<float>(a, b, da, db, w2, edges, out, dout, rows, ng,
-                           warps, n_tan, device, stream);
-}
-
-extern "C" int overlap_combine_tan_warps_f64(
-    const void* a, const void* b, const void* da, const void* db,
-    const void* w2, const void* edges, void* out, void* dout, int rows,
-    int ng, int warps, int n_tan, int device, void* stream) {
+                                       int ng, int n_tan, int device,
+                                       void* stream) {
   return launch_tan<double>(a, b, da, db, w2, edges, out, dout, rows, ng,
-                            warps, n_tan, device, stream);
+                            n_tan, device, stream);
 }

@@ -53,11 +53,11 @@
 //
 // What bounds each mode on the card (chip_smoke.py:variant_bound_ms, which
 // counts what the mode's function needs): full and edges, the combine's
-// operations (chip_smoke.py:combine_ops_per_row); sortonly, the merge of NG
-// presorted runs of NG pair sums (operations) or the bytes, the larger;
-// rollonly, the bytes in and out. The row modes pay what kernel 1 pays
-// beyond that, the shared-memory pipe (overlap_combine.cu); rollonly moves
-// each byte once.
+// operations (nembench/harness/bounds.py:combine_ops_per_row); sortonly,
+// the merge of NG presorted runs of NG pair sums (operations) or the bytes,
+// the larger; rollonly, the bytes in and out. The row modes pay what kernel
+// 1 pays beyond that, the shared-memory pipe (overlap_combine.cu); rollonly
+// moves each byte once.
 
 #include "overlap_row.cuh"
 

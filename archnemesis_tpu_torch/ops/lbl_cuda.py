@@ -65,12 +65,6 @@ MAX_BLOCK_WIDTH = 512
 MAX_GRID_Y = 65535  # layers (times a vmapped batch) per launch
 # values of one (layer, line) record of the first pass
 RECORD_FIELDS = 8
-# the pair pass's waves per thread the kernel is built for (0: its
-# default); lineshapes other than Voigt take the default only
-VOIGT_WAVES_PER_THREAD = (1, 2, 4)
-# how the pair pass stages its record tiles: plain loads (the default) or
-# double-buffered cp.async (Voigt at the default waves per thread only)
-STAGING = {"loads": 0, "cp.async": 1}
 
 
 def build() -> dict:
@@ -84,7 +78,7 @@ def _library():
     lib = ctypes.CDLL(build()["path"])
     for suffix in _DTYPES.values():
         fn = getattr(lib, f"lbl_cross_section_{suffix}")
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                        + [ctypes.c_double] * 9 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -194,12 +188,9 @@ def _check_cuda_inputs(spec: LblSpec, t, p, amb):
         raise ValueError(f"unknown lineshape {spec.lineshape!r}")
 
 
-def _launch(spec: LblSpec, static: dict, t, p, amb, waves_per_thread=0,
-            staging="loads"):
+def _launch(spec: LblSpec, static: dict, t, p, amb):
     """One launch of the CUDA kernel with the packed ``static`` inputs on
-    (NLAY,) CUDA tensors; returns k (NWAVE, NLAY) in ``t``'s type.
-    ``waves_per_thread`` other than 0 (the kernel's default) and
-    ``staging`` other than plain loads are for chip_smoke.py's sweep."""
+    (NLAY,) CUDA tensors; returns k (NWAVE, NLAY) in ``t``'s type."""
     _check_cuda_inputs(spec, t, p, amb)
     ll, blocks = spec.ll, spec.blocks
     dtype, device = t.dtype, t.device
@@ -220,10 +211,8 @@ def _launch(spec: LblSpec, static: dict, t, p, amb, waves_per_thread=0,
              static["ranges"].data_ptr(), lay.data_ptr(), rec.data_ptr(),
              out.data_ptr(), ll.n_lines, blocks.n_blocks, blocks.block_width,
              blocks.n_wave, nlay, SHAPE_IDS[spec.lineshape],
-             int(static["twofloat"]), int(waves_per_thread),
-             STAGING[staging],
-             float(ll.t_ref), float(ll.p_ref), float(ll.mass),
-             float(spec.s_floor), float(spec.wn_calc_window),
+             int(static["twofloat"]), float(ll.t_ref), float(ll.p_ref),
+             float(ll.mass), float(spec.s_floor), float(spec.wn_calc_window),
              float(spec.wn_approx_window), float(spec.factor), C2_CGS,
              DOPPLER_CONST, device.index or 0, stream)
     if err != 0:

@@ -50,12 +50,6 @@ MAX_NG = 32  # NG lanes of one warp
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def e_pad(ng: int) -> int:
-    """Length of the padded pair-weight table (``_tables``): next power of
-    two of NG*NG, at least 32. The kernels read its first NG*NG values."""
-    return max(32, 1 << (ng * ng - 1).bit_length())
-
-
 def build() -> dict:
     """Compile the kernel library (once per source content) and return
     ``{"path", "seconds", "ptxas"}`` (``ops.cuda_build.build``)."""
@@ -67,27 +61,23 @@ def _library():
     lib = ctypes.CDLL(build()["path"])
     for suffix in _DTYPES.values():
         fn = getattr(lib, f"overlap_combine_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        for entry in ("tan", "tan_warps"):
-            fn = getattr(lib, f"overlap_combine_{entry}_{suffix}")
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+        fn = getattr(lib, f"overlap_combine_tan_{suffix}")
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=16)
 def _tables(del_g: tuple, dtype: torch.dtype, device: torch.device):
-    """Device copies of the padded pair weights and the bin edges for one
-    static del_g (built once per del_g, dtype and device)."""
-    ng = len(del_g)
-    w2 = np.zeros(e_pad(ng))
-    w2[: ng * ng] = pair_weights(del_g)
-    edges = g_bin_edges(del_g)
-    return (torch.as_tensor(w2, dtype=dtype, device=device),
-            torch.as_tensor(edges, dtype=dtype, device=device))
+    """Device copies of the NG*NG pair weights (by ia * NG + ib) and the
+    NG + 1 bin edges for one static del_g (built once per del_g, dtype and
+    device)."""
+    return (torch.as_tensor(pair_weights(del_g), dtype=dtype, device=device),
+            torch.as_tensor(g_bin_edges(del_g), dtype=dtype, device=device))
 
 
 def combine_pair_plain(tau_a, tau_b, del_g):
@@ -138,12 +128,11 @@ def _del_g_key(del_g) -> tuple:
     return tuple(float(x) for x in np.asarray(del_g, dtype=np.float64))
 
 
-def _combine_primal(tau_a, tau_b, del_g: tuple, warps: int = 0):
+def _combine_primal(tau_a, tau_b, del_g: tuple):
     """The primal combine on plain (not dual, not batched) tensors. On the
-    card one thread takes one row: ``warps`` warps per block (1 .. 16, so
-    32 to 512 rows), or with 0 the count that keeps the most rows resident
-    on an SM (``csrc/overlap_combine.cu:launch_primal``); a count whose
-    shared memory does not fit a block raises."""
+    card one thread takes one row, in blocks of the warp count that keeps
+    the most rows resident on an SM (``csrc/overlap_combine.cu:
+    launch_primal``)."""
     if tau_a.device.type == "cpu":
         return combine_pair_plain(tau_a, tau_b, del_g)
     if tau_a.device.type != "cuda":
@@ -156,7 +145,7 @@ def _combine_primal(tau_a, tau_b, del_g: tuple, warps: int = 0):
     fn = getattr(_library(), f"overlap_combine_{_DTYPES[tau_a.dtype]}")
     stream = torch.cuda.current_stream(tau_a.device).cuda_stream
     err = fn(tau_a.data_ptr(), tau_b.data_ptr(), w2.data_ptr(),
-             edges.data_ptr(), out.data_ptr(), rows, ng, warps,
+             edges.data_ptr(), out.data_ptr(), rows, ng,
              tau_a.device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"overlap_combine launch failed: CUDA error {err}")
@@ -164,11 +153,10 @@ def _combine_primal(tau_a, tau_b, del_g: tuple, warps: int = 0):
     return out
 
 
-def _combine_fused(tau_a, tau_b, dta, dtb, del_g: tuple, warps: int = 0):
+def _combine_fused(tau_a, tau_b, dta, dtb, del_g: tuple):
     """The fused combine on plain tensors; dta, dtb are (T, R, NG). On the
-    card ``warps`` rows per block (1 .. 8), or with 0 the count that keeps
-    the most rows resident on an SM (``csrc/overlap_combine.cu:
-    launch_tan_instance``)."""
+    card the rows per block are the count that keeps the most rows resident
+    on an SM (``csrc/overlap_combine.cu:launch_tan_instance``)."""
     combine_pair_with_tangents.calls += 1
     if tau_a.device.type == "cpu":
         return combine_pair_with_tangents_plain(tau_a, tau_b, dta, dtb, del_g)
@@ -180,15 +168,11 @@ def _combine_fused(tau_a, tau_b, dta, dtb, del_g: tuple, warps: int = 0):
     out = torch.empty_like(tau_a)
     dout = torch.empty_like(dta)
     rows = tau_a.shape[0]
-    # the "tan_warps" entry takes the rows per block where the other takes
-    # e_pad, which the kernel does not read
-    entry = "tan_warps" if warps else "tan"
-    fn = getattr(_library(),
-                 f"overlap_combine_{entry}_{_DTYPES[tau_a.dtype]}")
+    fn = getattr(_library(), f"overlap_combine_tan_{_DTYPES[tau_a.dtype]}")
     stream = torch.cuda.current_stream(tau_a.device).cuda_stream
     err = fn(tau_a.data_ptr(), tau_b.data_ptr(), dta.data_ptr(),
              dtb.data_ptr(), w2.data_ptr(), edges.data_ptr(), out.data_ptr(),
-             dout.data_ptr(), rows, ng, warps or e_pad(ng), dta.shape[0],
+             dout.data_ptr(), rows, ng, dta.shape[0],
              tau_a.device.index or 0, stream)
     if err != 0:
         raise RuntimeError(

@@ -29,9 +29,9 @@ without them. Phases, each of which fails the run on its own:
    float32 bound, which alone holds at NG=32: there the plain float32
    version's own error nears the bound. Both float32 versions' errors
    against float64 are printed. At full size two launches must give equal
-   bits, and the kernel is timed at 4, 8 and 16 warps per block (32 rows
-   a warp); then timed beside the plain version at R = 79,872, NG = 10
-   (the scattering headline's shape) and at the full size in float64;
+   bits; then the kernel is timed beside the plain version at R = 79,872,
+   NG = 10 (the scattering headline's shape) and at the full size in
+   float64;
 3. the golden deck (``tests/fixtures/jupiter_nadir``) read with the port's
    readers: float64 layer optical depths and convolved spectrum within
    rtol 1e-5 of ``tests/goldens/jupiter_nadir_fm.npz``; float32
@@ -56,9 +56,8 @@ without them. Phases, each of which fails the run on its own:
    and tie-free rows shuffled along g, whose tangents are held to the
    plain version as above. At T = 81, R = 39,689, NG = 20 in both types
    two launches and a launch replayed from a ``torch.cuda.CUDAGraph`` give
-   equal bits; the time beside the bound, the time of a launch with no
-   tangents beside kernel 1's, and the time per rows per block
-   (``TAN_WARP_CHOICES``);
+   equal bits; the time beside the bound, and the time of a launch with no
+   tangents beside kernel 1's;
 6. the retrieval on the card, through ``retrievals.make_retrieval_setup``
    and ``retrieval_nemesis`` with ``device="cuda"``: on ``jupiter_nadir``
    in float64 the a priori and measurement vector, ``forward_fn(XN)`` and
@@ -87,13 +86,9 @@ without them. Phases, each of which fails the run on its own:
    layers) two float32 launches equal bit for bit, float32 against the
    plain version and, on 2 layers, float64 against the plain float64
    version; the kernel's time beside its operation bound
-   (``lbl_bound_ms``; beside it the bound with the nested continued
-   fraction's operation count, as given before the ratio form), per waves
-   per thread (1, 2, 4) of the pair pass and per staging of its record
-   tiles (plain loads or double-buffered ``cp.async``, bit for bit), the
-   device times of its line and pair passes (``torch.profiler``), the
-   (block, line) class counts; the plain version's time over all 40
-   layers;
+   (``lbl_bound_ms``), the device times of its line and pair passes
+   (``torch.profiler``), the (block, line) class counts; the plain
+   version's time over all 40 layers;
 8. the runtime golden deck (``tests/fixtures/co_runtime``, copied with its
    line data pointed at the export) through ``load_deck``: float64 TAUGAS
    and SPECONV within rtol 1e-7 / 1e-6 of ``co_runtime_fm.npz``, float32
@@ -370,6 +365,16 @@ import time
 
 import numpy as np
 
+from nembench.harness import bounds as bench_bounds
+from nembench.harness import tangent_bounds
+from nembench.harness.bounds import (
+    PEAK_BYTES_S,
+    PEAK_F32_OPS_S,
+    PEAK_F64_OPS_S,
+    combine_ops_per_row,
+)
+from nembench.harness.tangent_bounds import tangent_ops_per_row
+
 LAYER_GOLDEN = "tests/goldens/jupiter_layering.npz"
 FM_GOLDEN = "tests/goldens/jupiter_nadir_fm.npz"
 DECK = "tests/fixtures/jupiter_nadir"
@@ -384,13 +389,6 @@ LINEDATA_NPZ = "archnemesis_tpu_torch/data/CO_1_ambient_AIR.npz"
 CO_LBL_GOLDEN = "tests/goldens/co_lbl.npz"
 CO_RUNTIME = "tests/fixtures/co_runtime"
 CO_RUNTIME_GOLDEN = "tests/goldens/co_runtime_fm.npz"
-
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and
-# float32 operations/s outside the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_OPS_S = 67e12
-# float64 outside the tensor cores (the same data sheet: 34 TFLOP/s)
-PEAK_F64_OPS_S = 34e12
 
 F32_BOUNDS = (1.0e-4, 1.0e-5)  # max / median relative error vs float64
 # largest float32-vs-float64 error of the Jacobian relative to each
@@ -418,8 +416,6 @@ LBL_KERNEL_RUNS = 10
 LBL_COMPARE_LAYERS = (0, 39)
 # the retrieval's pair combine: 559 waves x 71 layers, 81 state elements
 TAN_ROWS, TAN_NTAN = 39_689, 81
-# the fused kernel's rows per block, timed at the retrieval's shape
-TAN_WARP_CHOICES = (4, 8)
 
 
 def rel_err(a, b):
@@ -459,12 +455,10 @@ def tiefree_overlap_inputs(rows: int, ng: int, seed: int) -> tuple:
     return a * 2.0**-16, b * 2.0**-16
 
 
-# rows of the hard cases of phase 2: not a multiple of any rows-per-block
-# choice of the primal kernel, so the last block is ragged
+# rows of the hard cases of phase 2: odd, so that no block of a
+# power-of-two number of rows divides them and the last block is ragged
 HARD_ROWS = 4099
 HARD_NGS = (1, 2, 3, 7, 20, 31, 32)
-# the primal kernel's rows per block, timed at the headline shape
-PRIMAL_WARP_CHOICES = (4, 8, 16)
 
 
 def combine_cases(rows: int, ng: int, seed: int) -> dict:
@@ -495,37 +489,13 @@ def _ceil_log2(x: int) -> int:
     return (x - 1).bit_length()
 
 
-def combine_ops_per_row(ng: int, presorted: bool) -> int:
-    """Operations one row of the combine needs (not the kernel's own
-    count): the n = NG^2 pair sums; the sort of the n keys, one comparison
-    each: a merge of the NG presorted runs of NG keys (n ceil(log2 NG)) when
-    both inputs are sorted along g, else a merge sort (n ceil(log2 n)); the
-    n-step prefix sum; the rebin, 7 operations (a min, a max, a subtraction,
-    a clamp, a multiply-add (2), an add) per (element, bin) overlap, of
-    which there are at most n + NG - 1, since the elements tile [0, 1] end
-    to end and each of the NG - 1 inner bin edges splits at most one; NG
-    divisions."""
-    n = ng * ng
-    sort = n * _ceil_log2(ng if presorted else n)
-    return n + sort + n + 7 * (n + ng - 1) + ng
-
-
 def combine_bound_ms(rows: int, ng: int, itemsize: int,
                      presorted: bool) -> tuple:
-    """(bound_ms, bound_by) of one combine on an H100: the larger of its
-    bytes (two inputs read, one output written) over HBM bandwidth and
-    its operations over the float32 peak."""
-    bytes_ms = 3 * rows * ng * itemsize / PEAK_BYTES_S * 1e3
+    """(bound_ms, bound_by) of one combine on an H100
+    (``nembench.harness.bounds.combine_bound_ms``)."""
+    ms = bench_bounds.combine_bound_ms(rows, ng, itemsize, presorted)
     ops_ms = rows * combine_ops_per_row(ng, presorted) / PEAK_F32_OPS_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
-def tangent_ops_per_row(ng: int) -> int:
-    """Operations one row needs per tangent pair beyond the primal's: the
-    n = NG^2 sums da[ia] + db[ib], a multiply-add (2) per (element, bin)
-    overlap (at most n + NG - 1), and NG scalings by 1 / den."""
-    n = ng * ng
-    return n + 2 * (n + ng - 1) + ng
+    return ms, ("operations" if ms == ops_ms else "bytes")
 
 
 def tangent_f32_tol(del_g) -> float:
@@ -539,15 +509,12 @@ def tangent_f32_tol(del_g) -> float:
 def fused_bound_ms(rows: int, ng: int, n_tan: int, itemsize: int,
                    presorted: bool) -> tuple:
     """(bound_ms, bound_by) of one fused primal + tangent combine on an
-    H100: the larger of its bytes (the primal's three (R, NG) arrays plus
-    two (T, R, NG) reads and one write) over HBM bandwidth and its
-    operations (the primal's plus ``tangent_ops_per_row`` per tangent) over
-    the peak rate of its type."""
-    bytes_ms = 3 * (1 + n_tan) * rows * ng * itemsize / PEAK_BYTES_S * 1e3
-    peak = PEAK_F32_OPS_S if itemsize == 4 else PEAK_F64_OPS_S
-    ops = combine_ops_per_row(ng, presorted) + n_tan * tangent_ops_per_row(ng)
-    ops_ms = rows * ops / peak * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    H100 (``nembench.harness.tangent_bounds.fused_combine_bound_ms``)."""
+    ms = tangent_bounds.fused_combine_bound_ms(rows, ng, n_tan, itemsize,
+                                               presorted)
+    bytes_ms = (tangent_bounds.fused_combine_bytes(rows, ng, n_tan, itemsize)
+                / PEAK_BYTES_S * 1e3)
+    return ms, ("bytes" if ms == bytes_ms else "operations")
 
 
 def is_sorted_along_g(*taus) -> bool:
@@ -776,7 +743,6 @@ def phase_kernel_vs_plain():
     """Kernel vs plain on the card; returns the headline-shape record."""
     import torch
 
-    from archnemesis_tpu_torch.ops import overlap_cuda
     from archnemesis_tpu_torch.ops.overlap_cuda import (
         combine_pair,
         combine_pair_plain,
@@ -814,12 +780,6 @@ def phase_kernel_vs_plain():
                    f"{bound_ms:.4f} ms ({bound_by}; "
                    f"{combine_ops_per_row(ng, presorted)} ops/row, inputs "
                    f"{'' if presorted else 'not '}sorted along g)")
-            key = tuple(float(x) for x in del_g)
-            by_warps = {w: _cuda_ms(lambda w=w: overlap_cuda._combine_primal(
-                a, b, key, warps=w), reps=20) for w in PRIMAL_WARP_CHOICES}
-            _print("combine by warps per block: " + ", ".join(
-                f"{w}: {t:.4f} ms" for w, t in by_warps.items())
-                + " (the wrapper lets the launch choose)")
     for rows, ng, dtype in COMBINE_TIMED:
         _time_combine(rows, ng, dtype)
 
@@ -1007,7 +967,6 @@ def phase_tangent_kernel_vs_plain():
     float32 record at the retrieval's shape."""
     import torch
 
-    from archnemesis_tpu_torch.ops import overlap_cuda
     from archnemesis_tpu_torch.ops.overlap_cuda import (
         combine_pair,
         combine_pair_with_tangents,
@@ -1095,14 +1054,6 @@ def phase_tangent_kernel_vs_plain():
                    f"(kernel 1 alone {kernel1_ms:.4f} ms); T={n_tan} less "
                    f"T=0 {ms - merge_ms:.4f} ms against {tan_bytes_ms:.4f} "
                    "ms for the tangents' bytes")
-            key = tuple(float(x) for x in del_g)
-            by_warps = {w: _cuda_ms(lambda w=w: overlap_cuda._combine_fused(
-                a, b, da, db, key, warps=w), reps=10)
-                for w in TAN_WARP_CHOICES}
-            _print(f"fused combine by rows per block, {dtype}: " + ", ".join(
-                f"{w}: {t:.4f} ms" for w, t in by_warps.items())
-                + f" (bound {bound_ms:.4f} ms; the wrapper lets the launch "
-                "choose)")
             if dtype == torch.float32:
                 record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by)
@@ -1336,102 +1287,40 @@ def phase_retrieval(profile: bool = False):
 
 # ---- runtime line-by-line slice ------------------------------------------
 
-# Operations the line-by-line synthesis needs (not the kernel's own count),
-# counting an exp, a pow, a sqrt and a division as one operation each.
-# Re w(z) by the Weideman-24 expansion: the two shifted arguments (2), |.|^2
-# (3), the reciprocal (2 divisions, 1 negation), the Moebius map (6), 23
-# complex Horner steps of 4 multiplies and 3 adds (161), the last product
-# (6), the doubling and offset (4), the real part of the final product (3).
-LBL_OPS_WEIDEMAN = 188
-# Re w(z) by the 6-convergent continued fraction as the ratio of two
-# polynomials in t = 1/z^2 (the float32 kernel's form, ops/voigt.py:
-# cf_ratio_re; |z|^2 comes from the branch test): 1/|z|^2 (1), 1/z (2),
-# t = (1/z)^2 (5), the two cubics' leading steps with real coefficients (3
-# each) and their two complex Horner steps each (4 x 7), p5 / z (6), the
-# imaginary part of p5 conj(p6) / z (3), |p6|^2 (3), its reciprocal (1) and
-# the scaling (2).
-LBL_OPS_CF = 57
-# the nested form's count (per convergent |d|^2 (3), its reciprocal (1), the
-# two updates (3 each); then |d|^2, a multiply and a division (5)), in
-# which the bound was given before the ratio form; printed beside it so
-# that times compare with earlier runs
-LBL_OPS_CF_NESTED = 65
-# every (line, wave) pair inside the window: the delta (4 with two floats,
-# 1 in float64), two window tests (4 compares), the weighted add (2)
-LBL_OPS_PAIR_F32, LBL_OPS_PAIR_F64 = 10, 7
-# a core pair beyond Re w: x = delta * scale, the float32 branch test
-# |z|^2 > 49 (4), the normalisation (3 multiplies)
-LBL_OPS_CORE_F32, LBL_OPS_CORE_F64 = 8, 4
-# a wing pair beyond the above: delta^2 and a division
-LBL_OPS_WING = 2
-# per (layer, line): Boltzmann factor (2), stimulated emission (4), the
-# strength (4), the Doppler width (2), the Lorentz width (2 pows, 6), the
-# shift (2), the lineshape's two parameters (2), the s_floor test (1), and
-# the wing value f(wn_calc) wn_calc^2 (the continued fraction in float32,
-# the expansion in float64, plus 9)
-LBL_OPS_LINE = 25
-
-
-def lbl_pair_counts(ll, blocks, t, p, amb, wn_calc=25.0, wn_approx=75.0):
-    """(core_cf, core_weideman, wing, lines) pair counts of one synthesis,
-    from its inputs: for each (layer, line) of non-zero strength, the waves
-    within wn_calc of the shifted centre (split at |z|^2 = 49), and those
-    between wn_calc and wn_approx. t, p [atm], amb: (NLAY,) float64."""
+def _lbl_bound_inputs(ll, blocks, t, p, amb) -> tuple:
+    """What ``nembench.harness.bounds.lbl_pair_counts`` takes before the
+    windows: the line centres, the (NLAY, NLINE) strengths, widths and
+    shifts at (NLAY,) float64 t, p [atm] and amb, and the wave grid."""
     import torch
 
     from archnemesis_tpu_torch.ops.lbl import layer_line_params
 
-    s, alpha, gamma, shift = (x.numpy() for x in layer_line_params(
+    params = (x.numpy() for x in layer_line_params(
         ll, *(torch.as_tensor(np.asarray(x, dtype=np.float64))
               for x in (t, p, amb))))
-    wave = blocks.wn_pad[:blocks.n_wave]
-    ctr = ll.nu[None, :] + shift
-    live = s > 0
-
-    def within(half):
-        """waves with |wave - ctr| < half (clipped to the window)"""
-        lo = np.searchsorted(wave, ctr - half, side="left")
-        hi = np.searchsorted(wave, ctr + half, side="left")
-        return np.where(live, hi - lo, 0)
-
-    core, full = within(wn_calc), within(wn_approx)
-    scale = np.sqrt(np.log(2.0)) / alpha
-    y = gamma * scale
-    half_w = np.where(y < 7.0, np.sqrt(np.maximum(49.0 - y * y, 0.0)) / scale,
-                      0.0)
-    weid = np.minimum(within(half_w), core)
-    return (int((core - weid).sum()), int(weid.sum()), int((full - core).sum()),
-            int(live.sum()))
+    return (ll.nu, *params, blocks.wn_pad[:blocks.n_wave])
 
 
-def lbl_bound_ms(ll, blocks, t, p, amb, itemsize: int,
-                 cf_ops: int = LBL_OPS_CF) -> tuple:
-    """(bound_ms, bound_by, ops) of one synthesis on an H100: the larger of
-    its bytes (the ten line columns, the wave grid's two parts, the block
-    ranges and the layer scalars read once, k written once) over HBM
-    bandwidth and the operations these inputs need over the peak rate of
-    the type. In float32 a core pair takes the continued fraction
-    (``cf_ops`` operations) where |z|^2 > 49 and the Weideman expansion
-    elsewhere; float64 takes the expansion everywhere."""
-    cf, weid, wing, lines = lbl_pair_counts(ll, blocks, t, p, amb)
-    nlay = len(t)
-    if itemsize == 4:
-        pair, core, peak, line_w = (LBL_OPS_PAIR_F32, LBL_OPS_CORE_F32,
-                                    PEAK_F32_OPS_S, cf_ops)
-        ops = (cf * (pair + core + cf_ops)
-               + weid * (pair + core + LBL_OPS_WEIDEMAN))
-    else:
-        pair, core, peak, line_w = (LBL_OPS_PAIR_F64, LBL_OPS_CORE_F64,
-                                    PEAK_F64_OPS_S, LBL_OPS_WEIDEMAN)
-        ops = (cf + weid) * (pair + core + LBL_OPS_WEIDEMAN)
-    ops += wing * (pair + LBL_OPS_WING) + lines * (LBL_OPS_LINE + line_w)
-    nbytes = itemsize * (10 * ll.n_lines + 2 * blocks.wn_pad.size
-                         + 4 * nlay + blocks.n_wave * nlay) + 8 * blocks.n_blocks
-    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-    ops_ms = ops / peak * 1e3
-    if ops_ms >= bytes_ms:
-        return ops_ms, "operations", ops
-    return bytes_ms, "bytes", ops
+def lbl_pair_counts(ll, blocks, t, p, amb, wn_calc=25.0, wn_approx=75.0):
+    """(core_cf, core_weideman, wing, lines) pair counts of one synthesis,
+    from its inputs (``nembench.harness.bounds.lbl_pair_counts``)."""
+    return bench_bounds.lbl_pair_counts(
+        *_lbl_bound_inputs(ll, blocks, t, p, amb), wn_calc, wn_approx)
+
+
+def lbl_bound_ms(ll, blocks, t, p, amb, itemsize: int) -> tuple:
+    """(bound_ms, bound_by, ops) of one synthesis on an H100 at the 25 and
+    75 cm-1 windows (``nembench.harness.bounds.lbl_bound_ms``); ``ops``:
+    the operations that take ``bound_ms`` at the peak of the type, the
+    synthesis's own count where they bound it."""
+    nu, s, *rest = _lbl_bound_inputs(ll, blocks, t, p, amb)
+    ms = bench_bounds.lbl_bound_ms(nu, s, *rest, 25.0, 75.0, itemsize)
+    # no line of non-zero strength needs an operation: the bytes' bound
+    bytes_ms = bench_bounds.lbl_bound_ms(nu, np.zeros_like(s), *rest, 25.0,
+                                         75.0, itemsize)
+    peak = PEAK_F32_OPS_S if itemsize == 4 else PEAK_F64_OPS_S
+    return (ms, "operations" if ms > bytes_ms else "bytes",
+            ms * 1e-3 * peak)
 
 
 # the pressure-shift case of phase 7: ambient shifts of +-0.95 cm-1/atm
@@ -1691,31 +1580,6 @@ def phase_lbl_kernel_vs_plain():
         raise AssertionError("two full-width launches differ")
     ms = _cuda_ms(kernel, reps=LBL_KERNEL_RUNS)
     state = (t32, p32, amb32)
-    sweep = {}
-    for v in lbl_cuda.VOIGT_WAVES_PER_THREAD:
-        k_v = lbl_cuda._launch(spec, static, *state, waves_per_thread=v)
-        _lbl_f32_check(k_v, k32.double(), f"{v} waves per thread, against "
-                       "the default")
-        sweep[v] = (_cuda_ms(lambda: lbl_cuda._launch(
-            spec, static, *state, waves_per_thread=v), reps=LBL_KERNEL_RUNS),
-            torch.equal(k_v, k32))
-    _print("full width by waves per thread: " + ", ".join(
-        f"{v}: {t_ms:.4f} ms (bits equal the default launch's: {eq})"
-        for v, (t_ms, eq) in sweep.items()))
-    # how the pair pass stages its record tiles, timed in turns
-    staging = {name: [] for name in lbl_cuda.STAGING}
-    for name in staging:
-        k_s = lbl_cuda._launch(spec, static, *state, staging=name)
-        if not torch.equal(k_s, k32):
-            raise AssertionError(f"{name} staging changes the bits")
-    for _ in range(3):
-        for name, t_s in staging.items():
-            t_s.append(_cuda_ms(lambda: lbl_cuda._launch(
-                spec, static, *state, staging=name), reps=LBL_KERNEL_RUNS))
-    _print("full width by staging of the record tiles (3 turns, bits equal "
-           "the default launch's): " + "; ".join(
-               f"{name}: " + " / ".join(f"{t_ms:.4f}" for t_ms in t_s)
-               + " ms" for name, t_s in staging.items()))
     # the two passes' device times (the line pass alone is too short for
     # events around its launches, which would time the host)
     by_kernel = kernel_device_ms(kernel)
@@ -1738,14 +1602,11 @@ def phase_lbl_kernel_vs_plain():
     del k64, plain64
     host = [x.double().cpu().numpy() for x in (t32, p32, amb32)]
     bound_ms, bound_by, ops = lbl_bound_ms(lls, blk, *host, itemsize=4)
-    nested_ms = lbl_bound_ms(lls, blk, *host, itemsize=4,
-                             cf_ops=LBL_OPS_CF_NESTED)[0]
     cf, weid, wing, lines = lbl_pair_counts(lls, blk, *host)
     _print(f"lbl_cross_section at {blk.n_wave} waves x {lls.n_lines} lines x "
            f"{len(t32)} layers, float32: kernel {ms:.4f} ms, plain "
            f"{plain_ms:.4f} ms (all {len(t32)} layers, one call), bound "
-           f"{bound_ms:.4f} ms (with the nested fraction's count: "
-           f"{nested_ms:.4f} ms) ({bound_by}; {ops:.4e} operations: "
+           f"{bound_ms:.4f} ms ({bound_by}; {ops:.4e} operations: "
            f"{cf:.4e} continued-fraction and {weid:.4e} Weideman core pairs, "
            f"{wing:.4e} wing pairs, {lines} (layer, line) terms); "
            f"max_abs_err {err:.3e}")
@@ -2342,14 +2203,12 @@ def phase_sharded_lbl(profile: bool = False):
                    f"per shard, all {len(state[0])} layers")
     del plain
 
-    shard_ms, bounds, nested_ms = [], [], 0.0
+    shard_ms, bounds = [], []
     for s, spec in zip(sh.shards, specs):
         ms = _cuda_ms(lambda: lbl_cuda.lbl_kernel_packed(spec, *state),
                       reps=5)
         bound_ms, bound_by, ops = lbl_bound_ms(spec.ll, spec.blocks,
                                                *host_state, itemsize=4)
-        nested_ms += lbl_bound_ms(spec.ll, spec.blocks, *host_state,
-                                  itemsize=4, cf_ops=LBL_OPS_CF_NESTED)[0]
         shard_ms.append(ms)
         bounds.append((bound_ms, bound_by, ops))
         halo = int(sh.line_hi[s] - sh.line_lo[s])
@@ -2371,8 +2230,7 @@ def phase_sharded_lbl(profile: bool = False):
     pad_waves = sh.n_shards * sh.blocks_per_shard * sh.block_width - sh.n_wave
     _print(f"sharded synthesis: {N_SHARDS} launches, {total_ms:.4f} ms "
            f"({sum(shard_ms):.4f} ms over the launches timed one by one), "
-           f"bound {bound_ms:.4f} ms ({sh_ops:.4e} operations; the nested "
-           f"fraction's count {nested_ms:.4f} ms); unsharded "
+           f"bound {bound_ms:.4f} ms ({sh_ops:.4e} operations); unsharded "
            f"kernel {un_ms:.4f} ms, bound {un_bound:.4f} ms ({un_ops:.4e}); "
            f"the halo and the {pad_waves} pad waves add {sh_ops - un_ops:.4e} "
            f"operations; plain {plain_ms:.1f} ms per shard in all")

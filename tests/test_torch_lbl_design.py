@@ -7,8 +7,8 @@ pair; the plain float32 version against float64 in the pressure-shift
 case; a runtime deck's packing of the kernel's static inputs once per
 (gas, dtype, device). The kernel itself is held to the plain version on
 the card (``cuda`` marker; skipped here): at block widths 1, 200 and 512,
-in the pressure-shift case, two launches and both stagings bit for bit,
-and the packed entry against the unsharded one.
+in the pressure-shift case, two launches bit for bit, and the packed entry
+against the unsharded one.
 """
 
 import dataclasses
@@ -280,8 +280,8 @@ def test_kernel_matches_plain_at_widths(cuda, co_lines, width, shift):
 @pytest.mark.cuda
 def test_two_launches_equal_bits_and_packed_equals_unsharded(cuda, co_lines):
     """Two float32 launches on inputs packed once give the same bits, and
-    the unsharded entry without packed inputs, the cp.async staging and
-    the packed (wave-shard) entry give them too."""
+    the unsharded entry without packed inputs and the packed (wave-shard)
+    entry give them too."""
     wave = np.load(CO_LBL_GOLDEN)["WAVE"]
     blocks = build_blocks(wave, co_lines.nu)
     t, p, amb = (torch.tensor(v, dtype=torch.float32, device=cuda)
@@ -294,10 +294,7 @@ def test_two_launches_equal_bits_and_packed_equals_unsharded(cuda, co_lines):
     assert torch.equal(a, b)
     assert torch.equal(lbl_cuda.lbl_cross_section(co_lines, blocks, t, p,
                                                   amb), a)
-    static = kept[(torch.float32, t.device)]
     spec = lbl_cuda.make_spec(co_lines, blocks)
-    assert torch.equal(
-        lbl_cuda._launch(spec, static, t, p, amb, staging="cp.async"), a)
     packed = dataclasses.replace(spec, packed=kept)
     launches = lbl_cuda.lbl_kernel_packed.launches
     assert torch.equal(lbl_cuda.lbl_kernel_packed(packed, t, p, amb), a)

@@ -89,10 +89,8 @@ def test_combine_cases_are_what_they_say():
     pairs = (a[half:, :, None] + b[half:, None, :]).reshape(half + 1, -1)
     assert all(len(np.unique(p)) < ng * ng // 2 for p in pairs)
     assert not cases["zeros"][0].any() and not cases["zeros"][1].any()
-    # no rows-per-block choice of the primal or the fused kernel divides
-    # the row count
-    assert all(chip_smoke.HARD_ROWS % w for w in
-               chip_smoke.PRIMAL_WARP_CHOICES + chip_smoke.TAN_WARP_CHOICES)
+    # odd: no block of a power-of-two number of rows divides the row count
+    assert chip_smoke.HARD_ROWS % 2 == 1
 
 
 @pytest.mark.parametrize("ng", [10, 20])
@@ -151,10 +149,21 @@ def test_mix_gas_k_single_gas_is_scaled_k(mix_case):
         got.numpy(), k_gas[..., 0] * amounts[0][None, None, :])
 
 
-@pytest.mark.parametrize("ng,e", [(1, 32), (4, 32), (6, 64), (10, 128),
-                                  (16, 256), (20, 512), (32, 1024)])
-def test_e_pad(ng, e):
-    assert overlap_cuda.e_pad(ng) == e
+@pytest.mark.parametrize("ng", [1, 4, 6, 10, 16, 20, 32])
+def test_pair_tables_hold_the_weights_and_edges(ng):
+    """The kernels' tables: exactly NG*NG pair weights by ia * NG + ib and
+    the NG + 1 bin edges, in the kernel's type."""
+    del_g = tuple(float(x) for x in gauss_del_g(ng))
+    for dtype in (torch.float32, torch.float64):
+        w2, edges = overlap_cuda._tables(del_g, dtype, torch.device("cpu"))
+        assert w2.dtype == edges.dtype == dtype
+        assert w2.shape == (ng * ng,) and edges.shape == (ng + 1,)
+        torch.testing.assert_close(
+            w2, torch.as_tensor(overlap.pair_weights(del_g), dtype=dtype),
+            rtol=0, atol=0)
+        torch.testing.assert_close(
+            edges, torch.as_tensor(overlap.g_bin_edges(del_g), dtype=dtype),
+            rtol=0, atol=0)
 
 
 def test_g_bin_edges_match_jax():
@@ -446,7 +455,7 @@ def test_primal_kernel_equals_tangent_kernel_primal_on_hard_rows(cuda, ng,
     """Kernel 1 (a row a thread) gives the fused kernel's primal (a row a
     warp) bit for bit on rows unsorted along g, tied and zero, at every NG
     class; 4,099 and 33 rows leave the last block ragged at the launch's
-    block size and at 32 rows a block."""
+    block size."""
     del_g = gauss_del_g(ng)
     key = tuple(float(x) for x in del_g)
     for rows in (chip_smoke.HARD_ROWS, 33):
@@ -454,12 +463,10 @@ def test_primal_kernel_equals_tangent_kernel_primal_on_hard_rows(cuda, ng,
                                                        seed=ng).items():
             a = torch.as_tensor(ta, dtype=dtype, device=cuda)
             b = torch.as_tensor(tb, dtype=dtype, device=cuda)
-            want = _tangent_kernel_primal(a, b, del_g)
-            for warps in (0, 1):
-                got = overlap_cuda._combine_primal(a, b, key, warps=warps)
-                torch.testing.assert_close(got, want, rtol=0, atol=0,
-                                           msg=f"{name} rows={rows} "
-                                           f"warps={warps}")
+            torch.testing.assert_close(
+                overlap_cuda._combine_primal(a, b, key),
+                _tangent_kernel_primal(a, b, del_g), rtol=0, atol=0,
+                msg=f"{name} rows={rows}")
 
 
 @pytest.mark.cuda
@@ -478,22 +485,19 @@ def test_primal_kernel_equals_tangent_kernel_primal_on_wide_bins(cuda,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("warps", chip_smoke.PRIMAL_WARP_CHOICES)
-def test_kernel_launches_give_equal_bits(cuda, warps):
-    """No atomics: two launches on the same input give the same bits, and
-    the rows per block change nothing."""
+def test_kernel_launches_give_equal_bits(cuda):
+    """No atomics: two launches on the same input give the same bits."""
     ng = 20
     del_g = gauss_del_g(ng)
     ta, tb = overlap_inputs(20_000, ng, seed=1)
     a = torch.as_tensor(ta, dtype=torch.float32, device=cuda)
     b = torch.as_tensor(tb, dtype=torch.float32, device=cuda)
     key = tuple(float(x) for x in del_g)
-    first = overlap_cuda._combine_primal(a, b, key, warps=warps)
+    first = overlap_cuda._combine_primal(a, b, key)
     torch.testing.assert_close(first, overlap_cuda.combine_pair(a, b, del_g),
                                rtol=0, atol=0)
-    torch.testing.assert_close(
-        first, overlap_cuda._combine_primal(a, b, key, warps=warps),
-        rtol=0, atol=0)
+    torch.testing.assert_close(first, overlap_cuda._combine_primal(a, b, key),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.cuda
