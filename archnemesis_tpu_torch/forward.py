@@ -46,6 +46,8 @@ from archnemesis_tpu_torch.ops.pseudo_continuum import pseudo_continuum_k
 from archnemesis_tpu_torch.ops.rayleigh import rayleigh_tau
 from archnemesis_tpu_torch.rt.emission import (
     absorption_spectrum,
+    ground_radiance,
+    path_emission_spectrum,
     thermal_emission_spectrum,
     transmission_spectrum,
 )
@@ -395,6 +397,20 @@ def layer_optical_depths(
     }
 
 
+def _emission_tangents(tautot, path, tsurf, emissivity, wave,
+                       del_g) -> bool:
+    """Whether the thermal emission runs under forward-mode tangents that
+    ``rt/emission.py:path_emission_spectrum`` takes: a tangent on the
+    optical depths, the path's scale or temperatures, or the surface, and
+    none on the mask, the wave grid or the g weights."""
+    def tensors(*xs):
+        return [x for x in xs if isinstance(x, torch.Tensor)]
+
+    return (has_tangent(*tensors(tautot, path.scale, path.emtemp, tsurf,
+                                 emissivity))
+            and not has_tangent(*tensors(path.mask, wave, del_g)))
+
+
 def path_spectrum(
     cfg: ForwardConfig,
     wave,
@@ -409,12 +425,14 @@ def path_spectrum(
 
     ``emission_layer``: optional (NWAVE, NLAY) non-LTE per-layer emitted
     radiance (``ops.emissions.layer_emission``), gathered onto the path as
-    tau is (reference EMITOT_LAYINC ForwardModel_0.py:4095)."""
-    with annotate("nemesis.spectrum"):
-        tau_layinc = (
-            tautot[:, :, path.layinc] * path.scale[None, None, :, :]
-        )  # (NWAVE, NG, NLAYIN, NPATH)
+    tau is (reference EMITOT_LAYINC ForwardModel_0.py:4095).
 
+    The thermal emission under forward-mode tangents (``jvp``, ``jacfwd``,
+    with or without a ``vmap`` over locations) and without
+    ``emission_layer`` goes through ``rt/emission.py:
+    path_emission_spectrum``: the same primal, and one tangent kernel for
+    all tangents (``_emission_tangents`` says when)."""
+    with annotate("nemesis.spectrum"):
         if PathCalc.THERMAL_EMISSION in path.imod:
             if surf is not None and not cfg.gasgiant:
                 emissivity = interp1d_extrap(surf.vem, surf.emissivity, wave)
@@ -422,6 +440,21 @@ def path_spectrum(
             else:
                 emissivity = torch.zeros_like(wave)
                 tsurf = wave.new_tensor(-1.0)
+            if emission_layer is None and _emission_tangents(
+                    tautot, path, tsurf, emissivity, wave, del_g):
+                radground = None
+                if path.surface_visible:
+                    radground = ground_radiance(
+                        wave, path.emtemp, tsurf, emissivity, cfg.gasgiant,
+                        cfg.ispace).expand(wave.shape[0], path.npath)
+                return path_emission_spectrum(
+                    wave, tautot, path.layinc, path.scale, path.mask,
+                    path.emtemp, radground, del_g, cfg.ispace)
+        tau_layinc = (
+            tautot[:, :, path.layinc] * path.scale[None, None, :, :]
+        )  # (NWAVE, NG, NLAYIN, NPATH)
+
+        if PathCalc.THERMAL_EMISSION in path.imod:
             emission_path = None
             if emission_layer is not None:
                 # (NWAVE, NLAYIN, NPATH)

@@ -24,3 +24,12 @@ def planck(wave, temp, ispace=0):
         y = 1.0e4 / wave
         a = C1 * y**5 / 1.0e4
     return a / (torch.exp(C2 * y / temp) - 1.0)
+
+
+def planck_slope(wave, temp, ispace=0):
+    """(B, dB/dT): ``planck`` and its slope in temperature, broadcast over
+    ``wave`` and ``temp``."""
+    y = wave if ispace == 0 else 1.0e4 / wave
+    x = C2 * y / temp
+    b = planck(wave, temp, ispace)
+    return b, b * (x / temp) / (-torch.expm1(-x))

@@ -327,7 +327,16 @@ without them. Phases, each of which fails the run on its own:
     the sum of its three terms' magnitudes; ``skip_rows_`` at R =
     581,632, NG = 20, T = 86 with a seventh of the rows skipped for a and
     a fifth for b, bit for bit; each timed beside its plain version and
-    its bound (``gas_tau_tangent_bound_ms``, ``skip_rows_bound_ms``);
+    its bound (``gas_tau_tangent_bound_ms``, ``skip_rows_bound_ms``); the
+    evaluation makes 1 launch of ``emission_tangent`` too, which then runs
+    at the cell's width (``emission_tangent_case``: T = 86, 8192 waves x
+    20 g x 71 layers, the tangent as the random overlap lays it out) in
+    float32 against the plain version in float64 (each tangent within
+    ``EMISSION_F32_REL`` of its peak, the plain version in float32 printed
+    beside it), timed beside the plain version in float32 and its bound
+    (``emission_tangent_bound_ms``); phases 6, 18, 19 and 24 count 1
+    launch an evaluation of jupiter_nadir, models_nadir, the limb and
+    model 1002, and print the disc's;
 28. the layering and path as CUDA graphs ("layer graph",
     ``rt/layer_graph.py``): at the layouts of both forward cells of the
     benchmark (``synthetic.headline_deck``'s and ``lbl_headline``'s
@@ -1138,6 +1147,16 @@ def _fused_launches(fn):
     return out, combine_pair_with_tangents.launches
 
 
+def _jacobian_launches(fn):
+    """(result of fn(), kernel-1t launches, ``emission_tangent`` launches
+    it made), each counted from 0."""
+    from archnemesis_tpu_torch.ops.tangent_cuda import emission_tangent
+
+    emission_tangent.launches = 0
+    out, fused = _fused_launches(fn)
+    return out, fused, emission_tangent.launches
+
+
 def copy_deck(src: str, base: str) -> str:
     """A copy of a deck under ``base`` with the shared k-tables linked
     beside it (its .kls names them by relative path)."""
@@ -1181,10 +1200,11 @@ def phase_retrieval(profile: bool = False):
 
     # the main path of this slice, counted on its own: one
     # forward-plus-Jacobian evaluation, all 81 tangents in one pass
-    (yn64, kk64), launches = _fused_launches(
+    (yn64, kk64), launches, emission = _jacobian_launches(
         lambda: forward_and_jacobian(s64.forward_fn, xn))
-    if launches != 6:
-        raise AssertionError(f"{launches} fused launches, expected 6")
+    if (launches, emission) != (6, 1):
+        raise AssertionError(f"{launches} fused and {emission} emission "
+                             "tangent launches, expected 6 and 1")
     if kk64.shape != (ny, nx) or not torch.isfinite(kk64).all():
         raise AssertionError(f"Jacobian not finite ({ny}, {nx})")
     np.testing.assert_allclose(
@@ -1194,7 +1214,8 @@ def phase_retrieval(profile: bool = False):
     _print(f"jupiter_nadir float64 on the card (NX={nx}, NY={ny}): a priori "
            "and measurement vector equal the golden; forward_fn(XN) within "
            "5e-5 and the JVP column within 3e-5 of peak of the reference; "
-           "jacfwd column equals the JVP; 6 fused launches per evaluation")
+           "jacfwd column equals the JVP; 6 fused launches and 1 emission "
+           "tangent launch per evaluation")
 
     # --- the whole retrieval on the reduced deck against the reference
     g = np.load(RETRIEVAL_GOLDEN)
@@ -1231,11 +1252,12 @@ def phase_retrieval(profile: bool = False):
         times = []
         for _ in range(JACOBIAN_RUNS):
             t0 = time.perf_counter()
-            out, launched = _fused_launches(
+            out, launched, emission = _jacobian_launches(
                 lambda: forward_and_jacobian(setup.forward_fn, x))
             times.append((time.perf_counter() - t0) * 1e3)
-            if launched != 6:
-                raise AssertionError(f"{launched} fused launches ({name})")
+            if (launched, emission) != (6, 1):
+                raise AssertionError(f"{launched} fused and {emission} "
+                                     f"emission tangent launches ({name})")
         peak = torch.cuda.max_memory_allocated()
         results[name] = out
         _print(f"forward-plus-Jacobian on jupiter_nadir ({nx} tangents, "
@@ -3483,10 +3505,11 @@ def _models_case(name: str, deck: str, card: str, profile: bool = False):
     primal = combine_pair.launches
     if primal != 6:
         raise AssertionError(f"{name}: {primal} primal launches, expected 6")
-    (yn, kk), fused = _fused_launches(
+    (yn, kk), fused, emission = _jacobian_launches(
         lambda: forward_and_jacobian(s64.forward_fn, xa))
-    if fused != 6:
-        raise AssertionError(f"{name}: {fused} fused launches, expected 6")
+    if (fused, emission) != (6, 1):
+        raise AssertionError(f"{name}: {fused} fused and {emission} emission "
+                             "tangent launches, expected 6 and 1")
     if kk.shape != (ny, nx) or not torch.isfinite(kk).all():
         raise AssertionError(f"{name}: Jacobian not finite ({ny}, {nx})")
     torch.testing.assert_close(yn, y_card, rtol=1e-12, atol=0)
@@ -3519,7 +3542,8 @@ def _models_case(name: str, deck: str, card: str, profile: bool = False):
            f"{np.abs(y64 / y_cpu - 1).max():.3e}); {len(cols)} Jacobian "
            f"columns within 1e-8 of their peaks (worst {worst:.3e}; the "
            f"CPU's columns took {cpu_s:.1f} s); {primal} primal launches per "
-           f"forward, {fused} fused launches per evaluation")
+           f"forward, {fused} fused and {emission} emission tangent launches "
+           f"per evaluation")
 
     # float32 against float64, at PERF.md's gates
     s32 = make_retrieval_setup(deck, "cirstest", device="cuda",
@@ -3716,7 +3740,8 @@ def _primal_launches(fn):
 def _geometry_launches(name: str, setup, x):
     """The main path of a geometry, counted on its own: one forward (kernel
     1) and one forward-plus-Jacobian evaluation (kernel 1t), each exactly
-    6 launches. Returns (y, (yn, kk), primal, fused)."""
+    6 launches. Returns (y, (yn, kk), primal, fused, emission tangent
+    launches of the evaluation)."""
     import torch
 
     from archnemesis_tpu_torch.retrieval.oe import forward_and_jacobian
@@ -3724,14 +3749,14 @@ def _geometry_launches(name: str, setup, x):
     y, primal = _primal_launches(lambda: setup.forward_fn(x))
     if primal != 6:
         raise AssertionError(f"{name}: {primal} primal launches, expected 6")
-    yk, fused = _fused_launches(
+    yk, fused, emission = _jacobian_launches(
         lambda: forward_and_jacobian(setup.forward_fn, x))
     if fused != 6:
         raise AssertionError(f"{name}: {fused} fused launches, expected 6")
     if not torch.isfinite(yk[1]).all():
         raise AssertionError(f"{name}: Jacobian not finite")
     torch.testing.assert_close(yk[0], y, rtol=1e-12, atol=0)
-    return y, yk, primal, fused
+    return y, yk, primal, fused, emission
 
 
 def _limb_case(card: str):
@@ -3749,7 +3774,11 @@ def _limb_case(card: str):
     cpu = make_retrieval_setup_limb(LIMB_DECK, "cirstest", device="cpu")
     nx, ny = s64.sv.nx, s64.y.shape[0]
     xa = torch.as_tensor(s64.sv.xa, device="cuda")
-    y, (_, kk), primal, fused = _geometry_launches("limb", s64, xa)
+    y, (_, kk), primal, fused, emission = _geometry_launches("limb", s64,
+                                                             xa)
+    if emission != 1:
+        raise AssertionError(f"limb: {emission} emission tangent launches, "
+                             "expected 1")
     y64 = y.cpu().numpy()
 
     # the reference golden at tests/test_forward_limb.py's tolerances
@@ -3775,11 +3804,13 @@ def _limb_case(card: str):
            f"CPU's forward within 1e-10 (max rel "
            f"{np.abs(y64 / y_cpu - 1).max():.3e}); columns {cols} within "
            f"{col_err.max():.3e} of their peaks; {primal} primal launches "
-           f"per forward, {fused} fused launches per evaluation")
+           f"per forward, {fused} fused and {emission} emission tangent "
+           f"launches per evaluation")
 
     s32 = make_retrieval_setup_limb(LIMB_DECK, "cirstest", device="cuda",
                                     dtype=torch.float32)
-    y32, (_, k32), _, _ = _geometry_launches("limb float32", s32, xa.float())
+    y32, (_, k32), *_ = _geometry_launches("limb float32", s32,
+                                           xa.float())
     r = rel_err(y32.double().cpu().numpy(), y64)
     col_err, misses = jacobian_column_misses(k32, kk, s64.sv.entries)
     _print(f"limb float32 vs float64: spectrum max rel {r.max():.3e}, "
@@ -3830,8 +3861,8 @@ def _disc_case(card: str):
         setup = make_retrieval_setup_disc(DECK, "cirstest", nmu=nmu,
                                           device="cuda")
         xa = torch.as_tensor(setup.sv.xa, device="cuda")
-        y, _, primal, fused = _geometry_launches(f"disc nmu={nmu}", setup,
-                                                 xa)
+        y, _, primal, fused, emission = _geometry_launches(
+            f"disc nmu={nmu}", setup, xa)
         if nmu == 3:
             d = np.load(DISC_GOLDEN)
             want = d["SPECONV"]
@@ -3842,7 +3873,8 @@ def _disc_case(card: str):
                    f"card: golden within rtol 1e-5 (max rel "
                    f"{np.abs(y.cpu().numpy() / want - 1).max():.3e}); "
                    f"{primal} primal launches per forward, {fused} fused "
-                   f"launches per evaluation")
+                   f"and {emission} emission tangent launches (one a chunk "
+                   f"of rays) per evaluation")
         med, lo, hi, peak_gib = _time_evaluations(setup, xa, GEOM_EVAL_RUNS)
         fwd = _time_forward_ms(lambda: setup.forward_fn(xa))
         _print(f"disc nmu={nmu} (NX={setup.sv.nx}, float64, {card}): "
@@ -4983,9 +5015,10 @@ def _multiloc_case(card: str, base: str):
         return lambda: torch.func.jacfwd(f)(x0)
 
     full = jac_of(8192, "cuda")
-    jac, fused = _fused_launches(full)
-    if fused != 6 or not torch.isfinite(jac).all():
-        raise AssertionError(f"model 1002 Jacobian: {fused} fused launches")
+    jac, fused, emission = _jacobian_launches(full)
+    if (fused, emission) != (6, 1) or not torch.isfinite(jac).all():
+        raise AssertionError(f"model 1002 Jacobian: {fused} fused and "
+                             f"{emission} emission tangent launches")
     ms = _timed(full, TELLURIC_EVAL_RUNS)
     del jac
     small = jac_of(MULTILOC_CPU_NWAVE, "cuda")()
@@ -4995,7 +5028,8 @@ def _multiloc_case(card: str, base: str):
     if not max(col_err) < 1e-10:
         raise AssertionError(f"model 1002 Jacobian off the CPU: {col_err}")
     _print(f"model 1002 jacfwd (3 per-location temperature scales, headline "
-           f"at 3 locations, float64, {card}): {fused} fused launches; median "
+           f"at 3 locations, float64, {card}): {fused} fused and {emission} "
+           f"emission tangent launches; median "
            f"{ms[0]:.3f} ms over {TELLURIC_EVAL_RUNS} runs (min {ms[1]:.3f}, "
            f"max {ms[2]:.3f}), peak memory {ms[3]:.3f} GiB; at "
            f"{MULTILOC_CPU_NWAVE} waves the CPU's columns within "
@@ -5903,6 +5937,95 @@ def headline_jacobian(dtype, device, nwave: int = 8192):
     return fn, x
 
 
+# each float32 tangent of the emission within this share of its peak in
+# the float64 plain version: a slab's 1,420 products summed in float32 in
+# two orders (the plain version's contraction, the kernel's lanes and
+# warp tree), and the recurrences' exponentials, a few eps of float32 each
+EMISSION_F32_REL = 2e-5
+
+
+def limb_layers(nlay: int, tangents) -> tuple:
+    """(layinc, mask) of limb paths down to each tangent layer and back up,
+    padded with masked entries to the longest path."""
+    rows = [list(range(nlay - 1, k - 1, -1)) + list(range(k, nlay))
+            for k in tangents]
+    nlayin = max(len(r) for r in rows)
+    layinc = np.zeros((nlayin, len(rows)), dtype=np.int64)
+    mask = np.zeros((nlayin, len(rows)))
+    for p, r in enumerate(rows):
+        layinc[:len(r), p] = r
+        mask[:len(r), p] = 1.0
+    return layinc, mask
+
+
+def emission_tangent_case(dtype, device, kind="nadir", nwave=8192, ng=20,
+                          nlay=71, n_tan=86, nloc=None, seed=24) -> dict:
+    """Keyword inputs of ``ops/tangent_cuda.py:emission_tangent`` at the
+    layout the forward gives (the Jacobian cell's shape by default): tau a
+    (B, NWAVE, NG, NLAY) view of (B, NWAVE, NLAY, NG) memory, its tangent a
+    view of (T, B, NWAVE, NLAY, NG) memory, optical depths growing with
+    depth; ``kind`` "nadir" (one path, the ground seen) or "limb" (three
+    paths down to layers 0, NLAY/3 and NLAY/2, masked tails, no ground);
+    with ``nloc`` locations, each with its own paths."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape, low=0.0, high=1.0):
+        return low + (high - low) * torch.rand(*shape, generator=g,
+                                                device=device, dtype=dtype)
+
+    nb = 1 if nloc is None else nloc
+    if kind == "limb":
+        layinc, mask = limb_layers(nlay, [0, nlay // 3, nlay // 2])
+    else:
+        layinc = np.arange(nlay - 1, -1, -1, dtype=np.int64)[:, None]
+        mask = np.ones((nlay, 1))
+    layinc, mask = np.tile(layinc, (1, nb)), np.tile(mask, (1, nb))
+    nlayin, npath = layinc.shape
+    depth = torch.exp(torch.linspace(-6.0, 3.0, nlay, device=device,
+                                     dtype=dtype))
+    tau = (depth[:, None] * draw(nb, nwave, nlay, ng)).transpose(-1, -2)
+    dtau = draw(n_tan, nb, nwave, nlay, ng, low=-1.0).transpose(-1, -2)
+    ground = (None if kind == "limb"
+              else draw(nwave, npath, low=1e-7, high=4e-7))
+    return dict(
+        tau=tau, dtau=dtau,
+        layinc=torch.as_tensor(layinc, device=device),
+        mask=torch.as_tensor(mask, dtype=dtype, device=device),
+        scale=draw(nlayin, npath, low=1.0, high=2.0),
+        emtemp=draw(nlayin, npath, low=110.0, high=290.0),
+        ground=ground,
+        dground=None if ground is None else draw(n_tan, nwave, npath,
+                                                 low=-1e-8, high=1e-8),
+        wave=torch.linspace(250.0, 1400.0, nwave, device=device,
+                            dtype=dtype),
+        del_g=torch.as_tensor(gauss_del_g(ng), dtype=dtype, device=device),
+        dscale=draw(n_tan, nlayin, npath, low=-0.1, high=0.1),
+        demtemp=draw(n_tan, nlayin, npath, low=-1.0, high=1.0),
+        loc=None if nloc is None else torch.arange(nloc, device=device),
+        group=npath // nb)
+
+
+def emission_tangent_errors(got, ref) -> float:
+    """Largest error of a tangent over that tangent's peak in ``ref``."""
+    peak = ref.abs().amax(dim=(1, 2))
+    return ((got.double() - ref).abs().amax(dim=(1, 2)) / peak).max().item()
+
+
+def emission_tangent_bound_ms(kw: dict) -> float:
+    """Least time of one ``emission_tangent`` on an H100: its inputs read
+    once (the optical-depth tangent leads; the primal, the paths and their
+    tangents, the ground's) and its (T, NWAVE, NPATH) output written, over
+    HBM bandwidth."""
+    n_tan, nwave, npath = kw["dtau"].shape[0], kw["wave"].shape[0], \
+        kw["layinc"].shape[1]
+    elems = sum(x.numel() for k, x in kw.items()
+                if k not in ("loc", "group") and x is not None)
+    return ((elems + n_tan * nwave * npath) * kw["tau"].element_size()
+            / PEAK_BYTES_S * 1e3)
+
+
 def _gas_tau_tangent_case(dtype, n_batch: int, n_tan: int, seed: int):
     """Kernel against plain on card tensors of the evaluation's shape:
     (max abs error, max error over its bound's scale, kernel ms, plain
@@ -5959,13 +6082,15 @@ def phase_tangent_passes(card: str) -> dict:
     fn, x = headline_jacobian(torch.float32, "cuda")
     tangent_cuda.gas_tau_tangent.launches = 0
     tangent_cuda.skip_rows_.launches = 0
+    tangent_cuda.emission_tangent.launches = 0
     y, kk = forward_and_jacobian(fn, x)
     torch.cuda.synchronize()
     launches = (tangent_cuda.gas_tau_tangent.launches,
-                tangent_cuda.skip_rows_.launches)
+                tangent_cuda.skip_rows_.launches,
+                tangent_cuda.emission_tangent.launches)
     _, fused = _fused_launches(lambda: forward_and_jacobian(fn, x))
     nx = x.shape[0]
-    if (launches != (7, 6) or fused != 6 or kk.shape != (NWAVE, nx)
+    if (launches != (7, 6, 1) or fused != 6 or kk.shape != (NWAVE, nx)
             or not (torch.isfinite(kk).all() and torch.isfinite(y).all())):
         raise AssertionError(f"Jacobian of the headline: launches "
                              f"{launches} and {fused} fused, K "
@@ -5974,10 +6099,10 @@ def phase_tangent_passes(card: str) -> dict:
     ms = _timed(lambda: forward_and_jacobian(fn, x), TANGENT_RUNS)
     _print(f"forward_and_jacobian of the headline (NX = {nx}, {NWAVE} "
            f"waves x {NG} g x {NLAY} layers x 7 gases, float32, {card}): "
-           f"{launches[0]} gas_tau_tangent, {launches[1]} skip_rows_ and "
-           f"{fused} kernel-1t launches; median {ms[0]:.3f} ms over "
-           f"{TANGENT_RUNS} runs (min {ms[1]:.3f}, max {ms[2]:.3f}), peak "
-           f"memory {ms[3]:.3f} GiB")
+           f"{launches[0]} gas_tau_tangent, {launches[1]} skip_rows_, "
+           f"{launches[2]} emission_tangent and {fused} kernel-1t launches; "
+           f"median {ms[0]:.3f} ms over {TANGENT_RUNS} runs (min "
+           f"{ms[1]:.3f}, max {ms[2]:.3f}), peak memory {ms[3]:.3f} GiB")
     del fn, x
     torch.cuda.empty_cache()
 
@@ -6029,7 +6154,57 @@ def phase_tangent_passes(card: str) -> dict:
     records["skip_rows_"] = dict(
         launches=launches[1], max_abs_err=0.0, ms=k_ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by="bytes", library_ms=None)
+    del dout, da, db
+    torch.cuda.empty_cache()
+    records["emission_tangent"] = _emission_tangent_gate(card, launches[2])
     return records
+
+
+def _emission_tangent_gate(card: str, launches: int) -> dict:
+    """``emission_tangent`` at the Jacobian cell's width in float32 against
+    the plain version in float64 (and in float32, printed), timed beside
+    the plain version in float32 and its bound."""
+    import torch
+
+    from archnemesis_tpu_torch.ops.tangent_cuda import (
+        emission_tangent,
+        emission_tangent_plain,
+    )
+
+    kw = emission_tangent_case(torch.float32, "cuda")
+    before = emission_tangent.launches
+    got = emission_tangent(**kw)
+    torch.cuda.synchronize()
+    if emission_tangent.launches != before + 1:
+        raise AssertionError("emission_tangent: not one launch")
+    plain32 = emission_tangent_plain(**kw)
+    kw64 = {k: (v.double() if isinstance(v, torch.Tensor)
+                and v.is_floating_point() else v) for k, v in kw.items()}
+    ref = emission_tangent_plain(**kw64)
+    del kw64
+    err = emission_tangent_errors(got, ref)
+    err_plain = emission_tangent_errors(plain32, ref)
+    max_abs = (got.double() - ref).abs().max().item()
+    del got, plain32, ref
+    torch.cuda.empty_cache()
+    if not err < EMISSION_F32_REL:
+        raise AssertionError(f"emission_tangent float32: {err:.3e} of a "
+                             f"tangent's peak off the float64 plain version "
+                             f"(gate {EMISSION_F32_REL:.0e})")
+    ms = _cuda_ms(lambda: emission_tangent(**kw), reps=TANGENT_RUNS)
+    plain_ms = _cuda_ms(lambda: emission_tangent_plain(**kw),
+                        reps=TANGENT_RUNS)
+    bound = emission_tangent_bound_ms(kw)
+    n_tan, _, nwave, ng, nlay = kw["dtau"].shape
+    _print(f"emission_tangent vs plain (T = {n_tan}, {nwave} waves x {ng} "
+           f"g x {nlay} layers, float32, {card}): {err:.3e} of a tangent's "
+           f"peak off the float64 plain version (gate "
+           f"{EMISSION_F32_REL:.0e}; the float32 plain version "
+           f"{err_plain:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+           f"bound {bound:.4f} ms (bytes; {ms / bound:.2f}x)")
+    return dict(launches=launches, max_abs_err=max_abs, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                library_ms=None)
 
 
 LAYER_GRAPH_RUNS = 20

@@ -251,8 +251,8 @@ def test_manifest_holds_the_jacobian_cell():
                      "kinterp_ms.jac", "layering_ms.jac", "emission_ms.jac",
                      "peak_mem_gib.jac", "device_idle_pct.jac",
                      "device_ms_per_call.jac", "launches_per_call.jac",
-                     "host_ms_per_call.jac"]
-    for name in names[-4:-1]:
+                     "host_ms_per_call.jac", "emission_fused_pct.jac"]
+    for name in names[-5:-2]:
         fwd = mf.metric(name.replace(".jac", ".fwd"))
         trace = type("Trace", (), {"busy_s": 0.6, "window_s": 0.8,
                                    "kernels": lambda self: [0] * 30})()

@@ -17,6 +17,7 @@ from archnemesis_tpu_torch import convert
 from archnemesis_tpu_torch.forward import forward_nadir, make_forward_config
 from archnemesis_tpu_torch.io.legacy import load_deck
 from archnemesis_tpu_torch.retrievals import make_retrieval_setup
+from archnemesis_tpu_torch.rt.emission import TANGENT_SPAN
 from archnemesis_tpu_torch.utils import profiling
 from nembench.harness import manifest as mf
 from port_cases import (
@@ -314,9 +315,11 @@ def test_traced_jacobian_leaves_one_record(chunk_size, passes):
     assert len(forwards) == passes and record.forwards == forwards
     assert record.peak_bytes is None and record.stream_ms is None
     assert record.spans[profiling.JACOBIAN_SPAN].calls == 1
+    # the emission's tangents in one call, inside ``nemesis.spectrum``
     assert set(record.spans) == (LAYERS["ck"] - {"nemesis.cia", "nemesis.dust"}
                                  | {profiling.FORWARD_SPAN,
-                                    profiling.JACOBIAN_SPAN})
+                                    profiling.JACOBIAN_SPAN,
+                                    TANGENT_SPAN})
     for name, stat in record.spans.items():
         if name == profiling.JACOBIAN_SPAN:
             continue
