@@ -985,7 +985,9 @@ def forward_scattering_nadir(
     adding-doubling core directly (no LOS scaling). Returns (NWAVE, NPATH)
     with one path per (sol, emiss, azi) angle; the structures are moved to
     ``device`` first (None = CUDA; raises without a card unless
-    ``device="cpu"``)."""
+    ``device="cpu"``). Spans as ``forward_nadir``'s (``nemesis.forward``
+    around the body, ``nemesis.layering``, the layer opacities'), and the
+    scattering core's (``rt/scattering.py``)."""
     from archnemesis_tpu_torch.ops.planck import planck
     from archnemesis_tpu_torch.rt.scattering import (
         brdf_fourier_matrix,
@@ -994,69 +996,74 @@ def forward_scattering_nadir(
     )
     from archnemesis_tpu_torch.rt.surface import surface_brdf_fn
 
-    device = resolve_device(device)
-    atm, ktab, cia, aero, surf, stellar = _to_device(
-        device, atm, ktab, cia, aero, surf, stellar)
+    with annotate(FORWARD_SPAN):
+        device = resolve_device(device)
+        atm, ktab, cia, aero, surf, stellar = _to_device(
+            device, atm, ktab, cia, aero, surf, stellar)
 
-    layers = apply_dust_renorm(build_layers(atm, laycfg, layang=0.0), atm)
-    wave = ktab.wave
-    taus = layer_optical_depths(cfg, layers, wave, ktab, cia, aero)
+        with annotate("nemesis.layering"):
+            layers = apply_dust_renorm(build_layers(atm, laycfg, layang=0.0),
+                                       atm)
+        wave = ktab.wave
+        taus = layer_optical_depths(cfg, layers, wave, ktab, cia, aero)
 
-    bnu = planck(wave[:, None], layers.temp[None, :], ispace=int(cfg.ispace))
-    nmu = quad.nmu
-    if _ground(surf, cfg):
-        emiss = interp1d_extrap(surf.vem, surf.emissivity, wave)
-        radg = (planck(wave, surf.tsurf, ispace=int(cfg.ispace))
-                * emiss)[:, None] * wave.new_ones((1, nmu))
-    else:
-        radg = bnu[:, 0:1] * wave.new_ones((1, nmu))
-    # reflective lower boundary: BRDF Fourier matrix enters the doubling
-    # ladder as the bottom layer (reference scloud11wave:5099-5103
-    # calc_brdf_matrix for LOWBC != THERMAL; Lambert AND Hapke/Oren-Nayar)
-    brdf_matrix = None
-    if surf is not None and not cfg.gasgiant and int(surf.lowbc) != 0:
-        brdf_matrix = brdf_fourier_matrix(
-            surface_brdf_fn(surf, wave), quad, wave.shape[0]
+        bnu = planck(wave[:, None], layers.temp[None, :],
+                     ispace=int(cfg.ispace))
+        nmu = quad.nmu
+        if _ground(surf, cfg):
+            emiss = interp1d_extrap(surf.vem, surf.emissivity, wave)
+            radg = (planck(wave, surf.tsurf, ispace=int(cfg.ispace))
+                    * emiss)[:, None] * wave.new_ones((1, nmu))
+        else:
+            radg = bnu[:, 0:1] * wave.new_ones((1, nmu))
+        # reflective lower boundary: BRDF Fourier matrix enters the doubling
+        # ladder as the bottom layer (reference scloud11wave:5099-5103
+        # calc_brdf_matrix for LOWBC != THERMAL; Lambert AND Hapke/Oren-Nayar)
+        brdf_matrix = None
+        if surf is not None and not cfg.gasgiant and int(surf.lowbc) != 0:
+            with annotate("nemesis.scatter.phase"):
+                brdf_matrix = brdf_fourier_matrix(
+                    surface_brdf_fn(surf, wave), quad, wave.shape[0]
+                )
+
+        sol = solar_flux(stellar, wave)
+
+        phase_fns = [
+            (lambda c, f=f, g1=g1, g2=g2: henyey_greenstein2(
+                c[None], f[:, None, None, None], g1[:, None, None, None],
+                g2[:, None, None, None]))
+            for f, g1, g2 in _hg_mode_params(hgphase, wave.double())
+        ]
+
+        # per-mode scattering fraction (reference wrapper FRAC :5109-5118)
+        tauscat = taus["tauscat"]
+        tauclscat = taus["tauclscat"]  # (NWAVE, NLAY, NDUST)
+        safe = torch.where(tauscat > 0.0, tauscat, 1.0)
+        lfrac = torch.where(
+            (tauscat > 0.0)[:, :, None], tauclscat / safe[:, :, None], 0.0
         )
+        lfrac = lfrac.permute(0, 2, 1)  # (NWAVE, NCONT, NLAY)
 
-    sol = solar_flux(stellar, wave)
-
-    phase_fns = [
-        (lambda c, f=f, g1=g1, g2=g2: henyey_greenstein2(
-            c[None], f[:, None, None, None], g1[:, None, None, None],
-            g2[:, None, None, None]))
-        for f, g1, g2 in _hg_mode_params(hgphase, wave.double())
-    ]
-
-    # per-mode scattering fraction (reference wrapper FRAC :5109-5118)
-    tauscat = taus["tauscat"]
-    tauclscat = taus["tauclscat"]  # (NWAVE, NLAY, NDUST)
-    safe = torch.where(tauscat > 0.0, tauscat, 1.0)
-    lfrac = torch.where(
-        (tauscat > 0.0)[:, :, None], tauclscat / safe[:, :, None], 0.0
-    )
-    lfrac = lfrac.permute(0, 2, 1)  # (NWAVE, NCONT, NLAY)
-
-    rad = scloud11wave_tiled(
-        quad, phase_fns,
-        radg=radg,
-        brdf_matrix=brdf_matrix,
-        sol_ang=sol_ang,
-        emiss_ang=emiss_ang,
-        azi_ang=azi_ang,
-        solar=sol,
-        bnu=bnu,
-        taus=taus["tautot"],
-        tauray=taus["tauray"],
-        tauscat=tauscat,
-        lfrac=lfrac,
-        iray=iray_phase,
-        wave_tile=cfg.scat_wave_tile,
-    )  # (NWAVE, NG, NPATH)
-    spec = torch.einsum("wgp,g->wp", rad, ktab.del_g)
-    if return_diagnostics:
-        return spec, {"layers": layers, **taus, "rad_g": rad}
-    return spec
+        rad = scloud11wave_tiled(
+            quad, phase_fns,
+            radg=radg,
+            brdf_matrix=brdf_matrix,
+            sol_ang=sol_ang,
+            emiss_ang=emiss_ang,
+            azi_ang=azi_ang,
+            solar=sol,
+            bnu=bnu,
+            taus=taus["tautot"],
+            tauray=taus["tauray"],
+            tauscat=tauscat,
+            lfrac=lfrac,
+            iray=iray_phase,
+            wave_tile=cfg.scat_wave_tile,
+        )  # (NWAVE, NG, NPATH)
+        spec = torch.einsum("wgp,g->wp", rad, ktab.del_g)
+        if return_diagnostics:
+            return spec, {"layers": layers, **taus, "rad_g": rad}
+        return spec
 
 
 def forward_singlescat_nadir(

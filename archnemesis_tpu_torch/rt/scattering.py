@@ -26,6 +26,16 @@ Float32 runs this same AoS algebra with the unrolled Gauss-Jordan inverse
 struct-of-arrays "rows" core exists for the TPU's (8, 128) register tile and
 has no counterpart here. The phase-matrix stacks are built in float64 and
 cast to the run's type (their Hansen test of 1e-14 needs float64).
+
+Spans (``utils/profiling.annotate``, off unless a profiler records):
+``nemesis.scatter.phase`` around the phase-matrix stacks with Hansen's
+normalisation (once a forward) and, in ``forward.py``, the BRDF Fourier
+matrix; per wave tile ``nemesis.scatter.doubling`` around ``layer_rtj``
+with its ladder and ``nemesis.scatter.adding`` around ``combine_path``,
+the angle interpolation and the azimuth sum. Counters
+(``utils/profiling.count``): ``scatter.hansen_reads`` (a host read a
+Hansen sweep), ``scatter.ladder_reads`` (a host read a ladder bound) and
+``scatter.tiles`` (a core call a wave tile).
 """
 
 from __future__ import annotations
@@ -35,13 +45,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from archnemesis_tpu_torch.utils.profiling import annotate, count
+
 # Doubling ladder depth: supports taut up to 2^(NN_MAX-12) ~ 8.4e6 before
 # the initial thin layer stops getting thinner (reference ipow0 = 12).
 NN_MAX = 35
-
-# host reads made by the data-dependent loops (Hansen sweeps and ladder
-# bounds), for the chip run's count of host synchronisations
-host_reads = {"hansen": 0, "ladder": 0}
 
 
 @dataclass(frozen=True)
@@ -150,7 +158,7 @@ def hansen_normalise(pplpl, pplmi, wtmu):
 
     def test_of(fc):
         tsum = torch.einsum("...ij,i,...ij->...j", pplpl, wt, fc) * x1
-        host_reads["hansen"] += 1
+        count("scatter.hansen_reads")
         return tsum, float(torch.max(torch.abs(rsum + tsum - 1.0)))
 
     fc = torch.ones_like(pplpl)
@@ -269,7 +277,7 @@ def _double_layer(pplpl, pplmi, omega, taut, bc, cc_diag, mminv_diag,
     )  # (..., nmu)
     j1 = j1[..., None]  # (..., nmu, 1)
 
-    host_reads["ladder"] += 1
+    count("scatter.ladder_reads")
     upper = min(int(nn.max()), nn_max)
     for k in range(upper):
         rn, tn, jn = _combine(r1, t1, j1, r1, t1, j1, True, thresh=0.1,
@@ -543,75 +551,78 @@ def _scloud11wave_core(
     con_fac = 1.0 + j_on
 
     # every per-layer input broadcasts against (nc, nwave, ng, nlay)
-    rl, tl, jl = layer_rtj(
-        taus[None],
-        tscat_g[None],
-        tauray[None, :, None, :],
-        bnu[None, :, None, :],
-        torch.movedim(lfrac, 1, 2)[None, :, None],  # (1, nwave, 1, nlay, nc')
-        ppln[:, :, None, None], pmin[:, :, None, None],
-        pplr_b[:, :, None, None], pmir_b[:, :, None, None],
-        cc_diag, mminv_diag, j_on, con_fac, nn_max,
-    )  # (nc, nwave, ng, nlay, nmu, nmu)
+    count("scatter.tiles")
+    with annotate("nemesis.scatter.doubling"):
+        rl, tl, jl = layer_rtj(
+            taus[None],
+            tscat_g[None],
+            tauray[None, :, None, :],
+            bnu[None, :, None, :],
+            # (1, nwave, 1, nlay, nc')
+            torch.movedim(lfrac, 1, 2)[None, :, None],
+            ppln[:, :, None, None], pmin[:, :, None, None],
+            pplr_b[:, :, None, None], pmir_b[:, :, None, None],
+            cc_diag, mminv_diag, j_on, con_fac, nn_max,
+        )  # (nc, nwave, ng, nlay, nmu, nmu)
+    with annotate("nemesis.scatter.adding"):
+        # combine top-down (lookdown): layer index 0 = top is combined LAST in
+        # the reference (it iterates l=0..nlay-1 with k=l and the accumulated
+        # rsub below); the loop wants the first-combined layer first.
+        rl_s = torch.movedim(rl, 3, 0)  # (nlay, nc, nwave, ng, nmu, nmu)
+        tl_s = torch.movedim(tl, 3, 0)
+        jl_s = torch.movedim(jl, 3, 0)
 
-    # combine top-down (lookdown): layer index 0 = top is combined LAST in
-    # the reference (it iterates l=0..nlay-1 with k=l and the accumulated
-    # rsub below); the loop wants the first-combined layer first.
-    rl_s = torch.movedim(rl, 3, 0)  # (nlay, nc, nwave, ng, nmu, nmu)
-    tl_s = torch.movedim(tl, 3, 0)
-    jl_s = torch.movedim(jl, 3, 0)
+        j_on_p = j_on[..., None]  # (nc,1,1,1,1) against (..., nmu, 1)
+        j_on_mask = j_on_p > 0.0
+        if brdf_matrix is not None:
+            rs = (
+                2.0 * np.pi * torch.movedim(brdf_matrix, 3, 0)
+                * taus.new_tensor(mu_d)[None, None, None, :]
+                * taus.new_tensor(wt_d)[None, None, None, :]
+            ) * xfac  # (nc, nwave, nmu, nmu)
+            rs = rs[:, :, None].expand(nc, nwave, ng, quad.nmu, quad.nmu)
+            js = radg_d[None, :, None, :, None].expand(
+                nc, nwave, ng, quad.nmu, 1) * j_on_p
+            ts = torch.zeros_like(rs)
+            rcomb, tcomb, jcomb = combine_path(
+                rl_s, tl_s, jl_s, j_on_mask, r0=rs, t0=ts, j0=js
+            )
+        else:
+            rcomb, tcomb, jcomb = combine_path(rl_s, tl_s, jl_s, j_on_mask)
 
-    j_on_p = j_on[..., None]  # (nc,1,1,1,1) against (..., nmu, 1)
-    j_on_mask = j_on_p > 0.0
-    if brdf_matrix is not None:
-        rs = (
-            2.0 * np.pi * torch.movedim(brdf_matrix, 3, 0)
-            * taus.new_tensor(mu_d)[None, None, None, :]
-            * taus.new_tensor(wt_d)[None, None, None, :]
-        ) * xfac  # (nc, nwave, nmu, nmu)
-        rs = rs[:, :, None].expand(nc, nwave, ng, quad.nmu, quad.nmu)
-        js = radg_d[None, :, None, :, None].expand(
-            nc, nwave, ng, quad.nmu, 1) * j_on_p
-        ts = torch.zeros_like(rs)
-        rcomb, tcomb, jcomb = combine_path(
-            rl_s, tl_s, jl_s, j_on_mask, r0=rs, t0=ts, j0=js
-        )
-    else:
-        rcomb, tcomb, jcomb = combine_path(rl_s, tl_s, jl_s, j_on_mask)
+        jcomb = jcomb * j_on_p
 
-    jcomb = jcomb * j_on_p
+        # path extraction (reference :886-958), lookdown
+        utmi = radg_d[None] * j_on[..., 0]  # (nc, nwave, nmu)
+        base = (
+            torch.einsum("cwgij,cwj->cwgi", tcomb, utmi) + jcomb[..., 0]
+        )  # (nc, nwave, ng, nmu)
 
-    # path extraction (reference :886-958), lookdown
-    utmi = radg_d[None] * j_on[..., 0]  # (nc, nwave, nmu)
-    base = (
-        torch.einsum("cwgij,cwj->cwgi", tcomb, utmi) + jcomb[..., 0]
-    )  # (nc, nwave, ng, nmu)
+        cosfac = np.cos(
+            ic_axis[:, None] * np.deg2rad(azi_ang)[None, :]
+        ) * np.where(ic_axis[:, None] > 0, 2.0, 1.0)  # (nc, npath)
 
-    cosfac = np.cos(
-        ic_axis[:, None] * np.deg2rad(azi_ang)[None, :]
-    ) * np.where(ic_axis[:, None] > 0, 2.0, 1.0)  # (nc, npath)
+        def path_rad(ip):
+            s = sol_on[ip] * solar / (2.0 * np.pi)  # (nwave,)
+            i0 = int(isol[ip])
+            ie = int(iemm[ip])
+            yx = []
+            for d0 in (0, 1):
+                col = rcomb[..., i0 + d0]  # (nc, nwave, ng, nmu)
+                umi = base + col * (s / wt_d[i0 + d0])[:, None, None]
+                for de in (0, 1):
+                    yx.append(umi[..., ie + de])
+            tt, uu = float(t[ip]), float(u[ip])
+            drad = (
+                (1 - tt) * (1 - uu) * yx[0]
+                + tt * (1 - uu) * yx[1]
+                + (1 - tt) * uu * yx[2]
+                + tt * uu * yx[3]
+            )  # (nc, nwave, ng)
+            return torch.einsum("cwg,c->wg", drad,
+                                drad.new_tensor(cosfac[:, ip]))
 
-    def path_rad(ip):
-        s = sol_on[ip] * solar / (2.0 * np.pi)  # (nwave,)
-        i0 = int(isol[ip])
-        ie = int(iemm[ip])
-        yx = []
-        for d0 in (0, 1):
-            col = rcomb[..., i0 + d0]  # (nc, nwave, ng, nmu)
-            umi = base + col * (s / wt_d[i0 + d0])[:, None, None]
-            for de in (0, 1):
-                yx.append(umi[..., ie + de])
-        tt, uu = float(t[ip]), float(u[ip])
-        drad = (
-            (1 - tt) * (1 - uu) * yx[0]
-            + tt * (1 - uu) * yx[1]
-            + (1 - tt) * uu * yx[2]
-            + tt * uu * yx[3]
-        )  # (nc, nwave, ng)
-        return torch.einsum("cwg,c->wg", drad,
-                            drad.new_tensor(cosfac[:, ip]))
-
-    return torch.stack([path_rad(ip) for ip in range(npath)], dim=-1)
+        return torch.stack([path_rad(ip) for ip in range(npath)], dim=-1)
 
 
 def scloud11wave(
@@ -641,8 +652,9 @@ def scloud11wave(
     wave, (nwave, ...) or broadcastable.
     """
     nwave = taus.shape[0]
-    stacks = _phase_stacks(quad, phase_fns, iray, nwave, taus.dtype,
-                           taus.device)
+    with annotate("nemesis.scatter.phase"):
+        stacks = _phase_stacks(quad, phase_fns, iray, nwave, taus.dtype,
+                               taus.device)
     return _scloud11wave_core(
         quad, *stacks, radg,
         sol_ang, emiss_ang, azi_ang, solar, bnu,
@@ -676,9 +688,10 @@ def scloud11wave_tiled(
             quad, phase_fns, radg, sol_ang, emiss_ang, azi_ang, solar,
             bnu, taus, tauray, tauscat, lfrac, iray, brdf_matrix, nn_max,
         )
-    ppln, pmin, pplr_b, pmir_b = _phase_stacks(
-        quad, phase_fns, iray, nwave, taus.dtype, taus.device
-    )
+    with annotate("nemesis.scatter.phase"):
+        ppln, pmin, pplr_b, pmir_b = _phase_stacks(
+            quad, phase_fns, iray, nwave, taus.dtype, taus.device
+        )
     out = []
     for lo in range(0, nwave, wave_tile):
         w = slice(lo, min(lo + wave_tile, nwave))

@@ -23,6 +23,11 @@ Three layers, in PyTorch's idiom:
   inside it (one on the port's path; a caller that pushes the tangents in
   chunks inside the span runs one a chunk) and, on the card, the peak of
   allocated bytes since its start.
+- ``count(name)``: the program's counters (``counters``, e.g. the
+  scattering core's ``scatter.hansen_reads``, ``scatter.ladder_reads``
+  and ``scatter.tiles``). Always on (one dictionary add); inside a traced
+  forward the record's ``counters`` take the same adds, so a count can be
+  read per forward.
 - ``stopwatch(name)`` + the module-level ``timings`` registry: wall-clock
   stage timing that synchronises the CUDA device of every tensor of the
   block's result before it stops the clock, so the numbers mean what they
@@ -49,7 +54,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from collections import defaultdict, deque
+from collections import Counter, defaultdict, deque
 from dataclasses import dataclass, field
 from typing import Any, ContextManager, Dict, Iterator, List, Optional
 
@@ -164,6 +169,8 @@ class ForwardRecord:
     host_ms: float
     spans: Dict[str, SpanStat]
     stream_ms: Optional[float] = None
+    # the program's counts made inside the forward (``count``)
+    counters: Dict[str, int] = field(default_factory=dict)
     # (name, start, end) stream intervals still to resolve, and the
     # events the record holds in the order recorded: the forward's own
     # first and last
@@ -184,6 +191,7 @@ class JacobianRecord:
     forwards: List[ForwardRecord] = field(default_factory=list)
     peak_bytes: Optional[int] = None
     stream_ms: Optional[float] = None
+    counters: Dict[str, int] = field(default_factory=dict)
     _intervals: list = field(default_factory=list, repr=False)
     _events: list = field(default_factory=list, repr=False)
 
@@ -241,6 +249,13 @@ class Spans:
             frame.start = self._event(frame)
         stack.append(frame)
         return frame
+
+    def count(self, name: str, n: int) -> None:
+        """Add ``n`` to the counter ``name`` of the innermost open record
+        (nothing outside a traced forward or evaluation)."""
+        if self._stack:
+            held = self._stack[-1].record.counters
+            held[name] = held.get(name, 0) + n
 
     def stop_stream(self, frame: _Frame) -> None:
         """The span's end event, before its range closes."""
@@ -419,6 +434,16 @@ def annotate(name: str) -> ContextManager[None]:
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _Span(name)
+
+
+counters: Counter = Counter()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the program's counter ``name`` (``counters``) and,
+    inside a traced forward, to its record's."""
+    counters[name] += n
+    spans.count(name, n)
 
 
 def forward_records(n: Optional[int] = None) -> List[ForwardRecord]:

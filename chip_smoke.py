@@ -2633,6 +2633,20 @@ def phase_scattering_goldens():
             raise AssertionError("float32 scattering deck outside 5e-4")
 
 
+SCATTER_COUNTERS = {"hansen": "scatter.hansen_reads",
+                    "ladder": "scatter.ladder_reads",
+                    "tiles": "scatter.tiles"}
+
+
+def scatter_counts(before=None) -> dict:
+    """The scattering core's counters (``utils/profiling.counters``:
+    Hansen sweeps, ladder bounds, wave tiles), less ``before``'s."""
+    from archnemesis_tpu_torch.utils.profiling import counters
+
+    return {k: counters[name] - (before or {}).get(k, 0)
+            for k, name in SCATTER_COUNTERS.items()}
+
+
 def _scattering_forward(case, tile=None):
     import dataclasses
 
@@ -2670,7 +2684,6 @@ def phase_scattering_headline(profile: bool = False):
     import torch
 
     from archnemesis_tpu_torch.ops.overlap_cuda import combine_pair
-    from archnemesis_tpu_torch.rt import scattering as sc
     from archnemesis_tpu_torch.synthetic import (
         SCAT_NWAVE,
         scattering_headline,
@@ -2679,13 +2692,17 @@ def phase_scattering_headline(profile: bool = False):
     case = scattering_headline(torch.float32, "cuda")
     # the main path, counted on its own
     combine_pair.launches = 0
-    sc.host_reads.update(hansen=0, ladder=0)
+    before = scatter_counts()
     spec = _scattering_forward(case)
     torch.cuda.synchronize()
     launches = combine_pair.launches
-    reads = dict(sc.host_reads)
+    reads = scatter_counts(before)
     if launches != 6:
         raise AssertionError(f"{launches} kernel launches, expected 6")
+    tiles = -(-SCAT_NWAVE // case["cfg"].scat_wave_tile)
+    if not reads["tiles"] == reads["ladder"] == tiles:
+        raise AssertionError(f"{reads}: one ladder bound a tile, {tiles} "
+                             "tiles expected")
     if spec.shape != (SCAT_NWAVE, 1) or not torch.isfinite(spec).all():
         raise AssertionError("scattering headline spectrum not finite")
     spec64 = _scattering_forward(scattering_headline(torch.float64, "cuda"))
@@ -2695,8 +2712,8 @@ def phase_scattering_headline(profile: bool = False):
            f"NMU=5, NF=2, NPHI=100, 2 HG modes, Rayleigh, solar): "
            f"{launches} launches of kernel 1; host reads per forward: "
            f"{reads['hansen']} Hansen sweeps, {reads['ladder']} ladder "
-           f"bounds; float32 vs float64 {e32:.3e} of peak, max rel "
-           f"{r.max():.3e}")
+           f"bounds over {reads['tiles']} wave tiles; float32 vs float64 "
+           f"{e32:.3e} of peak, max rel {r.max():.3e}")
     if not e32 < SCAT_F32_BOUND:
         raise AssertionError("float32 scattering headline outside 5e-4")
     del spec64
@@ -2796,7 +2813,6 @@ def phase_scattering_retrieval(profile: bool = False):
         make_retrieval_setup,
         retrieval_nemesis,
     )
-    from archnemesis_tpu_torch.rt import scattering as sc
 
     s64 = make_retrieval_setup(SCAT_DECK, "cirstest", device="cuda")
     cpu = make_retrieval_setup(SCAT_DECK, "cirstest", device="cpu")
@@ -2813,10 +2829,10 @@ def phase_scattering_retrieval(profile: bool = False):
 
     # the main path of this phase, counted on its own: one
     # forward-plus-Jacobian evaluation, all tangents in one pass
-    sc.host_reads.update(hansen=0, ladder=0)
+    before = scatter_counts()
     (yn, kk), launches = _fused_launches(
         lambda: forward_and_jacobian(s64.forward_fn, xa))
-    reads = dict(sc.host_reads)
+    reads = scatter_counts(before)
     if launches != 6:
         raise AssertionError(f"{launches} fused launches, expected 6")
     if kk.shape != (ny, nx) or not torch.isfinite(kk).all():
